@@ -6,11 +6,16 @@
 Phases (any failed check raises, and the script exits nonzero):
 
 1. device and build: the card's name and power limit (``nvidia-smi``), then
-   the Hopper panel-matmul kernel built from ``src/repro_torch/csrc``;
-2. kernel: ``ops.matmul`` (the kernel) against its plain version on the
-   card — f32 and bf16 at 4096^3 and the ragged (96, 160, 224), and at the
-   SUMMA round's batched shape (16 ranks x 4096^3, f32), timed beside the
-   plain version and ``torch.matmul``;
+   the Hopper kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all started together), with each one's registers, shared memory
+   and spills;
+2. kernels against their plain versions on the card: ``ops.matmul`` — f32
+   and bf16 at 4096^3 and the ragged (96, 160, 224), and at the SUMMA
+   round's batched shape (16 ranks x 4096^3, f32), timed beside the plain
+   version and ``torch.matmul``; ``ops.q4_matmul`` — (4, 64, 16), the ragged
+   (5, 96, 20), bf16 ``a`` at (96, 256, 224), all group 32, and the lossy
+   ``ag_matmul`` chunk's batched shape (8 ranks x 2048 x 7168 x 5120),
+   timed beside the plain version; every timed row prints its bound;
 3. collectives: every primitive over ``default_matrix()`` at 2^20 f32
    elements per rank — values agree across schemes, the traffic record
    prices to each scheme's ``links()``, and the measured resident result
@@ -19,9 +24,19 @@ Phases (any failed check raises, and the script exits nonzero):
    kernel, each within rel_err 1e-5 of ``torch.matmul``;
 5. BPMF: the 2x4 grid at the MovieLens-1M shape (6040 users x 3704 items,
    4.5% observed, D = 16, 10 sweeps) — naive and hybrid give identical
-   predictions and the held-out RMSE beats the zero predictor.
+   predictions and the held-out RMSE beats the zero predictor;
+6. lossy collectives: ``traffic.check_lossy`` over ``default_matrix()`` at
+   2^20 f32 elements per rank — every quantized wire format prices to its
+   ``links()``, stays within its error bound, keeps each rank's own pod
+   region exact and ``q4_shared`` one copy per node; each row's bridge
+   bytes print beside its exact parent's;
+7. lossy ``ag_matmul`` at the width of ``mistral-nemo-12b``'s MLP
+   down-projection (K = d_ff = 14336, N = d_model = 5120) on the 1x8
+   cluster: ``precision="lossy", use_kernel=True`` within rel_err 1e-5 of
+   ``x @ dequantize_q4(quantize_q4(w))``, timed beside the exact
+   ``ag_matmul``, with the gathered bytes of both.
 
-Kernel launch counts are zeroed just before phases 3-5 (the main path) and
+Kernel launch counts are zeroed just before phases 3-7 (the main path) and
 read just after.  The line before the last is a JSON ``kernels`` record;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -64,6 +79,18 @@ def check_close(got, want, dtype, K: int, what: str) -> float:
     return err.max().item()
 
 
+def bound(flops: float, moved: float, peak: float) -> tuple[float, str]:
+    """The least time the card could take (ms): the larger of ``moved``
+    bytes at 3.35 TB/s and ``flops`` at ``peak`` FLOP/s, and which."""
+    ops_ms, bytes_ms = flops / peak * 1e3, moved / 3.35e12 * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+FP32_FMA, BF16_TENSOR = 67e12, 989e12     # H100 SXM peaks, FLOP/s
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -73,9 +100,14 @@ def main() -> int:
         __file__)), "src"))
     from repro_torch.analysis import traffic
     from repro_torch.apps import bpmf, summa
+    from repro_torch.comm import Communicator
+    from repro_torch.comm.quantize import dequantize_q4, quantize_q4
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels import matmul as kmatmul
     from repro_torch.kernels import ops
-    from repro_torch.substrate import default_matrix
+    from repro_torch.kernels import quant as kquant
+    from repro_torch.substrate import VirtualCluster, default_matrix
+    from repro_torch.substrate.collectives import recording
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -90,12 +122,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    lib = kmatmul.library()
-    print(f"[build] {lib.path.name} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {lib.build_seconds:.1f} s)")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    libs = _cuda.build_all()
+    print(f"[build] {len(libs)} sources in {time.perf_counter() - t0:.1f} s")
+    for lib in libs.values():
+        print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+    kmatmul.library()
+    kquant.library()
 
     # -- 2. kernel vs its plain version ----------------------------------------
     t_phase = time.perf_counter()
@@ -110,11 +145,16 @@ def main() -> int:
             line = f"[kernel] {str(dtype)[6:]:8s} {M}x{K}x{N}: " \
                    f"max|err| {err:.3g}"
             if M == 4096:
+                b_ms, b_by = bound(2.0 * M * K * N,
+                                   (M * K + K * N + M * N) * a.element_size(),
+                                   FP32_FMA if dtype == torch.float32
+                                   else BF16_TENSOR)
                 line += (f"  kernel {cuda_ms(lambda: ops.matmul(a, b), 5):.3f}"
                          f" ms  plain "
                          f"{cuda_ms(lambda: kmatmul.matmul_plain(a, b), 5):.3f}"
                          f" ms  torch.matmul "
-                         f"{cuda_ms(lambda: torch.matmul(a, b), 5):.3f} ms")
+                         f"{cuda_ms(lambda: torch.matmul(a, b), 5):.3f} ms  "
+                         f"bound {b_ms:.3f} ms ({b_by})")
             print(line)
     # the main path's shape: one SUMMA round = 16 rank panels of 4096^3 f32
     B, M = summa.NODES * summa.CORES, 4096
@@ -130,17 +170,59 @@ def main() -> int:
     lib_ms = cuda_ms(lambda: torch.matmul(a, b), 3)
     flops = 2.0 * B * M * M * M
     moved = 3.0 * B * M * M * 4                 # A, B read once, C written
-    ops_ms, bytes_ms = flops / 67e12 * 1e3, moved / 3.35e12 * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    bound_ms, bound_by = bound(flops, moved, FP32_FMA)
     print(f"[kernel] f32 {B}x{M}^3 (SUMMA round): max|err| {main_err:.3g}  "
           f"kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s)  plain "
           f"{plain_ms:.3f} ms  torch.matmul {lib_ms:.3f} ms  bound "
-          f"{bound_ms:.3f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+          f"{bound_ms:.3f} ms ({bound_by})")
     del a, b
+
+    # q4_matmul against its plain version (group 32), then at the lossy
+    # ag_matmul chunk's shape: 8 ranks x 2048 tokens x K 7168 x N 5120
+    def q4_case(batch, M, K, N, dtype):
+        a = torch.randn(batch + (M, K), generator=g, device=dev).to(dtype)
+        w = torch.randn(batch + (K, N), generator=g, device=dev)
+        packed, scales = quantize_q4(w, group=32)
+        del w
+        got = ops.q4_matmul(a, packed, scales, group=32)
+        torch.cuda.synchronize()
+        want = kquant.q4_matmul_plain(a, packed, scales, 32)
+        err = check_close(got, want, dtype, K,
+                          f"q4_matmul {dtype} {batch}x{M}x{K}x{N}")
+        return a, packed, scales, err
+
+    for batch, M, K, N, dtype in (((), 4, 64, 16, torch.float32),
+                                  ((), 5, 96, 20, torch.float32),
+                                  ((), 96, 256, 224, torch.bfloat16)):
+        err = q4_case(batch, M, K, N, dtype)[-1]
+        print(f"[kernel] q4_matmul {str(dtype)[6:]:8s} {M}x{K}x{N} g32: "
+              f"max|err| {err:.3g}")
+    QB, QM, QK, QN = 8, 2048, 7168, 5120
+    a, packed, scales, q4_err = q4_case((QB,), QM, QK, QN, torch.float32)
+    q4_ms = cuda_ms(lambda: ops.q4_matmul(a, packed, scales, group=32), 3)
+    q4_plain_ms = cuda_ms(
+        lambda: kquant.q4_matmul_plain(a, packed, scales, 32), 3)
+    dense = dequantize_q4(packed, scales, group=32)
+    dense_ms = cuda_ms(lambda: torch.matmul(a, dense), 3)
+    del dense
+    q4_flops = 2.0 * QB * QM * QK * QN
+    q4_moved = QB * (QM * QK * 4 + QK // 2 * QN + QK // 32 * QN * 4
+                     + QM * QN * 4)
+    q4_bound_ms, q4_bound_by = bound(q4_flops, q4_moved, FP32_FMA)
+    print(f"[kernel] q4_matmul f32 {QB}x{QM}x{QK}x{QN} g32 (lossy ag_matmul "
+          f"chunk): max|err| {q4_err:.3g}  kernel {q4_ms:.3f} ms "
+          f"({q4_flops / q4_ms / 1e9:.1f} TFLOP/s)  plain {q4_plain_ms:.3f} "
+          f"ms  bound {q4_bound_ms:.3f} ms ({q4_bound_by}; "
+          f"{q4_flops:.3g} FLOP, {q4_moved / 1e9:.3f} GB)  library: none "
+          f"computes this function (for orientation only, a different "
+          f"function: torch.matmul on the pre-dequantized dense weight "
+          f"{dense_ms:.3f} ms)")
+    del a, packed, scales
     print(f"[phase] kernel {time.perf_counter() - t_phase:.1f} s")
 
-    # -- main path: zero the counts, drive phases 3-5, read them -----------------
+    # -- main path: zero the counts, drive phases 3-7, read them -----------------
     kmatmul.launches = 0
+    kquant.launches = 0
 
     # -- 3. collectives over the topology matrix --------------------------------
     t_phase = time.perf_counter()
@@ -221,17 +303,88 @@ def main() -> int:
         raise AssertionError("BPMF: naive and hybrid predictions differ")
     print(f"[phase] bpmf {time.perf_counter() - t_phase:.1f} s")
 
-    launches = kmatmul.launches
-    if launches <= 0:
-        raise AssertionError("the main path never launched the matmul kernel")
+    # -- 6. lossy collectives over the topology matrix ---------------------------
+    t_phase = time.perf_counter()
+    for vc in default_matrix(device=dev):
+        rows = traffic.check_lossy(vc, elems=2 ** 20)
+        for r in rows:
+            print(f"[lossy] {vc.label} {r.family}/{r.scheme}{r.opts or ''}: "
+                  f"slow-tier bytes {r.slow_bytes:.0f} ({r.parent} "
+                  f"{r.parent_slow:.0f})  max|err| {r.error:.4g} <= bound "
+                  f"{r.bound:.4g}"
+                  + ("  own pod region exact" if r.own_region_exact else "")
+                  + f"  result bytes/node {r.node_bytes:.0f}")
+        if not rows:
+            raise AssertionError(f"lossy {vc.label}: nothing ran")
+    torch.cuda.synchronize()
+    print(f"[phase] lossy collectives {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 7. lossy ag_matmul at mistral-nemo-12b width ------------------------------
+    # the MLP down-projection w_out (src/repro/models/layers.py:210) of
+    # src/repro/configs/mistral_nemo_12b.py: K = d_ff, N = d_model
+    t_phase = time.perf_counter()
+    d_model, d_ff, tokens, n_chunks = 5120, 14336, 2048, 2
+    vc = VirtualCluster(pods=1, chips=8, device=dev)
+    comm = Communicator.from_cluster(vc)
+    w = torch.randn((d_ff, d_model), generator=g, device=dev)
+    x = torch.randn((vc.num_devices, tokens, d_ff), generator=g, device=dev)
+    w_shard = w.reshape(vc.chips, d_ff // vc.chips, d_model)
+    want = torch.matmul(x, dequantize_q4(*quantize_q4(w, group=32),
+                                         group=32))
+    del w
+    times, gathered = {}, {}
+    with vc.bind():
+        for precision in ("lossy", "exact"):
+            def run(precision=precision):
+                return comm.ag_matmul(x, w_shard, n_chunks=n_chunks,
+                                      use_kernel=True, precision=precision,
+                                      q4_group=32)
+            before = kquant.launches
+            with recording() as rec:
+                got = run()
+            torch.cuda.synchronize()
+            if precision == "lossy":
+                grew = kquant.launches - before
+                rel = ((got - want).abs().max()
+                       / want.abs().max()).item()
+                if not rel <= 1e-5 or not torch.isfinite(got).all():
+                    raise AssertionError(f"lossy ag_matmul: rel_err {rel} "
+                                         "> 1e-5")
+                if grew <= 0:
+                    raise AssertionError("lossy ag_matmul never launched "
+                                         "the q4 kernel")
+            del got
+            t0 = time.perf_counter()        # the second run is the timed one
+            run()
+            torch.cuda.synchronize()
+            times[precision] = (time.perf_counter() - t0) * 1e3
+            gathered[precision] = sum(r.out_bytes for r in rec) / n_chunks
+    print(f"[ag_matmul] mistral-nemo-12b w_out on 1x8 ({tokens} tokens/rank, "
+          f"K {d_ff}, N {d_model}, {n_chunks} chunks, group 32): lossy "
+          f"{times['lossy']:.1f} ms  rel_err={rel:.2e}  q4 launches {grew}  "
+          f"exact {times['exact']:.1f} ms;  gathered bytes/rank/chunk: "
+          f"packed+scales {gathered['lossy']:.0f}  f32 "
+          f"{gathered['exact']:.0f}")
+    del x, w_shard, want
+    print(f"[phase] ag_matmul {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {"matmul": kmatmul.launches, "q4_matmul": kquant.launches}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the main path never launched {name}")
     print(json.dumps({"kernels": [{
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:33",
-        "launches": launches, "max_abs_err": main_err, "ms": k_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": lib_ms}]}))
+        "launches": launches["matmul"], "max_abs_err": main_err, "ms": k_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms}, {
+        "name": "q4_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/q4_matmul.cu",
+        "replaces": "src/repro/kernels/quant.py:53",
+        "launches": launches["q4_matmul"], "max_abs_err": q4_err,
+        "ms": q4_ms, "plain_ms": q4_plain_ms, "bound_ms": q4_bound_ms,
+        "bound_by": q4_bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,19 @@
-"""Where the time goes on the card: SUMMA under ``torch.profiler``.
+"""Where the time goes on the card: SUMMA and ``ag_matmul`` under
+``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.analysis.profile [--n 16384]
         [--chunks 2]
+    PYTHONPATH=src python -m repro_torch.analysis.profile --ag-matmul
 
-For each scheme: one warm-up run, then one profiled run of the whole SUMMA
-(all rounds, ``use_kernel=True``).  Prints the run's wall time, the device
-busy time (the union of every kernel and copy interval on the card, so
-overlapping streams count once), the busy share of the wall time, and the
-kernels that took most device time.  Needs a CUDA device.
+SUMMA: for each scheme, one warm-up run, then one profiled run of the whole
+multiply (all rounds, ``use_kernel=True``).  ``--ag-matmul``: the same for
+``ag_matmul(use_kernel=True)`` at the width of ``mistral-nemo-12b``'s MLP
+down-projection (K = d_ff = 14336, N = d_model = 5120, 2048 tokens per rank,
+1x8 cluster), exact and ``precision="lossy"`` (the q4 kernel).  Prints each
+run's wall time, the device busy time (the union of every kernel and copy
+interval on the card, so overlapping streams count once), the busy share of
+the wall time, and the kernels that took most device time.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.apps import summa
+from repro_torch.comm import Communicator
+from repro_torch.substrate import VirtualCluster
 
 
 def _busy_us(intervals: list[tuple[float, float]]) -> float:
@@ -42,7 +50,11 @@ def profile_scheme(a, b, scheme: str, chunks: int, top: int = 5) -> dict:
     def run():
         return summa.summa(a, b, scheme=scheme, use_kernel=True,
                            chunks=chunks)
+    return {"scheme": scheme, **profile_run(run, top)}
 
+
+def profile_run(run, top: int = 5) -> dict:
+    """One warm-up call of ``run``, then one profiled call."""
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -61,30 +73,57 @@ def profile_scheme(a, b, scheme: str, chunks: int, top: int = 5) -> dict:
     for e in dev:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return {"scheme": scheme, "wall_ms": wall_ms, "busy_ms": busy_ms,
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "top": ranked}
+
+
+def _print(label: str, r: dict) -> None:
+    print(f"[profile] {label:9s}: wall {r['wall_ms']:.1f} ms  device "
+          f"busy {r['busy_ms']:.1f} ms ({100 * r['busy_share']:.1f}%)")
+    for name, ms in r["top"]:
+        print(f"[profile]    {ms:9.2f} ms  {name[:90]}")
+
+
+def profile_ag_matmul(dev: torch.device, chunks: int) -> None:
+    """Exact vs lossy ``ag_matmul`` at ``mistral-nemo-12b`` w_out width."""
+    d_model, d_ff, tokens = 5120, 14336, 2048
+    vc = VirtualCluster(pods=1, chips=8, device=dev)
+    comm = Communicator.from_cluster(vc)
+    g = torch.Generator(device=dev).manual_seed(0)
+    w_shard = torch.randn((vc.chips, d_ff // vc.chips, d_model),
+                          generator=g, device=dev)
+    x = torch.randn((vc.num_devices, tokens, d_ff), generator=g, device=dev)
+    print(f"{torch.cuda.get_device_name(0)}; ag_matmul K={d_ff} N={d_model} "
+          f"{tokens} tokens/rank f32 on 1x8, use_kernel=True, "
+          f"chunks={chunks}")
+    with vc.bind():
+        for precision in ("exact", "lossy"):
+            _print(precision, profile_run(lambda: comm.ag_matmul(
+                x, w_shard, n_chunks=chunks, use_kernel=True,
+                precision=precision)))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--chunks", type=int, default=2)
+    ap.add_argument("--ag-matmul", action="store_true",
+                    help="profile exact vs lossy ag_matmul instead of SUMMA")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.ag_matmul:
+        profile_ag_matmul(dev, args.chunks)
+        return
     g = torch.Generator(device=dev).manual_seed(0)
     a = torch.randn((args.n, args.n), generator=g, device=dev)
     b = torch.randn((args.n, args.n), generator=g, device=dev)
     print(f"{torch.cuda.get_device_name(0)}; SUMMA N={args.n} f32, 4x4 grid, "
           f"use_kernel=True, chunks={args.chunks}")
     for scheme in summa.SCHEMES:
-        r = profile_scheme(a, b, scheme, args.chunks)
-        print(f"[profile] {scheme:9s}: wall {r['wall_ms']:.1f} ms  device "
-              f"busy {r['busy_ms']:.1f} ms ({100 * r['busy_share']:.1f}%)")
-        for name, ms in r["top"]:
-            print(f"[profile]    {ms:9.2f} ms  {name[:90]}")
+        _print(scheme, profile_scheme(a, b, scheme, args.chunks))
 
 
 if __name__ == "__main__":

@@ -12,8 +12,12 @@ on the card, the result's storage on the CPU — per node, for the naive and
 the shared scheme, must stand in the registry's ratio (``ranks_per_node``
 for the full-result families).
 
-``check_matrix`` runs every family under every registered scheme on one
-cluster and raises on any mismatch of values, link bytes or resident bytes.
+``check_matrix`` runs every family under every registered exact scheme on
+one cluster and raises on any mismatch of values, link bytes or resident
+bytes.  ``check_lossy`` holds the quantized wire formats to their own
+contract: link bytes priced by ``links(..., opts=)``, error within the
+scheme's ``error_check`` bound, each rank's own pod region exact, and the
+resident result bytes of ``result_node()``.
 """
 
 from __future__ import annotations
@@ -186,6 +190,8 @@ def check_matrix(vc, *, elems: int, seed: int = 0, n_chunks: int = 2
                              else family)
             want = None
             for sch in registry.schemes_for(family):
+                if sch.precision != "exact":
+                    continue             # check_lossy holds these
                 opts = _case_opts(sch, family, vc, elems, n_chunks)
                 if opts is None:
                     continue             # the scheme cannot tile this cell
@@ -231,3 +237,124 @@ def c1_ratios(rows: Iterable[CaseEvidence]) -> dict[tuple[str, str], float]:
           if r.node_bytes is not None}
     return {(t, f): by[(t, f, "naive")] / by[(t, f, "shared")]
             for (t, f, s) in by if s == "naive" and (t, f, "shared") in by}
+
+
+# ---------------------------------------------------------------------------
+# The lossy wire formats
+# ---------------------------------------------------------------------------
+
+#: The exact scheme each lossy wire format compresses the bridge of.
+LOSSY_PARENT = {"q8_hier": "hier", "qbf16_hier": "hier",
+                "q4_shared": "shared"}
+
+
+@dataclasses.dataclass(frozen=True)
+class LossyEvidence:
+    """One lossy (family, scheme, opts) run on one cluster, beside its exact
+    parent's bridge bytes."""
+
+    topology: str
+    family: str
+    scheme: str
+    opts: dict
+    parent: str
+    fast_bytes: float           # recorded, priced
+    slow_bytes: float
+    parent_slow: float          # the exact parent's links() slow bytes
+    error: float                # max |err| against the exact result
+    bound: float                # error_check() bound
+    own_region_exact: Optional[bool]    # allgather: own pod region exact
+    node_bytes: float           # measured resident result bytes per node
+
+
+def _own_pod_region(out: torch.Tensor, pods: int, chips: int
+                    ) -> torch.Tensor:
+    """(R, pods * region) gather output -> (pods, chips, region): each
+    rank's own pod region."""
+    o = out.reshape(pods, chips, pods, -1)
+    idx = torch.arange(pods, device=out.device)
+    return o[idx, :, idx]
+
+
+def check_lossy(vc, *, elems: int, seed: int = 0) -> list[LossyEvidence]:
+    """Run every lossy (family, scheme) under ``precision="lossy"`` on
+    ``vc``, once per tunable candidate (on one pod, where no candidate is
+    offered, once with the single-tier body the static fallback runs).
+    Each run's recorded traffic must price to ``links(..., opts=)``, its
+    error against the exact result must stay within ``error_check``, each
+    rank's own pod region of a gather must equal the exact gather bit for
+    bit, and its resident bytes per node must be ``result_node()`` (for
+    ``q4_shared``: one copy per node).  Raises ``EvidenceError`` on the
+    first miss."""
+    comm = Communicator.from_cluster(vc)
+    R, P, c = vc.num_devices, vc.pods, vc.chips
+    rows = []
+    with vc.bind():
+        for family in ("psum", "allgather"):
+            (x,) = family_inputs(vc, family, elems, seed)
+            method = comm.allreduce if family == "psum" else comm.allgather
+            flat = x if family == "psum" else x.reshape(-1)
+            for sch in registry.schemes_for(family):
+                if sch.precision != "lossy":
+                    continue
+                cands = sch.candidates(family, pods=P, chips=c, elems=elems)
+                if not cands and P == 1:
+                    cands = ({},)
+                for opts in map(dict, cands):
+                    what = f"{vc.label}/{family}/{sch.name}{opts or ''}"
+
+                    def make():
+                        return method(x.clone(), scheme=sch.name,
+                                      precision="lossy", **opts)
+
+                    with recording() as rec:
+                        held, out = resident_bytes(make, vc.device)
+                    fast, slow = link_bytes(rec)
+                    exp = sch.links(family, pods=P, chips=c,
+                                    fast_shape=vc.fast_shape, elems=elems,
+                                    opts=opts, dtype="float32")
+                    if not (np.isclose(fast, exp[0], rtol=1e-9)
+                            and np.isclose(slow, exp[1], rtol=1e-9)):
+                        raise EvidenceError(
+                            f"{what}: recorded link bytes (fast {fast}, slow "
+                            f"{slow}) != links() {exp}")
+                    node = held / P
+                    node_exp = sch.result_node(family, pods=P, chips=c,
+                                               elems=elems)
+                    if node != node_exp:
+                        raise EvidenceError(
+                            f"{what}: resident result bytes per node {node} "
+                            f"!= result_node() {node_exp}")
+                    got = out.shard if isinstance(out, SharedWindow) else out
+                    # one pod: the whole reduction is the bridge, so every
+                    # rank's contribution is quantized
+                    pods_e, chips_e = (P, c) if family == "allgather" \
+                        or P > 1 else (R, 1)
+                    bound, err = sch.error_check(
+                        family, inputs=(flat.cpu().numpy(),),
+                        output=got.cpu().numpy().reshape(
+                            (-1,) if isinstance(out, SharedWindow)
+                            else (R, -1)),
+                        pods=pods_e, chips=chips_e, elems=elems)
+                    if not err <= bound:
+                        raise EvidenceError(f"{what}: error {err} > bound "
+                                            f"{bound}")
+                    own = None
+                    if family == "allgather":
+                        ref = method(x.clone(), scheme=LOSSY_PARENT[sch.name])
+                        ref = ref.shard if isinstance(ref, SharedWindow) \
+                            else ref
+                        own = torch.equal(_own_pod_region(got, P, c),
+                                          _own_pod_region(ref, P, c))
+                        if not own:
+                            raise EvidenceError(f"{what}: the own pod region "
+                                                "differs from the exact "
+                                                "gather")
+                    parent = registry.get_scheme(LOSSY_PARENT[sch.name])
+                    parent_slow = parent.links(
+                        family, pods=P, chips=c, fast_shape=vc.fast_shape,
+                        elems=elems)[1]
+                    rows.append(LossyEvidence(
+                        vc.label, family, sch.name, opts, parent.name, fast,
+                        slow, parent_slow, err, bound, own, node))
+    return rows

@@ -5,8 +5,9 @@
 * ``SharedWindow`` / ``WindowEpochError`` — the node-shared buffer with the
   paper's synchronization epochs;
 * ``registry`` — the self-describing scheme entries (naive, hier, shared,
-  pipelined);
-* ``tuning`` — the ``scheme="auto"`` resolution.
+  pipelined, and the lossy q8_hier / qbf16_hier / q4_shared);
+* ``tuning`` — the ``scheme="auto"`` resolution;
+* ``quantize`` — the quantized wire-format bodies and the int4 codec.
 """
 
 from repro_torch.comm import registry, tuning

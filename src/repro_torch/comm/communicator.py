@@ -15,8 +15,10 @@ cluster's mesh axes:
 ``repro_torch.comm.tuning``.  Schemes differ in result CLASS (replicated
 tensor vs ``SharedWindow``), so call sites that can consume only one class
 pass ``result="replicated"`` / ``result="shared"`` — a constraint on the
-pick, never a scheme name.  ``allgatherv`` always returns raw
-``(blocks, counts)``.
+pick, never a scheme name.  ``precision="lossy"`` (with an optional
+``tol=``) likewise admits the quantized wire formats; the default
+``"exact"`` never reaches one, and naming a lossy scheme without opting in
+raises.  ``allgatherv`` always returns raw ``(blocks, counts)``.
 
 All methods take stacked ``(R, ...)`` tensors and run inside
 ``VirtualCluster.run`` / ``VirtualCluster.bind``, which bind the axis names.
@@ -156,22 +158,29 @@ class Communicator:
         return n
 
     def _resolve(self, family: str, scheme: str, x: torch.Tensor,
-                 opts: dict, result: Optional[str]) -> tuple[str, dict]:
+                 opts: dict, result: Optional[str], precision: str = "exact",
+                 tol: Optional[float] = None) -> tuple[str, dict]:
         """Turn ``scheme="auto"`` into a concrete registry entry (plus its
         modeled tunables; explicit caller opts win).  A concrete scheme
-        passes through, still checked against ``result``."""
+        passes through, still checked against ``result`` and
+        ``precision`` so a constraint is never silently violated."""
         if scheme != "auto":
             sch = registry.get_scheme(scheme)
             if result is not None and sch.result_class != result:
                 raise ValueError(
                     f"scheme {scheme!r} is {sch.result_class}-class but "
                     f"the call requires result={result!r}")
+            if sch.precision == "lossy" and precision != "lossy":
+                raise ValueError(
+                    f"scheme {scheme!r} is lossy but the call did not opt "
+                    f"in with precision='lossy'")
             return scheme, opts
         from repro_torch.comm import tuning
         res = tuning.resolve_for(self, family,
                                  elems=self._auto_elems(family, x),
                                  elem_bytes=x.element_size(),
-                                 result_class=result)
+                                 result_class=result, precision=precision,
+                                 tol=tol)
         return res.scheme, {**res.opts, **opts}
 
     def _call(self, family: str, scheme: str, *args, **kw):
@@ -185,65 +194,111 @@ class Communicator:
         return out
 
     def allgather(self, x, *, scheme: str = "auto", axis: int = 0,
-                  result: Optional[str] = None, **opts):
+                  result: Optional[str] = None, precision: str = "exact",
+                  tol: Optional[float] = None, **opts):
         """Gather every rank's contribution.  Replicated schemes return the
-        full rank-ordered buffer per rank; ``shared`` returns the node's
-        ``SharedWindow`` (chip *i* holds shard *i*, (local, pod) order)."""
-        scheme, opts = self._resolve("allgather", scheme, x, opts, result)
+        full rank-ordered buffer per rank; ``shared``-class schemes return
+        the node's ``SharedWindow`` (chip *i* holds shard *i*, (local, pod)
+        order).  ``precision="lossy"`` admits quantized wire formats
+        (``tol=`` caps their relative error bound)."""
+        scheme, opts = self._resolve("allgather", scheme, x, opts, result,
+                                     precision, tol)
         sch, out = self._call("allgather", scheme, x, axis=axis, **opts)
         return self._wrap(sch, out, axis)
 
     def allgatherv(self, x_padded, valid, *, scheme: str = "auto",
-                   axis: int = 0, result: Optional[str] = None, **opts):
+                   axis: int = 0, result: Optional[str] = None,
+                   precision: str = "exact", tol: Optional[float] = None,
+                   **opts):
         """Irregular allgather (padded blocks + valid counts); returns raw
         ``(blocks, counts)`` for every scheme (the two result classes still
         differ in block layout)."""
         scheme, opts = self._resolve("allgatherv", scheme, x_padded, opts,
-                                     result)
+                                     result, precision, tol)
         _, out = self._call("allgatherv", scheme, x_padded, valid, axis=axis,
                             **opts)
         return out
 
     def broadcast(self, x, *, root: int = 0, scheme: str = "auto",
-                  axis: int = 0, result: Optional[str] = None, **opts):
+                  axis: int = 0, result: Optional[str] = None,
+                  precision: str = "exact", tol: Optional[float] = None,
+                  **opts):
         """Broadcast from the flat SMP rank ``root`` (pod, chip row-major).
         ``shared`` returns the node's ``SharedWindow`` of the message."""
-        scheme, opts = self._resolve("broadcast", scheme, x, opts, result)
+        scheme, opts = self._resolve("broadcast", scheme, x, opts, result,
+                                     precision, tol)
         sch, out = self._call("broadcast", scheme, x, root=root, axis=axis,
                               **opts)
         return self._wrap(sch, out, axis)
 
     def allreduce(self, x, *, scheme: str = "auto", axis: int = 0,
-                  result: Optional[str] = None, **opts):
+                  result: Optional[str] = None, precision: str = "exact",
+                  tol: Optional[float] = None, error_feedback=None, **opts):
         """Global sum: the full sum per rank, or once per node as a
-        ``SharedWindow`` (``shared``)."""
-        scheme, opts = self._resolve("psum", scheme, x, opts, result)
+        ``SharedWindow`` (``shared``).
+
+        With ``error_feedback=`` (the carried residual; ``0.0`` to start)
+        under ``precision="lossy"`` the call returns ``(sum, residual)``:
+        the local quantization error re-enters the next call's payload.
+        An exact pick under ``"lossy"`` adds the residual into the payload
+        and carries zero."""
+        scheme, opts = self._resolve("psum", scheme, x, opts, result,
+                                     precision, tol)
+        if error_feedback is not None:
+            if precision != "lossy":
+                raise ValueError(
+                    "error_feedback requires precision='lossy'")
+            if registry.get_scheme(scheme).precision == "lossy":
+                sch, pair = self._call("psum", scheme, x, axis=axis,
+                                       err=error_feedback, **opts)
+                out, new_err = pair
+            else:
+                sch, out = self._call("psum", scheme, x + error_feedback,
+                                      axis=axis, **opts)
+                new_err = torch.zeros((), dtype=torch.float32,
+                                      device=x.device)
+            return self._wrap(sch, out, axis), new_err
         sch, out = self._call("psum", scheme, x, axis=axis, **opts)
         return self._wrap(sch, out, axis)
 
     def reduce_scatter(self, x, *, scheme: str = "auto", axis: int = 0,
-                       result: Optional[str] = None, **opts):
+                       result: Optional[str] = None, precision: str = "exact",
+                       tol: Optional[float] = None, **opts):
         """Sum + scatter: ``naive``/``pipelined`` give every rank its flat
         1/R slice; ``shared`` the node's window shards (1/c each)."""
         scheme, opts = self._resolve("reduce_scatter", scheme, x, opts,
-                                     result)
+                                     result, precision, tol)
         sch, out = self._call("reduce_scatter", scheme, x, axis=axis, **opts)
         return self._wrap(sch, out, axis)
 
     def alltoall(self, x, *, scheme: str = "auto", axis: int = 0,
-                 result: Optional[str] = None, **opts):
+                 result: Optional[str] = None, precision: str = "exact",
+                 tol: Optional[float] = None, **opts):
         """Personalized exchange: chunk *s* of the local buffer goes to rank
         *s*.  ``hier`` routes node superchunks over the bridge once."""
-        scheme, opts = self._resolve("alltoall", scheme, x, opts, result)
+        scheme, opts = self._resolve("alltoall", scheme, x, opts, result,
+                                     precision, tol)
         _, out = self._call("alltoall", scheme, x, axis=axis, **opts)
         return out
 
     # -- fused collective-matmul (compute overlap) ----------------------------
     def ag_matmul(self, x, w_shard, *, n_chunks: int = 2,
-                  use_kernel: bool = False):
+                  use_kernel: bool = False, precision: str = "exact",
+                  q4_group: int = 32):
         """``x @ read(window)`` fused: the node-tier gather of the
-        contraction-sharded weight streams behind the panel matmuls."""
+        contraction-sharded weight streams behind the panel matmuls.
+        ``precision="lossy"`` gathers the weight panels as packed int4
+        (group size ``q4_group``) and dequantizes inside the matmul (the
+        Hopper q4 kernel under ``use_kernel=True``)."""
         from repro_torch.comm import pipeline
+        if precision == "lossy":
+            return pipeline.ag_matmul_q4(x, w_shard,
+                                         fast_axis=self.fast_axis,
+                                         n_chunks=n_chunks, group=q4_group,
+                                         use_kernel=use_kernel)
+        if precision != "exact":
+            raise ValueError(f"bad precision constraint {precision!r} "
+                             "(pick 'exact' or 'lossy')")
         return pipeline.ag_matmul(x, w_shard, fast_axis=self.fast_axis,
                                   n_chunks=n_chunks, use_kernel=use_kernel)
 

@@ -8,8 +8,8 @@ one of TWO alternating ``SharedWindow`` epochs (double buffering, the paper's
 as its unchunked ``naive``/``hier`` counterpart (the split/merge is pure
 layout algebra) and moves the same total bytes.
 
-The fused ``ag_matmul`` / ``ag_matmul_rows`` / ``matmul_rs`` apply the same
-chunking to compute overlap.  On the card each chunk's collective runs on a
+The fused ``ag_matmul`` / ``ag_matmul_q4`` / ``ag_matmul_rows`` /
+``matmul_rs`` apply the same chunking to compute overlap.  On the card each chunk's collective runs on a
 side CUDA stream, so the gather of chunk *k+1* (or the scatter of chunk
 *k*) overlaps the panel matmul of chunk *k* on the current stream; CUDA
 events keep buffer ``k % 2`` from being reused before chunk *k-2* was
@@ -307,6 +307,57 @@ def ag_matmul(x, w_shard, *, fast_axis, n_chunks: int = DEFAULT_CHUNKS,
         fence.handoff("main", panel)
         xj = xr[..., :, j, :].reshape(lead + (c * piece,))
         acc += mm(xj, panel).float()
+        fence.exit(j, "main")
+    return acc.to(x.dtype)
+
+
+def ag_matmul_q4(x, w_shard, *, fast_axis, n_chunks: int = DEFAULT_CHUNKS,
+                 group: int = 32, use_kernel: bool = False):
+    """``ag_matmul`` with a packed-int4 weight wire format.
+
+    Each chunk's local K-panel piece is groupwise int4-quantized
+    (``quantize_q4``) on the side stream BEFORE the gather, so the
+    collective moves two nibbles per weight plus one f32 scale per
+    ``group`` rows instead of four bytes per weight.  With
+    ``use_kernel=True`` the gathered panel is never densified: the Hopper
+    q4 kernel unpacks and rescales tiles inside its k loop, one launch per
+    chunk for all R ranks.  The per-rank piece must divide by ``group`` so
+    concatenated packings keep group boundaries."""
+    from repro_torch.comm import quantize as qz
+    c = p.axis_size(fast_axis)
+    R, s, n_out = w_shard.shape
+    if s % n_chunks:
+        raise ValueError(f"weight shard rows {s} must divide by "
+                         f"n_chunks={n_chunks}")
+    piece = s // n_chunks
+    if piece % group:
+        raise ValueError(f"per-chunk shard rows {piece} must divide by "
+                         f"group={group}")
+    if x.shape[-1] != c * s:
+        raise ValueError(f"x contraction dim {x.shape[-1]} != gathered "
+                         f"weight rows {c * s}")
+    lead = tuple(x.shape[:-1])
+    xr = x.reshape(lead + (c, n_chunks, piece))
+    wide = torch.promote_types(x.dtype, torch.float32)
+    fence = _ReuseFence(n_chunks, x.device)
+    fence.handoff("side", w_shard)
+    acc = torch.zeros(lead + (n_out,), dtype=torch.float32, device=x.device)
+    for j in range(n_chunks):
+        fence.enter(j, "side")
+        with fence.stream("side"):
+            packed, scales = qz.quantize_q4(
+                w_shard[:, j * piece:(j + 1) * piece], group=group)
+            # raw-collective: the packed-int4 panel gather IS the wire format
+            gp = coll.all_gather(packed, p._axes(fast_axis), axis=0)
+            gs = coll.all_gather(scales, p._axes(fast_axis), axis=0)
+        fence.handoff("main", gp, gs)
+        x3d = xr[..., :, j, :].reshape(R, -1, c * piece)
+        if use_kernel:
+            prod = ops.q4_matmul(x3d, gp, gs, group=group)
+        else:
+            prod = torch.matmul(x3d.to(wide),
+                                qz.dequantize_q4(gp, gs, group=group))
+        acc += prod.reshape(lead + (n_out,)).float()
         fence.exit(j, "main")
     return acc.to(x.dtype)
 

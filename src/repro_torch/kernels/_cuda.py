@@ -1,0 +1,78 @@
+"""One builder for every CUDA source of the port.
+
+Each kernel is a ``csrc/<name>.cu`` file with a plain C interface.  At first
+use ``nvcc`` builds it for ``sm_90a`` into a shared library under ``_build/``
+beside the package, named by the source's stem and content hash (an edited
+source builds anew; an up-to-date build is reused), and ``ctypes`` loads it.
+The kernel modules set their own entry points' ``argtypes``.
+``build_all`` starts one ``nvcc`` per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("matmul.cu", "q4_matmul.cu")
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    """A loaded kernel library and how it was built."""
+
+    cdll: ctypes.CDLL
+    path: pathlib.Path
+    build_seconds: float      # 0.0 when an up-to-date build was reused
+    log: str                  # nvcc / ptxas report of the build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       f"the kernels in {CSRC}")
+
+
+@functools.lru_cache(maxsize=None)
+def library(source: str) -> Library:
+    """Build ``csrc/<source>`` (once per source hash) and load it."""
+    src = CSRC / source
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{src.stem}-{tag}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(src)], capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
+        os.replace(tmp, so)
+    return Library(ctypes.CDLL(str(so)), so, seconds, log)
+
+
+def build_all() -> dict[str, Library]:
+    """Build every source of ``SOURCES`` concurrently (one ``nvcc`` each)."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(library, SOURCES)))

@@ -1,11 +1,10 @@
-"""Hopper panel-matmul kernel: build, bind, launch — and its plain version.
+"""Hopper panel-matmul kernel: bind, launch — and its plain version.
 
 The kernel (``csrc/matmul.cu``) replaces the TPU kernel
 ``src/repro/kernels/matmul.py::matmul_pallas``, the SUMMA per-panel product.
-It is CUDA C++ for ``sm_90a`` with a plain C interface: ``nvcc`` builds it
-into a shared library at first use (into ``_build/`` beside the package,
-keyed by the source's hash) and ``ctypes`` loads it.  The source's header
-note says what bounds it and what the simple design gives up.
+It is CUDA C++ for ``sm_90a`` with a plain C interface, built at first use by
+``kernels._cuda`` and loaded with ``ctypes``.  The source's header note says
+what bounds it and what the simple design gives up.
 
 ``matmul_cuda`` is the wrapper: it checks device, dtype, shape and
 contiguity, raises on anything else, launches on the current stream and
@@ -17,22 +16,13 @@ serves CPU tensors and is what the card's result is held against.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 
 import torch
 
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "matmul.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import _cuda
+
+SOURCE = _cuda.CSRC / "matmul.cu"
 
 #: Kernel launches made through ``matmul_cuda`` (reset it to 0 to count a run).
 launches = 0
@@ -41,52 +31,17 @@ _ENTRY = {torch.float32: "repro_matmul_f32",
           torch.bfloat16: "repro_matmul_bf16"}
 
 
-@dataclasses.dataclass(frozen=True)
-class Library:
-    """The loaded kernel library and how it was built."""
-
-    cdll: ctypes.CDLL
-    path: pathlib.Path
-    build_seconds: float      # 0.0 when an up-to-date build was reused
-    log: str                  # nvcc / ptxas report of the build
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
-
-
 @functools.lru_cache(maxsize=None)
-def library() -> Library:
-    """Build ``csrc/matmul.cu`` (once per source hash) and load it."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libmatmul-{tag}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{log}")
-        os.replace(tmp, so)
-    cdll = ctypes.CDLL(str(so))
+def library() -> _cuda.Library:
+    """Build ``csrc/matmul.cu`` (once per source hash), load it and bind
+    its entry points."""
+    lib = _cuda.library(SOURCE.name)
     for name in _ENTRY.values():
-        fn = getattr(cdll, name)
+        fn = getattr(lib.cdll, name)
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return Library(cdll, so, seconds, log)
+    return lib
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:

@@ -114,10 +114,20 @@ def all_gather(x: torch.Tensor, axes: Axis, *, axis: int = 0,
 
 
 def psum(x: torch.Tensor, axes: Axis) -> torch.Tensor:
-    """Every member gets the group sum."""
+    """Every member gets the group sum, in ``x``'s dtype (an int16 payload
+    stays int16 on the wire, as ``lax.psum`` keeps it)."""
     mesh = active_mesh()
     g = mesh.to_groups(x, axes)
-    out = _replicate(mesh, g.sum(dim=1), g.shape[1], axes)
+    out = _replicate(mesh, g.sum(dim=1, dtype=x.dtype), g.shape[1], axes)
+    _note("all-reduce", axes, out)
+    return out
+
+
+def pmax(x: torch.Tensor, axes: Axis) -> torch.Tensor:
+    """Every member gets the group's elementwise maximum."""
+    mesh = active_mesh()
+    g = mesh.to_groups(x, axes)
+    out = _replicate(mesh, g.amax(dim=1), g.shape[1], axes)
     _note("all-reduce", axes, out)
     return out
 
@@ -134,7 +144,7 @@ def psum_scatter(x: torch.Tensor, axes: Axis, *,
     if local[ax] % n:
         raise ValueError(f"scatter dim {local[ax]} does not tile over "
                          f"{n} ranks")
-    s = g.sum(dim=1)
+    s = g.sum(dim=1, dtype=x.dtype)
     pieces = s.reshape([G] + local[:ax] + [n, local[ax] // n]
                        + local[ax + 1:]).movedim(ax + 1, 1)
     out = mesh.from_groups(pieces, axes).contiguous()
@@ -160,6 +170,23 @@ def all_to_all(x: torch.Tensor, axes: Axis, *, axis: int = 0) -> torch.Tensor:
     out = mesh.from_groups(y, axes).contiguous()
     _note("all-to-all", axes, out)
     return out
+
+
+def dynamic_update_slice_in_dim(x: torch.Tensor, update: torch.Tensor,
+                                start: torch.Tensor, *, axis: int
+                                ) -> torch.Tensor:
+    """Per rank *r*: a copy of ``x[r]`` with ``update[r]`` written along local
+    ``axis`` from ``start[r]`` on (``lax.dynamic_update_slice_in_dim`` with a
+    start that differs by rank).  A start past the end is clamped so the
+    update fits, as in the reference."""
+    ax = _local(axis, x)
+    size, n = update.shape[ax + 1], x.shape[ax + 1]
+    first = start.to(device=x.device, dtype=torch.long).clamp(0, n - size)
+    idx = first[:, None] + torch.arange(size, device=x.device)
+    out = x.movedim(ax + 1, 1).clone()
+    ranks = torch.arange(x.shape[0], device=x.device)[:, None]
+    out[ranks, idx] = update.movedim(ax + 1, 1).to(x.dtype)
+    return out.movedim(1, ax + 1).contiguous()
 
 
 def ppermute(x: torch.Tensor, axes: Axis, perm) -> torch.Tensor:

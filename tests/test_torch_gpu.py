@@ -1,4 +1,4 @@
-"""The port on a CUDA card: the Hopper kernel and the stream-ordered paths.
+"""The port on a CUDA card: the Hopper kernels and the stream-ordered paths.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports nothing of JAX, so it also runs on a machine that has only
@@ -7,11 +7,12 @@ PyTorch (the suite's conftest imports the JAX package, hence
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-The kernel is held against its plain version with the reference kernel
-tests' tolerances (F32 2e-4 / BF16 2e-2, rtol K-scaled, atol x8).  The
-card's collectives and fused collective-matmuls (side stream + events) are
-held against the same code run on the CPU: gathers bit for bit, products
-and sums within 1e-5.
+The kernels are held against their plain versions with the reference
+kernel tests' tolerances (F32 2e-4 / BF16 2e-2, rtol K-scaled, atol x8).
+The card's collectives and fused collective-matmuls (side stream + events)
+are held against the same code run on the CPU: gathers bit for bit,
+products and sums within 1e-5.  The lossy wire formats are held to
+``traffic.check_lossy`` on the card.
 """
 
 import pytest
@@ -19,8 +20,10 @@ import torch
 
 from repro_torch.analysis import traffic
 from repro_torch.comm import Communicator
+from repro_torch.comm.quantize import dequantize_q4, quantize_q4
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant as kquant
 from repro_torch.substrate import VirtualCluster, default_matrix
 
 pytestmark = pytest.mark.gpu
@@ -144,3 +147,83 @@ def test_collectives_on_the_card_equal_the_cpu(cuda, scheme):
             assert torch.equal(got, want)
         else:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the q4 kernel and the lossy path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 64, 16, 32), (5, 96, 20, 32),
+                                   (130, 256, 300, 64), (1, 6, 3, 2),
+                                   (3, 33, 192, 129, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q4_kernel_matches_plain_version(cuda, shape, dtype):
+    *batch, M, K, N, group = shape
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn((*batch, M, K), generator=g, device=cuda).to(dtype)
+    w = torch.randn((*batch, K, N), generator=g, device=cuda)
+    packed, scales = quantize_q4(w, group=group)
+    before = kquant.launches
+    got = ops.q4_matmul(a, packed, scales, group=group)
+    torch.cuda.synchronize()
+    assert kquant.launches == before + 1
+    assert got.shape == (*batch, M, N) and got.dtype == dtype
+    torch.testing.assert_close(
+        got.float(), kquant.q4_matmul_plain(a, packed, scales, group).float(),
+        **_tol(dtype, K))
+
+
+def test_q4_kernel_equals_panel_kernel_on_the_dense_weight(cuda):
+    """Same tiles, same FMA order: the fused unpack gives the panel-matmul
+    kernel's result on the dequantized weight bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn((2, 200, 320), generator=g, device=cuda)
+    packed, scales = quantize_q4(
+        torch.randn((2, 320, 144), generator=g, device=cuda), group=32)
+    got = ops.q4_matmul(a, packed, scales, group=32)
+    dense = ops.matmul(a, dequantize_q4(packed, scales, group=32))
+    assert torch.equal(got, dense)
+
+
+def test_q4_kernel_wrapper_checks_its_operands(cuda):
+    a = torch.ones(4, 64, device=cuda)
+    packed, scales = quantize_q4(torch.ones(64, 8, device=cuda), group=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        kquant.q4_matmul_cuda(a, packed.t().contiguous().t(), scales, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kquant.q4_matmul_cuda(a, packed.cpu(), scales, 32)
+    with pytest.raises(ValueError, match="groups"):
+        kquant.q4_matmul_cuda(a, packed, scales, 24)
+    with pytest.raises(TypeError):
+        kquant.q4_matmul_cuda(a.half(), packed, scales, 32)
+
+
+@pytest.mark.parametrize("nc,use_kernel", [(1, True), (2, True), (3, True),
+                                           (2, False)])
+def test_lossy_ag_matmul_on_the_card_equals_the_cpu(cuda, nc, use_kernel):
+    """``ag_matmul_q4`` on the card (side-stream quantize + gather, the q4
+    kernel) equals the same call on the CPU (the plain version)."""
+    kw = dict(pods=2, chips=4)
+    R, c = 8, 4
+    g = torch.Generator().manual_seed(nc)
+    w_sh = torch.randn((R * 32 * nc, 40), generator=g)
+    x = torch.randn((R * 5, c * 32 * nc), generator=g)
+
+    def body(comm):
+        node = comm.split_type_shared()
+        return lambda w, xx: node.ag_matmul(
+            xx, w, n_chunks=nc, use_kernel=use_kernel and xx.is_cuda,
+            precision="lossy", q4_group=32)
+
+    want, got = _both(kw, body, w_sh, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("vc", default_matrix(device="cuda"),
+                         ids=lambda vc: vc.label)
+def test_lossy_evidence_on_the_card(cuda, vc):
+    """Link bytes, error bound, exact own pod region and resident bytes of
+    every lossy wire format, as device work."""
+    rows = traffic.check_lossy(vc, elems=4096)
+    assert rows
+    assert all(r.error <= r.bound for r in rows)
