@@ -34,13 +34,31 @@ Phases (any failed check raises, and the script exits nonzero):
    down-projection (K = d_ff = 14336, N = d_model = 5120) on the 1x8
    cluster: ``precision="lossy", use_kernel=True`` within rel_err 1e-5 of
    ``x @ dequantize_q4(quantize_q4(w))``, timed beside the exact
-   ``ag_matmul``, with the gathered bytes of both.
+   ``ag_matmul``, with the gathered bytes of both;
+8. serve: ``qwen3-0.6b`` at full width and depth (28 layers, f32, random
+   weights drawn on the card from a seed) — (a) the continuous-batching
+   scheduler, 8 slots, s_max 4096, 32 requests from ``SyntheticLM`` with
+   prompt lengths uniform in 64-2048 and 32 new tokens each: tokens/s,
+   decode step and request e2e percentiles, prefill ms per bucket, the
+   flash-attention launches and the KV pages' C1 (as device bytes); (b) 4
+   requests' streams against their solo ``greedy_generate`` runs; (c) a
+   2048-token prefill through the first 2 units on the card (the kernel)
+   against the CPU (its plain version), last-token logits within 1e-4
+   relative.
 
-Kernel launch counts are zeroed just before phases 3-7 (the main path) and
-read just after.  The line before the last is a JSON ``kernels`` record;
-the last line is ``{"ok": true, "device": {...}}``.
+Phase 2 also holds ``ops.flash_attention`` to its plain version (f32 and
+bf16: ``tests/test_kernels.py``'s shapes, windows 16 and 64, non-causal,
+hd 256) and times it at the model's prefill shape (8 x 16 heads, 8 kv
+heads, 2048 tokens, hd 128, f32, causal) beside the plain version and
+``scaled_dot_product_attention``.
+
+Kernel launch counts are zeroed just before each main path (phases 3-7,
+then phase 8's serving run) and read just after.  The line before the last
+is a JSON ``kernels`` record; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -79,6 +97,28 @@ def check_close(got, want, dtype, K: int, what: str) -> float:
     return err.max().item()
 
 
+def check_flash(got, want, dtype, what: str) -> float:
+    """The reference kernel tests' flash tolerance (F32 2e-4 / BF16 2e-2,
+    rtol and atol), compared in fp32; returns max |err|."""
+    import torch
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = (err > tol + tol * w.abs()).sum().item()
+    if bad or not torch.isfinite(g).all() or got.shape != want.shape:
+        raise AssertionError(f"{what}: {bad} elements outside {tol} "
+                             f"(max |err| {err.max().item()})")
+    return err.max().item()
+
+
+def pct(xs, q):
+    """The launcher's percentile (``repro_torch.launch.serve``)."""
+    import math
+    s = sorted(xs)
+    return s[min(len(s) - 1, max(0, math.ceil(q * len(s)) - 1))] if s \
+        else 0.0
+
+
 def bound(flops: float, moved: float, peak: float) -> tuple[float, str]:
     """The least time the card could take (ms): the larger of ``moved``
     bytes at 3.35 TB/s and ``flops`` at ``peak`` FLOP/s, and which."""
@@ -91,6 +131,19 @@ def bound(flops: float, moved: float, peak: float) -> tuple[float, str]:
 FP32_FMA, BF16_TENSOR = 67e12, 989e12     # H100 SXM peaks, FLOP/s
 
 
+def _map(fn, tree):
+    return {k: _map(fn, v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else fn(tree)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -98,14 +151,22 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
+    import numpy as np
     from repro_torch.analysis import traffic
     from repro_torch.apps import bpmf, summa
     from repro_torch.comm import Communicator
     from repro_torch.comm.quantize import dequantize_q4, quantize_q4
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import matmul as kmatmul
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as kquant
+    from repro_torch.models import ParallelCtx, build
+    from repro_torch.models.attention import attn_flops
+    from repro_torch.serving.engine import greedy_generate
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
     from repro_torch.substrate import VirtualCluster, default_matrix
     from repro_torch.substrate.collectives import recording
 
@@ -131,6 +192,7 @@ def main() -> int:
                 print(f"[build]   {line.strip()}")
     kmatmul.library()
     kquant.library()
+    kflash.library()
 
     # -- 2. kernel vs its plain version ----------------------------------------
     t_phase = time.perf_counter()
@@ -218,6 +280,66 @@ def main() -> int:
           f"function: torch.matmul on the pre-dequantized dense weight "
           f"{dense_ms:.3f} ms)")
     del a, packed, scales
+
+    # flash attention against its plain version: tests/test_kernels.py's
+    # shapes (q at the end of the keys), windows, non-causal, hd 256
+    flash_cases = [(1, 4, 4, 128, 128, 64, True, None),
+                   (2, 8, 2, 128, 128, 64, True, None),
+                   (1, 4, 1, 64, 256, 32, True, None),
+                   (1, 3, 3, 96, 96, 16, True, None),
+                   (2, 4, 2, 256, 256, 64, True, None),
+                   (1, 2, 2, 128, 128, 32, True, 16),
+                   (1, 2, 2, 128, 128, 32, True, 64),
+                   (1, 2, 2, 64, 64, 32, False, None),
+                   (1, 8, 1, 200, 200, 256, True, None)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, KV, Tq, Tkv, hd, causal, window in flash_cases:
+            q = torch.randn((B, H, Tq, hd), generator=g, device=dev).to(dtype)
+            k = torch.randn((B, KV, Tkv, hd), generator=g,
+                            device=dev).to(dtype)
+            v = torch.randn((B, KV, Tkv, hd), generator=g,
+                            device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=Tkv - Tq)
+            got = ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = check_flash(got, kflash.flash_attention_plain(q, k, v, **kw),
+                              dtype, f"flash_attention {dtype} "
+                              f"{(B, H, KV, Tq, Tkv, hd)} {kw}")
+            print(f"[kernel] flash_attention {str(dtype)[6:]:8s} B{B} H{H} "
+                  f"KV{KV} Tq{Tq} Tkv{Tkv} hd{hd} causal={causal} "
+                  f"window={window}: max|err| {err:.3g}")
+    # the model's prefill shape (one layer, a full 8-slot group at the
+    # largest bucket), in the model's (B, T, heads, hd) layout
+    FB, FH, FKV, FT, FD = 8, 16, 8, 2048, 128
+    q = torch.randn((FB, FT, FH, FD), generator=g, device=dev)
+    k = torch.randn((FB, FT, FKV, FD), generator=g, device=dev)
+    v = torch.randn((FB, FT, FKV, FD), generator=g, device=dev)
+    got = ops.flash_attention(q, k, v, layout="bthd")
+    torch.cuda.synchronize()
+    flash_err = check_flash(got, kflash.flash_attention_plain(
+        q, k, v, layout="bthd"), torch.float32, "flash_attention model shape")
+    del got
+    flash_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, layout="bthd"), 5)
+    flash_plain_ms = cuda_ms(lambda: kflash.flash_attention_plain(
+        q, k, v, layout="bthd"), 3)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash_lib_ms = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                        enable_gqa=True), 5)
+    del qs, ks, vs
+    flash_flops = attn_flops(FB, FT, FT, FH, FD, causal=True, window=None)
+    flash_moved = 4 * (2 * q.numel() + 2 * k.numel())   # q, k, v read, o
+    flash_bound_ms, flash_bound_by = bound(flash_flops, flash_moved,
+                                           FP32_FMA)
+    print(f"[kernel] flash_attention f32 B{FB} H{FH} KV{FKV} T{FT} hd{FD} "
+          f"causal (one layer's prefill, 8 slots at the 2048 bucket): "
+          f"max|err| {flash_err:.3g}  kernel {flash_ms:.3f} ms "
+          f"({flash_flops / flash_ms / 1e9:.1f} TFLOP/s)  plain "
+          f"{flash_plain_ms:.3f} ms  scaled_dot_product_attention "
+          f"{flash_lib_ms:.3f} ms  bound {flash_bound_ms:.3f} ms "
+          f"({flash_bound_by}; {flash_flops:.4g} FLOP, "
+          f"{flash_moved / 1e9:.3f} GB)")
+    del q, k, v
     print(f"[phase] kernel {time.perf_counter() - t_phase:.1f} s")
 
     # -- main path: zero the counts, drive phases 3-7, read them -----------------
@@ -367,8 +489,152 @@ def main() -> int:
           f"{gathered['exact']:.0f}")
     del x, w_shard, want
     print(f"[phase] ag_matmul {time.perf_counter() - t_phase:.1f} s")
-
     launches = {"matmul": kmatmul.launches, "q4_matmul": kquant.launches}
+
+    # -- 8. serve qwen3-0.6b at full width --------------------------------------
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    ctx = ParallelCtx.single()
+    model = build(cfg, ctx, device=dev)
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} q / {cfg.n_kv} kv heads x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}); "
+          f"{n_params} params f32 drawn on the card in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    SLOTS, S_MAX, N_REQ, MAX_NEW = 8, 4096, 32, 32
+    lm = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=2048,
+                                global_batch=N_REQ, seed=0))
+    tokens = lm.next_batch()["tokens"]
+    lengths = np.random.default_rng(0).integers(64, 2049, size=N_REQ)
+    prompts = [tokens[i, :lengths[i]].astype(np.int32)
+               for i in range(N_REQ)]
+    mem0 = torch.cuda.memory_allocated(dev)
+    sched = ContinuousBatchingScheduler(model, params, slots=SLOTS,
+                                        s_max=S_MAX)
+    page_bytes = torch.cuda.memory_allocated(dev) - mem0
+    c1 = sched.pages.assert_c1()
+    if page_bytes != c1["logical_bytes"]:
+        raise AssertionError(f"KV pages: {page_bytes} device bytes "
+                             f"allocated vs {c1['logical_bytes']} for one "
+                             "copy")
+    print(f"[serve] KV pages: {c1} (device bytes allocated {page_bytes})")
+    kflash.launches = 0            # main path 2: the serving run
+    rids = [sched.queue.submit(p, MAX_NEW) for p in prompts]
+    done_at = {}
+    t0 = time.perf_counter()
+    while len(sched.results) < N_REQ:
+        if not sched.step():
+            raise AssertionError("the scheduler went idle with requests "
+                                 "outstanding")
+        now = time.perf_counter() - t0
+        for rid in sched.results:
+            done_at.setdefault(rid, now)
+    elapsed = time.perf_counter() - t0
+    launches["flash_attention"] = kflash.launches
+    n_tok = sum(r.tokens.size for r in sched.results.values())
+    step_us = [s_.decode_us for s_ in sched.stats if s_.active]
+    e2e_ms = [1e3 * t for t in done_at.values()]
+    print(f"[serve] {N_REQ} requests (prompts {lengths.min()}-"
+          f"{lengths.max()} tokens, {MAX_NEW} new each), {SLOTS} slots, "
+          f"s_max {S_MAX}: {n_tok} tokens in {elapsed:.2f} s = "
+          f"{n_tok / elapsed:.1f} tokens/s;  decode step us p50 "
+          f"{pct(step_us, 0.5):.0f} p99 {pct(step_us, 0.99):.0f} "
+          f"({len(step_us)} steps, mean batch "
+          f"{np.mean([s_.active + s_.finished for s_ in sched.stats]):.2f});"
+          f"  request e2e ms p50 {pct(e2e_ms, 0.5):.1f} p99 "
+          f"{pct(e2e_ms, 0.99):.1f}")
+    by_bucket = {}
+    for s_ in sched.stats:
+        if s_.admitted:
+            by_bucket.setdefault(s_.bucket, []).append(
+                (s_.admitted, s_.prefill_us / 1e3))
+    for tb in sorted(by_bucket):
+        groups = by_bucket[tb]
+        print(f"[serve] prefill bucket {tb}: {len(groups)} groups "
+              f"(sizes {[n for n, _ in groups]}), ms "
+              f"{[round(ms, 2) for _, ms in groups]}")
+    print(f"[serve] flash_attention launches in the serving run: "
+          f"{launches['flash_attention']} "
+          f"({sum(len(v_) for v_ in by_bucket.values())} prefills x "
+          f"{cfg.n_layers} layers)")
+    for r in sched.results.values():
+        if r.tokens.shape != (1, MAX_NEW) \
+                or not np.isfinite(r.logprobs).all() \
+                or (r.tokens < 0).any() \
+                or (r.tokens >= cfg.vocab_padded).any():
+            raise AssertionError("a request's stream is malformed")
+
+    # (b) streams against each request's solo greedy_generate run
+    class GapRecorder:
+        """The model, noting each step's top-2 log-prob gap."""
+
+        def __init__(self, m):
+            self.m, self.device, self.gaps = m, m.device, []
+
+        def _note(self, out):
+            lp = torch.log_softmax(out[1][:, -1].float(), dim=-1)
+            top = lp.topk(2, dim=-1).values[0]
+            self.gaps.append((top[0] - top[1]).item())
+            return out
+
+        def prefill_fn(self, *a):
+            return self._note(self.m.prefill_fn(*a))
+
+        def decode_fn(self, *a):
+            return self._note(self.m.decode_fn(*a))
+
+    for rid in rids[:4]:
+        rec = GapRecorder(model)
+        solo = greedy_generate(rec, params, prompts[rid][None],
+                               max_new=MAX_NEW, s_max=S_MAX)
+        got = sched.results[rid]
+        agree = 0
+        for i in range(MAX_NEW):
+            if got.tokens[0, i] != solo.tokens[0, i]:
+                if rec.gaps[i] > 1e-3:
+                    raise AssertionError(
+                        f"request {rid}: token {i} differs from its solo "
+                        f"run with a top-2 gap of {rec.gaps[i]:.3g}")
+                break                 # a near tie: the streams part here
+            d_lp = abs(got.logprobs[0, i] - solo.logprobs[0, i])
+            if d_lp > 1e-4 + 1e-4 * abs(solo.logprobs[0, i]):
+                raise AssertionError(f"request {rid}: log-prob {i} differs "
+                                     f"from its solo run by {d_lp:.3g}")
+            agree += 1
+        print(f"[serve] request {rid} ({prompts[rid].size} prompt tokens): "
+              f"{agree}/{MAX_NEW} tokens agree with its solo greedy_generate "
+              f"run (smallest top-2 gap {min(rec.gaps[:MAX_NEW]):.3g})")
+
+    # (c) the first 2 units: a 2048-token prefill on the card vs the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = {k_: v_ for k_, v_ in params.items() if k_ != "units"}
+    p2["units"] = _map(lambda a: a[:2], params["units"])
+    batch = {"tokens": torch.from_numpy(tokens[:1, :2049].astype(np.int32))}
+    before = kflash.launches
+    cache_g, logits_g = build(cfg2, ctx, device=dev).prefill_fn(p2, batch,
+                                                                2048)
+    card_launches = kflash.launches - before
+    t0 = time.perf_counter()
+    cache_c, logits_c = build(cfg2, ctx, device="cpu").prefill_fn(
+        _map(lambda a: a.cpu(), p2), batch, 2048)
+    cpu_s = time.perf_counter() - t0
+    rel = ((logits_g.cpu() - logits_c).abs().max()
+           / logits_c.abs().max()).item()
+    k_rel = ((cache_g["units"]["b0"]["k"].cpu() - cache_c["units"]["b0"]["k"])
+             .abs().max() / cache_c["units"]["b0"]["k"].abs().max()).item()
+    print(f"[serve] 2-unit prefill of 2048 tokens, card (flash kernel, "
+          f"{card_launches} launches) vs CPU (plain, {cpu_s:.1f} s): "
+          f"last-token logits rel_err {rel:.2e}, k cache rel_err {k_rel:.2e}")
+    if not rel <= 1e-4 or not torch.isfinite(logits_g).all() \
+            or logits_g.shape != (1, 1, cfg.vocab_padded):
+        raise AssertionError(f"card vs CPU prefill: rel_err {rel} > 1e-4")
+    del sched, params, p2, cache_g, cache_c
+    print(f"[phase] serve {time.perf_counter() - t_phase:.1f} s")
+
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
@@ -384,7 +650,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/quant.py:53",
         "launches": launches["q4_matmul"], "max_abs_err": q4_err,
         "ms": q4_ms, "plain_ms": q4_plain_ms, "bound_ms": q4_bound_ms,
-        "bound_by": q4_bound_by, "library_ms": None}]}))
+        "bound_by": q4_bound_by, "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:71",
+        "launches": launches["flash_attention"], "max_abs_err": flash_err,
+        "ms": flash_ms, "plain_ms": flash_plain_ms,
+        "bound_ms": flash_bound_ms, "bound_by": flash_bound_by,
+        "library_ms": flash_lib_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

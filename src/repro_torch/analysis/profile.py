@@ -1,15 +1,20 @@
-"""Where the time goes on the card: SUMMA and ``ag_matmul`` under
+"""Where the time goes on the card: SUMMA, ``ag_matmul`` and serving under
 ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.analysis.profile [--n 16384]
         [--chunks 2]
     PYTHONPATH=src python -m repro_torch.analysis.profile --ag-matmul
+    PYTHONPATH=src python -m repro_torch.analysis.profile --serve
 
 SUMMA: for each scheme, one warm-up run, then one profiled run of the whole
 multiply (all rounds, ``use_kernel=True``).  ``--ag-matmul``: the same for
 ``ag_matmul(use_kernel=True)`` at the width of ``mistral-nemo-12b``'s MLP
 down-projection (K = d_ff = 14336, N = d_model = 5120, 2048 tokens per rank,
-1x8 cluster), exact and ``precision="lossy"`` (the q4 kernel).  Prints each
+1x8 cluster), exact and ``precision="lossy"`` (the q4 kernel).
+``--serve``: ``qwen3-0.6b`` at full width (f32, random weights): one
+prefill of 8 slots x 2048 tokens (the largest bucket, s_max 4096), then one
+decode step of the 8 slots at position 2048, each with the share of device
+time in the flash-attention kernel.  Prints each
 run's wall time, the device busy time (the union of every kernel and copy
 interval on the card, so overlapping streams count once), the busy share of
 the wall time, and the kernels that took most device time.  Needs a CUDA
@@ -72,14 +77,16 @@ def profile_run(run, top: int = 5) -> dict:
     by_name: dict[str, float] = defaultdict(float)
     for e in dev:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms, "top": ranked}
+            "busy_share": busy_ms / wall_ms, "top": ranked[:top],
+            "all": ranked, "launches": len(dev)}
 
 
 def _print(label: str, r: dict) -> None:
     print(f"[profile] {label:9s}: wall {r['wall_ms']:.1f} ms  device "
-          f"busy {r['busy_ms']:.1f} ms ({100 * r['busy_share']:.1f}%)")
+          f"busy {r['busy_ms']:.1f} ms ({100 * r['busy_share']:.1f}%), "
+          f"{r['launches']} device activities")
     for name, ms in r["top"]:
         print(f"[profile]    {ms:9.2f} ms  {name[:90]}")
 
@@ -103,12 +110,48 @@ def profile_ag_matmul(dev: torch.device, chunks: int) -> None:
                 precision=precision)))
 
 
+def profile_serve(dev: torch.device, top: int = 8) -> None:
+    """Prefill and one decode step of full-width ``qwen3-0.6b``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ParallelCtx, build
+    cfg = get_config("qwen3-0.6b")
+    model = build(cfg, ParallelCtx.single(), device=dev)
+    params = model.init_params(0)
+    B, T, s_max = 8, 2048, 4096
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, T + 1), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    print(f"{torch.cuda.get_device_name(0)}; {cfg.name} full width f32, "
+          f"prefill {B} x {T} (s_max {s_max}), then one decode step")
+    cache = {}
+
+    def prefill():
+        cache["c"] = model.prefill_fn(params, batch, s_max)[0]
+
+    r = profile_run(prefill, top)
+    _print("prefill", r)
+    _print_share(r)
+    tok = batch["tokens"][:, -1:]
+    pos = torch.full((B,), T, dtype=torch.int32, device=dev)
+    r = profile_run(lambda: model.decode_fn(params, cache["c"], tok, pos),
+                    top)
+    _print("decode", r)
+
+
+def _print_share(r: dict) -> None:
+    flash = sum(ms for name, ms in r["all"] if "flash_fwd" in name)
+    print(f"[profile]    flash_attention kernel {flash:.2f} ms = "
+          f"{100 * flash / r['busy_ms']:.1f}% of device busy time")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--chunks", type=int, default=2)
     ap.add_argument("--ag-matmul", action="store_true",
                     help="profile exact vs lossy ag_matmul instead of SUMMA")
+    ap.add_argument("--serve", action="store_true",
+                    help="profile full-width qwen3-0.6b prefill and decode")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -116,6 +159,9 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     if args.ag_matmul:
         profile_ag_matmul(dev, args.chunks)
+        return
+    if args.serve:
+        profile_serve(dev)
         return
     g = torch.Generator(device=dev).manual_seed(0)
     a = torch.randn((args.n, args.n), generator=g, device=dev)

@@ -6,7 +6,8 @@ and a ``SharedWindow``'s shards come back the same way (rank-major concat
 of every rank's local shard).  These helpers lay such an array out as the
 port's stacked ``(R, m, ...)`` tensor on a chosen device, and back.
 bfloat16 arrays cross as their 16-bit patterns; they come back as float32
-(numpy has no bfloat16 of its own).
+(numpy has no bfloat16 of its own).  ``params_from_reference`` puts the
+reference model's parameter tree onto a device as the port's.
 """
 
 from __future__ import annotations
@@ -23,6 +24,16 @@ def _tensor(arr) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def params_from_reference(tree, device="cuda") -> dict:
+    """The reference's ``init_params`` tree (nested dicts of arrays, units
+    stacked on a leading ``n_units`` dim) as the port's tensors on
+    ``device`` — the same layout, so ``repro_torch.models`` reads it as
+    it is."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    return _tensor(tree).to(device)
 
 
 def to_stacked(arr, vc) -> torch.Tensor:

@@ -1,0 +1,150 @@
+"""Parameter metadata: global shapes, TP/FSDP dims, init rules.
+
+Every param leaf carries a ``PMeta``; the tree (``model_defs``) has the
+reference's layout (``repro/models/meta.py``), so a parameter tree the
+reference's ``init_params`` made maps leaf for leaf onto the port's
+(``repro_torch.convert.params_from_reference``).  ``init_params`` draws the
+tree on a device from an explicit ``torch.Generator`` with the reference's
+init rules; it cannot reproduce ``jax.random``'s draws.
+
+The port builds the single-device tree (tp = 1, no FSDP axes: every
+``fsdp_dim`` resolves to ``None``).  The PartitionSpec / abstract-shape
+functions of the reference are JAX sharding and wait for the sharded model
+(ROADMAP Queue 1 item 13); so do the block kinds other than ``attn`` /
+``local`` and the MoE channel mix (Queue 1 item 16).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass
+class PMeta:
+    shape: tuple[int, ...]
+    tp_dim: Optional[int] = None
+    fsdp_dim: Optional[int] = None
+    data_dim: Optional[int] = None
+    init: str = "normal"           # normal | out | zeros | ones
+    dtype: torch.dtype = torch.float32
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
+                               f"item {item}")
+
+
+def attn_mode_for(cfg: ModelConfig, tp: int) -> str:
+    return "head_tp" if cfg.n_heads % tp == 0 else "cp"
+
+
+# ---------------------------------------------------------------------------
+# Per-block param/meta definitions
+# ---------------------------------------------------------------------------
+
+def attn_defs(cfg: ModelConfig, tp: int, serve: bool,
+              opts=frozenset()) -> dict[str, PMeta]:
+    if tp != 1:
+        raise not_ported("tensor-parallel attention weights", 13)
+    d, H, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    out = {
+        "ln": PMeta((d,), init="zeros"),
+        "wq": PMeta((d, H * hd)),
+        "wkv": PMeta((d, 2, kv * hd)),
+        "wo": PMeta((H * hd, d), init="out"),
+    }
+    if cfg.qk_norm:
+        out["q_norm"] = PMeta((hd,), init="zeros")
+        out["k_norm"] = PMeta((hd,), init="zeros")
+    return out
+
+
+def ffn_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
+    d, dff = cfg.d_model, cfg.d_ff
+    g = 1 if cfg.act == "gelu" else 2
+    return {
+        "ln": PMeta((d,), init="zeros"),
+        "w_in": PMeta((d, g, dff), tp_dim=2),
+        "w_out": PMeta((dff, d), tp_dim=0, init="out"),
+    }
+
+
+def block_defs(kind: str, cfg: ModelConfig, tp: int, serve: bool,
+               opts=frozenset()) -> dict:
+    if kind in ("attn", "local"):
+        out = {"attn": attn_defs(cfg, tp, serve, opts)}
+        if cfg.moe:
+            raise not_ported("the MoE channel mix (models/moe.py)", 16)
+        if cfg.d_ff:
+            out["ffn"] = ffn_defs(cfg, tp)
+        return out
+    if kind in ("mlstm", "slstm", "rglru"):
+        raise not_ported(f"the {kind} block", 16)
+    raise ValueError(kind)
+
+
+def model_defs(cfg: ModelConfig, tp: int, data: int, mode: str,
+               serve: bool = False, opts=frozenset()) -> dict:
+    """Full meta tree.  'units' metas describe PER-LAYER shapes (they get a
+    stacked leading dim at materialization)."""
+    if tp != 1 or data != 1:
+        raise not_ported("the sharded parameter tree", 13)
+    d = cfg.d_model
+    defs: dict = {
+        "embed": PMeta((cfg.vocab_padded, d), tp_dim=0),
+        "final_ln": PMeta((d,), init="zeros"),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = PMeta((d, cfg.vocab_padded), tp_dim=1)
+    if cfg.frontend:
+        defs["frontend"] = PMeta((cfg.d_frontend, d))
+    defs["units"] = {f"b{i}": block_defs(k, cfg, tp, serve, opts)
+                     for i, k in enumerate(cfg.pattern)}
+    if cfg.remainder_kinds:
+        defs["rem"] = {f"r{i}": block_defs(k, cfg, tp, serve, opts)
+                       for i, k in enumerate(cfg.remainder_kinds)}
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Materialization
+# ---------------------------------------------------------------------------
+
+def map_defs(fn, defs: dict, path: tuple = ()) -> dict:
+    """``fn(path, meta)`` over every ``PMeta`` leaf; same nesting."""
+    if isinstance(defs, PMeta):
+        return fn(path, defs)
+    return {k: map_defs(fn, v, path + (k,)) for k, v in defs.items()}
+
+
+def init_leaf(meta: PMeta, n_layers: int, stacked: Optional[int], *,
+              generator: torch.Generator, device) -> torch.Tensor:
+    shape = ((stacked,) + meta.shape) if stacked else meta.shape
+    if meta.init == "zeros":
+        return torch.zeros(shape, dtype=meta.dtype, device=device)
+    if meta.init == "ones":
+        return torch.ones(shape, dtype=meta.dtype, device=device)
+    scale = 0.02
+    if meta.init == "out":
+        scale = 0.02 / math.sqrt(2.0 * max(n_layers, 1))
+    return torch.randn(shape, generator=generator, dtype=meta.dtype,
+                       device=device) * scale
+
+
+def init_params(defs: dict, cfg: ModelConfig, generator: torch.Generator,
+                device) -> dict:
+    """Draw the parameter tree on ``device`` from ``generator`` (which
+    must live on that device type): ``normal`` x0.02, ``out``
+    x0.02/sqrt(2L), ``zeros``, ``ones``; leaves under ``units`` stacked on a
+    leading ``n_units`` dim."""
+    def leaf(path, meta):
+        stacked = cfg.n_units if path and path[0] == "units" else None
+        return init_leaf(meta, cfg.n_layers, stacked, generator=generator,
+                         device=device)
+    return map_defs(leaf, defs)

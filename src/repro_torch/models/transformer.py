@@ -1,0 +1,301 @@
+"""Decoder assembly: the pattern units and the prefill / decode entry points.
+
+The reference's ``repro/models/transformer.py`` for a dense model on one
+device.  The model is a stack of *pattern units* (``cfg.pattern`` repeated
+``cfg.n_units`` times, plus an unrolled remainder); unit params are stacked
+on a leading ``n_units`` dim, exactly the reference's parameter tree, and a
+Python loop over units takes the place of ``lax.scan``.
+
+Ported: the ``attn`` / ``local`` blocks (prefill and the 1D decode path),
+the token frontend, prefill with the cache re-layout (ring slots for a
+window), and decode with per-slot positions.  What raises
+``NotImplementedError``: the ``mlstm`` / ``slstm`` / ``rglru`` blocks, the
+MoE channel mix and the ``vit`` / ``encodec`` frontends (ROADMAP Queue 1
+item 16), and the training loss (item 13).
+
+Decode writes the new position of each slot into the cache in place
+(``attention.cache_write``) and returns the same cache tree.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import meta as M
+from repro_torch.models.attention import (attn_block, cache_write,
+                                          decode_attention)
+from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
+                                       rms_norm, rope_decode, sinusoidal_pe)
+from repro_torch.models.meta import not_ported as _not_ported
+from repro_torch.models.parallel import ParallelCtx
+
+
+class Model(torch.nn.Module):
+    """A dense decoder on one device.  Parameters are not held by the module:
+    every entry point takes the parameter tree (``init_params``, or the
+    reference's through ``convert.params_from_reference``) as the
+    reference's does, so one model serves any set of weights."""
+
+    def __init__(self, cfg: ModelConfig, ctx: ParallelCtx, defs: Any,
+                 serve_defs: Any, device):
+        super().__init__()
+        self.cfg = cfg
+        self.ctx = ctx
+        self.defs = defs
+        self.serve_defs = serve_defs
+        self.device = torch.device(device)
+
+    # ---- params ------------------------------------------------------------
+    def init_params(self, seed: int = 0) -> dict:
+        """The parameter tree drawn on ``self.device`` from a
+        ``torch.Generator`` seeded with ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return M.init_params(self.defs, self.cfg, gen, self.device)
+
+    # ---- entry points ------------------------------------------------------
+    def loss_fn(self, params, batch):
+        raise _not_ported("the training loss (unembed_xent)", 13)
+
+    def prefill_fn(self, params, batch, s_max: int, *, unroll: int = 1):
+        return _prefill(self.cfg, self.ctx, self.defs, params, batch, s_max)
+
+    def decode_fn(self, params, cache, token, pos, *, unroll: int = 1):
+        return _decode(self.cfg, self.ctx, self.serve_defs, params, cache,
+                       token, pos)
+
+    def cache_init(self, B_loc: int, s_max: int) -> dict:
+        return _cache_init(self.cfg, self.ctx, B_loc, s_max, self.device)
+
+
+def build(cfg: ModelConfig, ctx: ParallelCtx, data: int = 1,
+          device="cuda") -> Model:
+    defs = M.model_defs(cfg, ctx.tp, data, ctx.mode, serve=False,
+                        opts=ctx.opts)
+    serve_defs = M.model_defs(cfg, ctx.tp, data, ctx.mode, serve=True,
+                              opts=ctx.opts)
+    return Model(cfg, ctx, defs, serve_defs, device)
+
+
+def _unit(tree: dict, u: int) -> dict:
+    """Unit ``u``'s slice of a tree stacked on a leading ``n_units`` dim."""
+    return {k: _unit(v, u) if isinstance(v, dict) else v[u]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _mix(kind: str, x, p, mt, ctx, cfg, *, serve=False):
+    """Channel-mixing half of attn/local blocks."""
+    if cfg.moe:
+        raise _not_ported("the MoE channel mix (models/moe.py)", 16)
+    if not cfg.d_ff:
+        return x
+    f = ffn_decode if serve else ffn
+    return f(x, p["ffn"], mt["ffn"], ctx, act=cfg.act, eps=cfg.norm_eps)
+
+
+def _block_train(kind: str, x, p, mt, ctx, cfg, *, return_state=False):
+    if kind not in ("attn", "local"):
+        raise _not_ported(f"the {kind} block", 16)
+    window = cfg.window if kind == "local" else None
+    mode = M.attn_mode_for(cfg, ctx.tp)
+    out = attn_block(x, p["attn"], mt["attn"], ctx, cfg, mode=mode,
+                     window=window, return_kv=return_state)
+    if return_state:
+        x, (k, v) = out
+        return _mix(kind, x, p, mt, ctx, cfg), {"k": k, "v": v}
+    return _mix(kind, out, p, mt, ctx, cfg)
+
+
+def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
+    if kind not in ("attn", "local"):
+        raise _not_ported(f"the {kind} block", 16)
+    window = cfg.window if kind == "local" else None
+    H, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    pa, ma = p["attn"], mt["attn"]
+    h = rms_norm(x, ctx.gather_w(pa["ln"], ma["ln"].fsdp_dim), cfg.norm_eps)
+    wq = ctx.gather_w(pa["wq"], ma["wq"].fsdp_dim)
+    wkv = ctx.gather_w(pa["wkv"], ma["wkv"].fsdp_dim)
+    wo = ctx.gather_w(pa["wo"], ma["wo"].fsdp_dim)
+    B, _, d = x.shape
+    q = (h @ wq).reshape(B, 1, H, hd)
+    kvp = (h @ wkv.reshape(d, -1)).reshape(B, 1, 2, kv, hd)
+    k_new, v_new = kvp[:, :, 0], kvp[:, :, 1]
+    if cfg.qk_norm:
+        q = rms_norm(q, ctx.gather_w(pa["q_norm"], ma["q_norm"].fsdp_dim),
+                     cfg.norm_eps)
+        k_new = rms_norm(k_new, ctx.gather_w(pa["k_norm"],
+                                             ma["k_norm"].fsdp_dim),
+                         cfg.norm_eps)
+    if cfg.pos == "rope":
+        rdt = ctx.compute_dtype if ctx.has("bf16_rope") else None
+        q = rope_decode(q, pos, cfg.rope_theta, rdt)
+        k_new = rope_decode(k_new, pos, cfg.rope_theta, rdt)
+    kc = cache_write(state["k"], k_new, ctx, pos=pos, window=window)
+    vc = cache_write(state["v"], v_new, ctx, pos=pos, window=window)
+    o = decode_attention(q, kc, vc, ctx, pos=pos, H=H, window=window,
+                         ring=window is not None)
+    x = x + o.reshape(B, 1, H * hd) @ wo
+    x = _mix(kind, x, p, mt, ctx, cfg, serve=True)
+    return x, {"k": kc, "v": vc}
+
+
+# ---------------------------------------------------------------------------
+# Embedding glue
+# ---------------------------------------------------------------------------
+
+def _embed_sp(cfg, ctx, defs, params, batch, *, T: int):
+    """The input embedding (B, T, d) plus the (labels, mask) of shape
+    (B, T) — the token frontend."""
+    if cfg.frontend:
+        raise _not_ported(f"the {cfg.frontend} frontend", 16)
+    emb = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
+    tokens = torch.as_tensor(batch["tokens"], device=emb.device)  # (B, T+1)
+    ids = tokens[:, :T]
+    labels = tokens[:, 1:T + 1]
+    x = embed(ids, emb, ctx)
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=emb.device)
+    if cfg.tie_embeddings:  # gemma-style input scaling
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.pos == "sinusoidal":
+        pos = torch.arange(T, device=emb.device)
+        x = x + sinusoidal_pe(pos, cfg.d_model)[None].to(x.dtype)
+    return x, labels, mask
+
+
+def _unembed_weight(cfg, ctx, defs, params):
+    if cfg.tie_embeddings:
+        return ctx.gather_w(params["embed"], defs["embed"].fsdp_dim).T
+    return ctx.gather_w(params["unembed"], defs["unembed"].fsdp_dim)
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+def _state_to_cache(cfg, ctx, st, T: int, s_max: int, kind: str,
+                    tdim: int = 1):
+    """Re-layout prefill (k, v) into the decode cache layout: padded to
+    ``s_max`` along the time axis ``tdim`` — or, for a window, the ring of
+    the last ``W = min(window, s_max)`` positions, slot s holding position
+    g = T-W + ((s - (T-W)) mod W), zero-filled where g < 0 (those slots are
+    masked out of decode attention, but must not hold NaN)."""
+    if kind not in ("attn", "local"):
+        return st
+    window = cfg.window if kind == "local" else None
+    if window is None and T > s_max:
+        raise ValueError(f"a {T}-token prefill does not fit a cache of "
+                         f"s_max={s_max}")
+
+    def relayout(a):
+        if window is not None:
+            W = min(window, s_max)
+            s = torch.arange(W, device=a.device)
+            g = T - W + ((s - (T - W)) % W)
+            full = a.index_select(tdim, g.clamp_min(0))
+            shape = [1] * full.dim()
+            shape[tdim] = W
+            return torch.where((g >= 0).reshape(shape), full,
+                               torch.zeros((), dtype=a.dtype,
+                                           device=a.device))
+        shape = list(a.shape)
+        shape[tdim] = s_max
+        full = a.new_zeros(shape)
+        full.narrow(tdim, 0, T).copy_(a)
+        return full
+
+    return {"k": relayout(st["k"]), "v": relayout(st["v"])}
+
+
+def _cache_init(cfg, ctx, B_loc: int, s_max: int, device) -> dict:
+    """Zero caches; every leaf its own tensor (decode writes in place)."""
+    def one(kind, lead=()):
+        if kind not in ("attn", "local"):
+            raise _not_ported(f"the {kind} block's decode state", 16)
+        window = cfg.window if kind == "local" else None
+        S = min(window, s_max) if window else s_max
+        shape = lead + (B_loc, S, cfg.n_kv, cfg.head_dim)
+        return {n: torch.zeros(shape, dtype=ctx.compute_dtype, device=device)
+                for n in ("k", "v")}
+
+    out = {"units": {f"b{i}": one(k, (cfg.n_units,))
+                     for i, k in enumerate(cfg.pattern)}}
+    if cfg.remainder_kinds:
+        out["rem"] = {f"r{i}": one(k)
+                      for i, k in enumerate(cfg.remainder_kinds)}
+    return out
+
+
+def _prefill(cfg, ctx, defs, params, batch, s_max: int):
+    """Run the prompt (``batch["tokens"]`` (B, T+1); the last column is
+    the label of token T-1), return (cache, last-token logits (B, 1, V))."""
+    T = torch.as_tensor(batch["tokens"]).shape[1] - 1
+    x, _, _ = _embed_sp(cfg, ctx, defs, params, batch, T=T)
+    states = {f"b{i}": [] for i in range(len(cfg.pattern))}
+    for u in range(cfg.n_units):
+        pu = _unit(params["units"], u)
+        for i, k in enumerate(cfg.pattern):
+            key = f"b{i}"
+            x, st = _block_train(k, x, pu[key], defs["units"][key], ctx,
+                                 cfg, return_state=True)
+            states[key].append(st)
+    rem_states = {}
+    for i, k in enumerate(cfg.remainder_kinds):
+        key = f"r{i}"
+        x, rem_states[key] = _block_train(k, x, params["rem"][key],
+                                          defs["rem"][key], ctx, cfg,
+                                          return_state=True)
+    x = rms_norm(x, ctx.gather_w(params["final_ln"],
+                                 defs["final_ln"].fsdp_dim), cfg.norm_eps)
+    w_un = _unembed_weight(cfg, ctx, defs, params)
+    logits = decode_logits(x[:, -1:], w_un, ctx, softcap=cfg.logit_softcap)
+
+    cache = {"units": {}}
+    for i, k in enumerate(cfg.pattern):
+        key = f"b{i}"
+        stacked = {n: torch.stack([st[n] for st in states[key]])
+                   for n in ("k", "v")}
+        cache["units"][key] = _state_to_cache(cfg, ctx, stacked, T, s_max,
+                                              k, tdim=2)
+    if cfg.remainder_kinds:
+        cache["rem"] = {key: _state_to_cache(cfg, ctx, rem_states[key], T,
+                                             s_max, k)
+                        for key, k in zip(rem_states, cfg.remainder_kinds)}
+    return cache, logits
+
+
+def _decode(cfg, ctx, defs, params, cache, token, pos):
+    """One decode step.  token: (B, 1) int; pos: current position — a
+    scalar shared by the batch, or a (B,) vector of per-slot positions.
+    Returns (cache, logits (B, 1, V)); the cache is updated in place."""
+    emb = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
+    pos = torch.as_tensor(pos, device=emb.device)
+    x = embed(torch.as_tensor(token, device=emb.device), emb, ctx)
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.pos == "sinusoidal":
+        if pos.dim() == 1:               # per-slot positions: (B, 1, d)
+            x = x + sinusoidal_pe(pos, cfg.d_model)[:, None].to(x.dtype)
+        else:
+            x = x + sinusoidal_pe(pos[None], cfg.d_model)[None].to(x.dtype)
+
+    for u in range(cfg.n_units):
+        pu = _unit(params["units"], u)
+        for i, k in enumerate(cfg.pattern):
+            key = f"b{i}"
+            state = {n: cache["units"][key][n][u] for n in ("k", "v")}
+            x, _ = _block_decode(k, x, pu[key], defs["units"][key], state,
+                                 ctx, cfg, pos=pos)
+    for i, k in enumerate(cfg.remainder_kinds):
+        key = f"r{i}"
+        x, _ = _block_decode(k, x, params["rem"][key], defs["rem"][key],
+                             cache["rem"][key], ctx, cfg, pos=pos)
+    x = rms_norm(x, ctx.gather_w(params["final_ln"],
+                                 defs["final_ln"].fsdp_dim), cfg.norm_eps)
+    w_un = _unembed_weight(cfg, ctx, defs, params)
+    return cache, decode_logits(x, w_un, ctx, softcap=cfg.logit_softcap)

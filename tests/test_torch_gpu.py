@@ -12,8 +12,13 @@ kernel tests' tolerances (F32 2e-4 / BF16 2e-2, rtol K-scaled, atol x8).
 The card's collectives and fused collective-matmuls (side stream + events)
 are held against the same code run on the CPU: gathers bit for bit,
 products and sums within 1e-5.  The lossy wire formats are held to
-``traffic.check_lossy`` on the card.
+``traffic.check_lossy`` on the card.  The flash-attention kernel is held
+to its plain version (F32 2e-4 / BF16 2e-2), and a full-width
+``qwen3-0.6b`` unit's prefill on the card (the kernel) to the same prefill
+on the CPU (the plain version) within 1e-4 relative.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -21,9 +26,12 @@ import torch
 from repro_torch.analysis import traffic
 from repro_torch.comm import Communicator
 from repro_torch.comm.quantize import dequantize_q4, quantize_q4
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as kquant
+from repro_torch.models import ParallelCtx, build
 from repro_torch.substrate import VirtualCluster, default_matrix
 
 pytestmark = pytest.mark.gpu
@@ -227,3 +235,97 @@ def test_lossy_evidence_on_the_card(cuda, vc):
     rows = traffic.check_lossy(vc, elems=4096)
     assert rows
     assert all(r.error <= r.bound for r in rows)
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention kernel and the model's prefill
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [(1, 4, 4, 128, 128, 64, True, None),    # tests/test_kernels.py
+               (2, 8, 2, 128, 128, 64, True, None),
+               (1, 4, 1, 64, 256, 32, True, None),
+               (1, 3, 3, 96, 96, 16, True, None),
+               (2, 4, 2, 256, 256, 64, True, None),
+               (1, 2, 2, 128, 128, 32, True, 16),      # windows
+               (1, 2, 2, 128, 128, 32, True, 64),
+               (1, 2, 2, 64, 64, 32, False, None),     # non-causal
+               (1, 8, 1, 200, 200, 256, True, None),   # hd 256, ragged
+               (2, 16, 8, 300, 300, 128, True, None)]  # the model's heads
+
+
+def _flash_tol(dtype):
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    return dict(rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, case, dtype):
+    B, H, KV, Tq, Tkv, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((B, H, Tq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, KV, Tkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, KV, Tkv, hd), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=Tkv - Tq)
+    before = kflash.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kflash.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    torch.testing.assert_close(
+        got.float(), kflash.flash_attention_plain(q, k, v, **kw).float(),
+        **_flash_tol(dtype))
+
+
+def test_flash_kernel_reads_the_models_strided_layout(cuda):
+    """(B, T, heads, hd) views straight out of the fused kv projection are
+    read in place and give the (B, H, T, hd) result transposed."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((2, 333, 16, 128), generator=g, device=cuda)
+    kv = torch.randn((2, 333, 2, 8, 128), generator=g, device=cuda)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    assert kflash.kernel_ready(v) and not v.is_contiguous()
+    got = kflash.flash_attention_cuda(q, k, v, layout="bthd", window=100)
+    want = ops.flash_attention(*(x.transpose(1, 2).contiguous()
+                                 for x in (q, k, v)), window=100)
+    torch.testing.assert_close(got, want.transpose(1, 2), rtol=0, atol=0)
+
+
+def test_flash_kernel_wrapper_checks_its_operands(cuda):
+    q = torch.ones(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        kflash.flash_attention_cuda(q[..., 1:33], q[..., :32], q[..., :32])
+    with pytest.raises(ValueError, match="head_dim"):
+        kflash.flash_attention_cuda(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError, match="CUDA"):
+        kflash.flash_attention_cuda(q, q.cpu(), q)
+    # ops.flash_attention copies an unaligned operand for the kernel
+    got = ops.flash_attention(q[..., 1:33], q[..., :32], q[..., :32])
+    torch.testing.assert_close(got, torch.ones(1, 2, 8, 32, device=cuda))
+
+
+def test_full_width_unit_prefill_on_the_card_matches_the_cpu(cuda):
+    """One unit of qwen3-0.6b at its published widths: a 512-token
+    prefill through the kernel equals the plain version on the CPU."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=1)
+    ctx = ParallelCtx.single()
+    on_card = build(cfg, ctx, device=cuda)
+    params = on_card.init_params(3)
+    toks = torch.randint(0, cfg.vocab, (2, 513),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    before = kflash.launches
+    cache_g, logits_g = on_card.prefill_fn(params, {"tokens": toks}, 600)
+    assert kflash.launches == before + 1
+    cache_c, logits_c = build(cfg, ctx, device="cpu").prefill_fn(
+        _to_cpu(params), {"tokens": toks}, 600)
+    scale = logits_c.abs().max()
+    assert ((logits_g.cpu() - logits_c).abs().max() / scale).item() <= 1e-4
+    for n in ("k", "v"):
+        a, b = cache_g["units"]["b0"][n].cpu(), cache_c["units"]["b0"][n]
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}

@@ -4,8 +4,10 @@ Same numpy inputs (from a seed) go to ``repro.kernels`` and to
 ``repro_torch.kernels``.  Tolerances are the reference's own
 (``tests/test_kernels.py``): F32 2e-4, BF16 2e-2, matmul rtol K-scaled and
 atol x8.  On the CPU the port's ``ops.matmul`` takes the kernel's plain
-version; the CUDA kernel itself is checked on the card by
-``tests/test_torch_gpu.py``.
+version; the CUDA kernels themselves are checked on the card by
+``tests/test_torch_gpu.py``.  ``ops.flash_attention``'s plain version is
+held against the reference's Pallas kernel in interpret mode over the
+parametrisation of ``tests/test_kernels.py``.
 """
 
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops, ref
 
@@ -144,3 +147,99 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kmatmul.matmul_cuda(a, b)
     assert kmatmul.launches == before
+
+
+# ---------------------------------------------------------------------------
+# ops.flash_attention (the prefill attention) vs the reference's Pallas
+# kernel in interpret mode — tests/test_kernels.py's cases
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,H,KV,Tq,Tkv,hd", [
+    (1, 4, 4, 128, 128, 64),       # MHA square
+    (2, 8, 2, 128, 128, 64),       # GQA 4:1
+    (1, 4, 1, 64, 256, 32),        # MQA, Tq != Tkv (q at the end)
+    (1, 3, 3, 96, 96, 16),         # non-128 shapes (padding path)
+    (2, 4, 2, 256, 256, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_flash_attention_matches_pallas_interpret(B, H, KV, Tq, Tkv, hd,
+                                                      dtype):
+    rng = np.random.default_rng(0)
+    jq, tq = _pair(rng, (B, H, Tq, hd), dtype)
+    jk, tk = _pair(rng, (B, KV, Tkv, hd), dtype)
+    jv, tv = _pair(rng, (B, KV, Tkv, hd), dtype)
+    q_off = Tkv - Tq
+    want = jops.flash_attention(jq, jk, jv, causal=True, q_offset=q_off,
+                                block_q=64, block_kv=64, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=True, q_offset=q_off)
+    assert got.shape == (B, H, Tq, hd) and got.dtype == DTYPES[dtype][1]
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_ops_flash_attention_window_matches_pallas_interpret(window):
+    rng = np.random.default_rng(1)
+    B, H, T, hd = 1, 2, 128, 32
+    jq, tq = _pair(rng, (B, H, T, hd), "float32")
+    jk, tk = _pair(rng, (B, H, T, hd), "float32")
+    jv, tv = _pair(rng, (B, H, T, hd), "float32")
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                block_q=32, block_kv=32, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+def test_ops_flash_attention_noncausal_matches_pallas_interpret():
+    rng = np.random.default_rng(2)
+    B, H, T, hd = 1, 2, 64, 32
+    jq, tq = _pair(rng, (B, H, T, hd), "float32")
+    jk, tk = _pair(rng, (B, H, T, hd), "float32")
+    jv, tv = _pair(rng, (B, H, T, hd), "float32")
+    want = jops.flash_attention(jq, jk, jv, causal=False, block_q=32,
+                                block_kv=32, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+def test_flash_attention_model_layout_is_the_transpose():
+    """``layout="bthd"`` (the model's) gives the (B, H, T, hd) result
+    transposed, from strided views read in place."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(2, 40, 4, 16)).astype(np.float32))
+    kv = torch.from_numpy(rng.normal(size=(2, 40, 2, 2, 16)).astype(
+        np.float32))
+    k, v = kv[:, :, 0], kv[:, :, 1]            # strided, as attn_block's
+    got = ops.flash_attention(q, k, v, window=8, q_offset=0, layout="bthd")
+    want = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), window=8)
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want.transpose(1, 2), rtol=0, atol=0)
+    assert kflash.kernel_ready(k) and kflash.kernel_ready(v)
+    assert not kflash.kernel_ready(q[..., 1:])
+
+
+@pytest.mark.parametrize("shapes,kw,err", [
+    (((1, 4, 8, 16), (1, 3, 8, 16), (1, 3, 8, 16)), {}, ValueError),  # GQA
+    (((1, 4, 8, 16), (1, 2, 8, 8), (1, 2, 8, 8)), {}, ValueError),    # hd
+    (((1, 4, 8, 16), (1, 2, 0, 16), (1, 2, 0, 16)), {}, ValueError),  # Tkv
+    (((1, 4, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)), {"window": 0},
+     ValueError),
+    (((1, 4, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)), {"layout": "tbhd"},
+     ValueError),
+    (((4, 8, 16), (2, 8, 16), (2, 8, 16)), {}, ValueError),           # rank
+])
+def test_ops_flash_attention_rejects_bad_operands(shapes, kw, err):
+    q, k, v = (torch.zeros(s) for s in shapes)
+    with pytest.raises(err):
+        ops.flash_attention(q, k, v, **kw)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), v.half())
+
+
+def test_flash_kernel_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(1, 2, 8, 16)
+    before = kflash.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kflash.flash_attention_cuda(q, q, q)
+    assert kflash.launches == before

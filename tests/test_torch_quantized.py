@@ -31,6 +31,7 @@ from repro_torch.analysis import traffic
 from repro_torch.comm import Communicator, registry, tuning
 from repro_torch.comm import quantize as qz
 from repro_torch.kernels import _cuda
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as kquant
@@ -521,27 +522,28 @@ def test_q4_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_every_kernel_builds_through_one_builder(monkeypatch):
-    """Both kernel modules bind their entry points on the library the one
-    builder returns for their own source."""
+    """Every kernel module binds its entry points on the library the one
+    builder returns for its own source."""
     asked = []
+    mods = (kmatmul, kquant, kflash)
 
     def fake(source):
         asked.append(source)
-        names = list(kmatmul._ENTRY.values()) + list(kquant._ENTRY.values())
+        names = [n for mod in mods for n in mod._ENTRY.values()]
         cdll = types.SimpleNamespace(**{n: types.SimpleNamespace()
                                         for n in names})
         return _cuda.Library(cdll, _cuda.BUILD_DIR / source, 0.0, "")
 
     monkeypatch.setattr(_cuda, "library", fake)
-    for mod in (kmatmul, kquant):
+    for mod in mods:
         mod.library.cache_clear()
     try:
-        libs = [kmatmul.library(), kquant.library()]
+        libs = [mod.library() for mod in mods]
     finally:
-        for mod in (kmatmul, kquant):
+        for mod in mods:
             mod.library.cache_clear()
-    assert asked == ["matmul.cu", "q4_matmul.cu"]
+    assert asked == ["matmul.cu", "q4_matmul.cu", "flash_attention.cu"]
     assert set(asked) == set(_cuda.SOURCES)
-    for lib, entry in zip(libs, (kmatmul._ENTRY, kquant._ENTRY)):
-        for name in entry.values():
+    for lib, mod in zip(libs, mods):
+        for name in mod._ENTRY.values():
             assert getattr(lib.cdll, name).restype is not None
