@@ -41,29 +41,57 @@ Phases (any failed check raises, and the script exits nonzero):
    prompt lengths uniform in 64-2048 and 32 new tokens each: tokens/s,
    decode step and request e2e percentiles, prefill ms per bucket, the
    flash-attention launches and the KV pages' C1 (as device bytes); (b) 4
-   requests' streams against their solo ``greedy_generate`` runs; (c) a
+   requests' streams against their solo ``greedy_generate`` runs: tokens,
+   log-probs and every step's last-position logits row; (c) a
    2048-token prefill through the first 2 units on the card (the kernel)
    against the CPU (its plain version), last-token logits within 1e-4
-   relative.
+   relative;
+9. serve: ``recurrentgemma-9b`` at full width and depth (38 layers:
+   ``rglru, rglru, local`` x 12 + ``rglru, rglru``, f32, 9.4e9 random
+   params drawn on the card from a seed, after phase 8's model is freed) —
+   (a) the scheduler, 8 slots, s_max 4096, 16 requests from ``SyntheticLM``
+   with prompts of 512, 1024, 2048 and 3072 tokens (four each, shuffled),
+   32 new tokens each, exact-length buckets: the same serving metrics, the
+   lru_scan and flash launches (26 and 12 per prefill group) and the pages'
+   C1 (ring k / v plus the recurrent ``h`` / ``conv`` state); (b) 4
+   streams against their solo runs, as in phase 8, and each slot's
+   ``h`` / ``conv`` state after its last step against the solo run's;
+   (c) one pattern unit, a 2304-token
+   prefill on the card against the CPU: last-token logits, both ``h``
+   states and the ring k within 1e-4 relative.
 
 Phase 2 also holds ``ops.flash_attention`` to its plain version (f32 and
 bf16: ``tests/test_kernels.py``'s shapes, windows 16 and 64, non-causal,
 hd 256) and times it at the model's prefill shape (8 x 16 heads, 8 kv
 heads, 2048 tokens, hd 128, f32, causal) beside the plain version and
-``scaled_dot_product_attention``.
+``scaled_dot_product_attention``, and at ``recurrentgemma-9b``'s local
+layer in phase 9's largest prefill group (4 x 16 heads, 1 kv head, 3071
+tokens, hd 256, window 2048) beside the plain version; and
+``ops.lru_scan`` to its plain version (``tests/test_kernels.py``'s shapes
+in f32 and bf16, the a = 1 carry against ``cumsum``), timed f32 at phase
+9's prefill groups (4, 511 / 1023 / 2047 / 3071, 4096), then at (8, 2048,
+4096) and (1, 3072, 4096), beside the plain version and, for orientation,
+``torch.cumsum``.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
-then phase 8's serving run) and read just after.  The line before the last
-is a JSON ``kernels`` record; the last line is ``{"ok": true, "device":
-{...}}``.
+then phase 8's and phase 9's serving runs) and read just after.  The line
+before the last is a JSON ``kernels`` record; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+
+# phase 9's requests: HYBRID_PER_LENGTH prompts of each length.  The
+# exact-length buckets make each length one prefill group of
+# HYBRID_PER_LENGTH slots over length - 1 tokens, the shapes at which
+# phase 2 checks and times lru_scan and the flash kernel's windowed case.
+HYBRID_LENGTHS, HYBRID_PER_LENGTH = (512, 1024, 2048, 3072), 4
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -111,6 +139,27 @@ def check_flash(got, want, dtype, what: str) -> float:
     return err.max().item()
 
 
+def check_lru(got, want, dtype, what: str) -> float:
+    """The reference lru_scan test's tolerance (f32 2e-4; bf16 rtol = atol
+    = 5e-2), compared in fp32; returns max |err|."""
+    import torch
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = (err > tol + tol * w.abs()).sum().item()
+    if bad or not torch.isfinite(g).all() or got.shape != want.shape \
+            or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {bad} elements outside {tol} "
+                             f"(max |err| {err.max().item()})")
+    return err.max().item()
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| (got moved to want's device)."""
+    return ((got.to(want.device) - want).abs().max()
+            / want.abs().max()).item()
+
+
 def pct(xs, q):
     """The launcher's percentile (``repro_torch.launch.serve``)."""
     import math
@@ -144,6 +193,174 @@ def _tensors(tree):
         yield tree
 
 
+def slot_state(cache, slot: int) -> dict:
+    """Copies of one slot's recurrent state: every cache leaf but the
+    attention k / v (slot axis 1 under ``units``, 0 under ``rem``)."""
+    out = {}
+    for part, axis in (("units", 1), ("rem", 0)):
+        for key, blk in cache.get(part, {}).items():
+            for name, a in blk.items():
+                if name not in ("k", "v"):
+                    out[f"{part} {key} {name}"] = a.select(axis, slot).clone()
+    return out
+
+
+class SoloRecorder:
+    """A model, keeping each step's last-position logits row and top-2
+    log-prob gap, and the recurrent state after step ``snap_at`` (the
+    solo run's step that has consumed what the scheduler's last decode
+    step has)."""
+
+    def __init__(self, m, snap_at: int):
+        self.m, self.device, self.snap_at = m, m.device, snap_at
+        self.rows, self.gaps, self.state = [], [], None
+
+    def _note(self, out):
+        import torch
+        row = out[1][0, -1].float()
+        top = torch.log_softmax(row, dim=-1).topk(2).values
+        self.gaps.append((top[0] - top[1]).item())
+        self.rows.append(row.clone())
+        if len(self.rows) - 1 == self.snap_at:
+            self.state = slot_state(out[0], 0)
+        return out
+
+    def prefill_fn(self, *a):
+        return self._note(self.m.prefill_fn(*a))
+
+    def decode_fn(self, *a):
+        return self._note(self.m.decode_fn(*a))
+
+
+class StreamRecorder:
+    """The scheduler's decode step, keeping each request's last-position
+    logits row at every step and its slot's recurrent state after its last
+    step.  Set ``sched`` to the scheduler it serves before the first
+    step."""
+
+    def __init__(self, m):
+        self.m, self.sched = m, None
+        self.rows, self.state = {}, {}
+
+    def decode_fn(self, params, cache, tok, pos):
+        out = self.m.decode_fn(params, cache, tok, pos)
+        s = self.sched
+        rows = out[1][:, -1].clone()      # one device copy, no sync
+        for slot in map(int, s.active.nonzero()[0]):
+            rid = int(s.rid[slot])
+            self.rows.setdefault(rid, []).append(rows[slot])
+            if s.remaining[slot] == 1:
+                self.state[rid] = slot_state(out[0], slot)
+        return out
+
+
+def run_closed_batch(sched, prompts, max_new: int):
+    """Submit every prompt at t = 0 and step the scheduler until all are
+    done: (request ids, elapsed s, {rid: s from the start to its end})."""
+    rids = [sched.queue.submit(p, max_new) for p in prompts]
+    done_at = {}
+    t0 = time.perf_counter()
+    while len(sched.results) < len(prompts):
+        if not sched.step():
+            raise AssertionError("the scheduler went idle with requests "
+                                 "outstanding")
+        now = time.perf_counter() - t0
+        for rid in sched.results:
+            done_at.setdefault(rid, now)
+    return rids, time.perf_counter() - t0, done_at
+
+
+def report_serving(sched, prompts, lengths, elapsed, done_at, cfg, *,
+                   slots: int, s_max: int, max_new: int) -> dict:
+    """Print the serving metrics and prefill ms per bucket, check every
+    stream's form; returns {bucket: [(group size, ms), ...]}."""
+    import numpy as np
+    n_tok = sum(r.tokens.size for r in sched.results.values())
+    step_us = [s_.decode_us for s_ in sched.stats if s_.active]
+    e2e_ms = [1e3 * t for t in done_at.values()]
+    print(f"[serve] {len(prompts)} requests (prompts {min(lengths)}-"
+          f"{max(lengths)} tokens, {max_new} new each), {slots} slots, "
+          f"s_max {s_max}: {n_tok} tokens in {elapsed:.2f} s = "
+          f"{n_tok / elapsed:.1f} tokens/s;  decode step us p50 "
+          f"{pct(step_us, 0.5):.0f} p99 {pct(step_us, 0.99):.0f} "
+          f"({len(step_us)} steps, mean batch "
+          f"{np.mean([s_.active + s_.finished for s_ in sched.stats]):.2f});"
+          f"  request e2e ms p50 {pct(e2e_ms, 0.5):.1f} p99 "
+          f"{pct(e2e_ms, 0.99):.1f}")
+    by_bucket = {}
+    for s_ in sched.stats:
+        if s_.admitted:
+            by_bucket.setdefault(s_.bucket, []).append(
+                (s_.admitted, s_.prefill_us / 1e3))
+    for tb in sorted(by_bucket):
+        groups = by_bucket[tb]
+        print(f"[serve] prefill bucket {tb}: {len(groups)} groups "
+              f"(sizes {[n for n, _ in groups]}), ms "
+              f"{[round(ms, 2) for _, ms in groups]}")
+    for r in sched.results.values():
+        if r.tokens.shape != (1, max_new) \
+                or not np.isfinite(r.logprobs).all() \
+                or (r.tokens < 0).any() \
+                or (r.tokens >= cfg.vocab_padded).any():
+            raise AssertionError("a request's stream is malformed")
+    return by_bucket
+
+
+def check_streams(model, params, sched, rec, prompts, rids, *,
+                  max_new: int, s_max: int) -> None:
+    """Each request's stream against its solo ``greedy_generate`` run
+    (``rec``: the ``StreamRecorder`` that ran the scheduler's decode).
+    Tokens identical unless the solo run's top-2 gap is <= 1e-3 (a near
+    tie, after which the streams may part); up to there, log-probs within
+    1e-4 + 1e-4 relative and each step's last-position logits row within
+    1e-4 relative; when every token agrees, the slot's recurrent state
+    after its last step within 1e-4 relative of the solo run's (each
+    leaf)."""
+    from repro_torch.serving.engine import greedy_generate
+    for rid in rids:
+        solo_rec = SoloRecorder(model, snap_at=max_new - 1)
+        solo = greedy_generate(solo_rec, params, prompts[rid][None],
+                               max_new=max_new, s_max=s_max)
+        got = sched.results[rid]
+        agree, row_err = 0, 0.0
+        for i in range(max_new):
+            if got.tokens[0, i] != solo.tokens[0, i]:
+                if solo_rec.gaps[i] > 1e-3:
+                    raise AssertionError(
+                        f"request {rid}: token {i} differs from its solo "
+                        f"run with a top-2 gap of {solo_rec.gaps[i]:.3g}")
+                break                 # a near tie: the streams part here
+            d_lp = abs(got.logprobs[0, i] - solo.logprobs[0, i])
+            if d_lp > 1e-4 + 1e-4 * abs(solo.logprobs[0, i]):
+                raise AssertionError(f"request {rid}: log-prob {i} differs "
+                                     f"from its solo run by {d_lp:.3g}")
+            e = rel_err(rec.rows[rid][i].float(), solo_rec.rows[i])
+            if not e <= 1e-4:
+                raise AssertionError(f"request {rid}: step {i}'s logits "
+                                     f"differ from its solo run's by "
+                                     f"rel_err {e:.3g}")
+            row_err = max(row_err, e)
+            agree += 1
+        state = "no recurrent state"
+        if agree < max_new and solo_rec.state:
+            state = "recurrent state not compared (the streams parted)"
+        elif solo_rec.state:
+            errs = {n: rel_err(a, solo_rec.state[n])
+                    for n, a in rec.state[rid].items()}
+            if rec.state[rid].keys() != solo_rec.state.keys() \
+                    or not max(errs.values()) <= 1e-4:
+                raise AssertionError(f"request {rid}: recurrent state after "
+                                     f"its last step vs its solo run: "
+                                     f"{errs}")
+            worst = max(errs, key=errs.get)
+            state = (f"recurrent state after the last step ({len(errs)} "
+                     f"leaves) rel_err <= {errs[worst]:.2e} ({worst})")
+        print(f"[serve] request {rid} ({prompts[rid].size} prompt tokens): "
+              f"{agree}/{max_new} tokens agree with its solo greedy_generate "
+              f"run (smallest top-2 gap {min(solo_rec.gaps[:max_new]):.3g}),"
+              f" logits rows rel_err <= {row_err:.2e}, {state}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -160,12 +377,12 @@ def main() -> int:
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import lru_scan as klru
     from repro_torch.kernels import matmul as kmatmul
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as kquant
     from repro_torch.models import ParallelCtx, build
     from repro_torch.models.attention import attn_flops
-    from repro_torch.serving.engine import greedy_generate
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
     from repro_torch.substrate import VirtualCluster, default_matrix
     from repro_torch.substrate.collectives import recording
@@ -193,6 +410,7 @@ def main() -> int:
     kmatmul.library()
     kquant.library()
     kflash.library()
+    klru.library()
 
     # -- 2. kernel vs its plain version ----------------------------------------
     t_phase = time.perf_counter()
@@ -340,6 +558,94 @@ def main() -> int:
           f"({flash_bound_by}; {flash_flops:.4g} FLOP, "
           f"{flash_moved / 1e9:.3f} GB)")
     del q, k, v
+    # recurrentgemma-9b's local layer: 16 heads, 1 kv head x 256, window
+    # 2048, at the hybrid serving run's largest prefill group (4 x 3071)
+    HB, HH, HT, HD, HW = (HYBRID_PER_LENGTH, 16, max(HYBRID_LENGTHS) - 1,
+                          256, 2048)
+    q = torch.randn((HB, HT, HH, HD), generator=g, device=dev)
+    k = torch.randn((HB, HT, 1, HD), generator=g, device=dev)
+    v = torch.randn((HB, HT, 1, HD), generator=g, device=dev)
+    got = ops.flash_attention(q, k, v, window=HW, layout="bthd")
+    torch.cuda.synchronize()
+    err = check_flash(got, kflash.flash_attention_plain(
+        q, k, v, window=HW, layout="bthd"), torch.float32,
+        "flash_attention hybrid shape")
+    del got
+    h_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, window=HW,
+                                               layout="bthd"), 5)
+    h_plain_ms = cuda_ms(lambda: kflash.flash_attention_plain(
+        q, k, v, window=HW, layout="bthd"), 2)
+    # the (q, k) pairs this causal window needs: min(q + 1, W) per row
+    pairs = HB * (HW * (HW + 1) // 2 + (HT - HW) * HW)
+    h_flops = 4.0 * pairs * HH * HD
+    h_bound_ms, h_bound_by = bound(h_flops, 4 * (2 * q.numel()
+                                                 + 2 * k.numel()), FP32_FMA)
+    print(f"[kernel] flash_attention f32 B{HB} H{HH} KV1 T{HT} hd{HD} "
+          f"window {HW} (recurrentgemma-9b's local layer, {HB} slots at {HT}): "
+          f"max|err| {err:.3g}  kernel {h_ms:.3f} ms "
+          f"({h_flops / h_ms / 1e9:.1f} TFLOP/s)  plain {h_plain_ms:.3f} ms"
+          f"  bound {h_bound_ms:.3f} ms ({h_bound_by}; {h_flops:.4g} FLOP)")
+    del q, k, v
+
+    # lru_scan against its plain version: tests/test_kernels.py's shapes,
+    # decays in U(0.5, 0.999) (the RG-LRU regime)
+    def lru_inputs(shape, dtype):
+        a = torch.rand(shape, generator=g, device=dev) * 0.499 + 0.5
+        x = torch.randn(shape, generator=g, device=dev)
+        return a.to(dtype), x.to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((1, 256, 128), (2, 512, 64), (1, 100, 48)):
+            a, x = lru_inputs(shape, dtype)
+            got = ops.lru_scan(a, x)
+            torch.cuda.synchronize()
+            err = check_lru(got, klru.lru_scan_plain(a, x), dtype,
+                            f"lru_scan {dtype} {shape}")
+            print(f"[kernel] lru_scan {str(dtype)[6:]:8s} {shape}: max|err| "
+                  f"{err:.3g}")
+    ones = torch.ones((1, 1000, 96), device=dev)
+    err = (ops.lru_scan(ones, ones) - ones.cumsum(1)).abs().max().item()
+    print(f"[kernel] lru_scan a = 1 carry over 1000 steps vs cumsum: "
+          f"max|err| {err:.3g}")
+    if err:
+        raise AssertionError(f"lru_scan a = 1: max |err| {err} vs cumsum")
+    # timed: one rglru layer's prefill at each of phase 9's prefill groups
+    # (the main path's shapes), then 8 slots at 2048 tokens and a lone
+    # 3072-token prompt (an exact-length bucket of one)
+    C = get_config("recurrentgemma-9b").rnn_width
+    main_shapes = [(HYBRID_PER_LENGTH, n - 1, C) for n in HYBRID_LENGTHS]
+    lru_rows = []
+    for B, T, C in main_shapes + [(8, 2048, C), (1, 3072, C)]:
+        a, x = lru_inputs((B, T, C), torch.float32)
+        got = ops.lru_scan(a, x)
+        torch.cuda.synchronize()
+        err = check_lru(got, klru.lru_scan_plain(a, x), torch.float32,
+                        f"lru_scan ({B}, {T}, {C})")
+        del got
+        row = {"shape": (B, T, C), "err": err,
+               "ms": cuda_ms(lambda: ops.lru_scan(a, x), 20),
+               "plain_ms": cuda_ms(lambda: klru.lru_scan_plain(a, x), 2),
+               "cumsum_ms": cuda_ms(lambda: torch.cumsum(x, 1), 20)}
+        moved = 3.0 * B * T * C * 4          # a, x read once, h written
+        row["bound_ms"], row["bound_by"] = bound(2.0 * B * T * C, moved,
+                                                 FP32_FMA)
+        print(f"[kernel] lru_scan f32 ({B}, {T}, {C}): max|err| {err:.3g}  "
+              f"kernel {row['ms']:.3f} ms ({moved / row['ms'] / 1e6:.1f} "
+              f"GB/s)  plain {row['plain_ms']:.3f} ms  bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}; "
+              f"{moved / 1e9:.3f} GB)  library: none computes it (for "
+              f"orientation only, the a = 1 case: torch.cumsum "
+              f"{row['cumsum_ms']:.3f} ms)")
+        lru_rows.append(row)
+        del a, x
+    lru_main = [r for r in lru_rows if r["shape"] in main_shapes]
+    lru_main_ms = sum(r["ms"] for r in lru_main)
+    lru_main_bound = sum(r["bound_ms"] for r in lru_main)
+    print(f"[kernel] lru_scan over phase 9's prefill groups "
+          f"{[r['shape'] for r in lru_main]}, one rglru layer each: kernel "
+          f"{lru_main_ms:.3f} ms  bound {lru_main_bound:.3f} ms "
+          f"({lru_main_bound / lru_main_ms:.2f} of bound)")
+    lru_top = lru_main[-1]         # the largest main-path launch
     print(f"[phase] kernel {time.perf_counter() - t_phase:.1f} s")
 
     # -- main path: zero the counts, drive phases 3-7, read them -----------------
@@ -513,8 +819,10 @@ def main() -> int:
     prompts = [tokens[i, :lengths[i]].astype(np.int32)
                for i in range(N_REQ)]
     mem0 = torch.cuda.memory_allocated(dev)
+    rec = StreamRecorder(model)
     sched = ContinuousBatchingScheduler(model, params, slots=SLOTS,
-                                        s_max=S_MAX)
+                                        s_max=S_MAX, decode_fn=rec.decode_fn)
+    rec.sched = sched
     page_bytes = torch.cuda.memory_allocated(dev) - mem0
     c1 = sched.pages.assert_c1()
     if page_bytes != c1["logical_bytes"]:
@@ -523,91 +831,19 @@ def main() -> int:
                              "copy")
     print(f"[serve] KV pages: {c1} (device bytes allocated {page_bytes})")
     kflash.launches = 0            # main path 2: the serving run
-    rids = [sched.queue.submit(p, MAX_NEW) for p in prompts]
-    done_at = {}
-    t0 = time.perf_counter()
-    while len(sched.results) < N_REQ:
-        if not sched.step():
-            raise AssertionError("the scheduler went idle with requests "
-                                 "outstanding")
-        now = time.perf_counter() - t0
-        for rid in sched.results:
-            done_at.setdefault(rid, now)
-    elapsed = time.perf_counter() - t0
-    launches["flash_attention"] = kflash.launches
-    n_tok = sum(r.tokens.size for r in sched.results.values())
-    step_us = [s_.decode_us for s_ in sched.stats if s_.active]
-    e2e_ms = [1e3 * t for t in done_at.values()]
-    print(f"[serve] {N_REQ} requests (prompts {lengths.min()}-"
-          f"{lengths.max()} tokens, {MAX_NEW} new each), {SLOTS} slots, "
-          f"s_max {S_MAX}: {n_tok} tokens in {elapsed:.2f} s = "
-          f"{n_tok / elapsed:.1f} tokens/s;  decode step us p50 "
-          f"{pct(step_us, 0.5):.0f} p99 {pct(step_us, 0.99):.0f} "
-          f"({len(step_us)} steps, mean batch "
-          f"{np.mean([s_.active + s_.finished for s_ in sched.stats]):.2f});"
-          f"  request e2e ms p50 {pct(e2e_ms, 0.5):.1f} p99 "
-          f"{pct(e2e_ms, 0.99):.1f}")
-    by_bucket = {}
-    for s_ in sched.stats:
-        if s_.admitted:
-            by_bucket.setdefault(s_.bucket, []).append(
-                (s_.admitted, s_.prefill_us / 1e3))
-    for tb in sorted(by_bucket):
-        groups = by_bucket[tb]
-        print(f"[serve] prefill bucket {tb}: {len(groups)} groups "
-              f"(sizes {[n for n, _ in groups]}), ms "
-              f"{[round(ms, 2) for _, ms in groups]}")
+    rids, elapsed, done_at = run_closed_batch(sched, prompts, MAX_NEW)
+    flash_launches = {"qwen3-0.6b": kflash.launches}
+    by_bucket = report_serving(sched, prompts, lengths, elapsed, done_at,
+                               cfg, slots=SLOTS, s_max=S_MAX,
+                               max_new=MAX_NEW)
     print(f"[serve] flash_attention launches in the serving run: "
-          f"{launches['flash_attention']} "
+          f"{flash_launches['qwen3-0.6b']} "
           f"({sum(len(v_) for v_ in by_bucket.values())} prefills x "
           f"{cfg.n_layers} layers)")
-    for r in sched.results.values():
-        if r.tokens.shape != (1, MAX_NEW) \
-                or not np.isfinite(r.logprobs).all() \
-                or (r.tokens < 0).any() \
-                or (r.tokens >= cfg.vocab_padded).any():
-            raise AssertionError("a request's stream is malformed")
 
     # (b) streams against each request's solo greedy_generate run
-    class GapRecorder:
-        """The model, noting each step's top-2 log-prob gap."""
-
-        def __init__(self, m):
-            self.m, self.device, self.gaps = m, m.device, []
-
-        def _note(self, out):
-            lp = torch.log_softmax(out[1][:, -1].float(), dim=-1)
-            top = lp.topk(2, dim=-1).values[0]
-            self.gaps.append((top[0] - top[1]).item())
-            return out
-
-        def prefill_fn(self, *a):
-            return self._note(self.m.prefill_fn(*a))
-
-        def decode_fn(self, *a):
-            return self._note(self.m.decode_fn(*a))
-
-    for rid in rids[:4]:
-        rec = GapRecorder(model)
-        solo = greedy_generate(rec, params, prompts[rid][None],
-                               max_new=MAX_NEW, s_max=S_MAX)
-        got = sched.results[rid]
-        agree = 0
-        for i in range(MAX_NEW):
-            if got.tokens[0, i] != solo.tokens[0, i]:
-                if rec.gaps[i] > 1e-3:
-                    raise AssertionError(
-                        f"request {rid}: token {i} differs from its solo "
-                        f"run with a top-2 gap of {rec.gaps[i]:.3g}")
-                break                 # a near tie: the streams part here
-            d_lp = abs(got.logprobs[0, i] - solo.logprobs[0, i])
-            if d_lp > 1e-4 + 1e-4 * abs(solo.logprobs[0, i]):
-                raise AssertionError(f"request {rid}: log-prob {i} differs "
-                                     f"from its solo run by {d_lp:.3g}")
-            agree += 1
-        print(f"[serve] request {rid} ({prompts[rid].size} prompt tokens): "
-              f"{agree}/{MAX_NEW} tokens agree with its solo greedy_generate "
-              f"run (smallest top-2 gap {min(rec.gaps[:MAX_NEW]):.3g})")
+    check_streams(model, params, sched, rec, prompts, rids[:4],
+                  max_new=MAX_NEW, s_max=S_MAX)
 
     # (c) the first 2 units: a 2048-token prefill on the card vs the CPU
     cfg2 = dataclasses.replace(cfg, n_layers=2)
@@ -632,10 +868,116 @@ def main() -> int:
     if not rel <= 1e-4 or not torch.isfinite(logits_g).all() \
             or logits_g.shape != (1, 1, cfg.vocab_padded):
         raise AssertionError(f"card vs CPU prefill: rel_err {rel} > 1e-4")
-    del sched, params, p2, cache_g, cache_c
+    del sched, rec, params, p2, cache_g, cache_c, model
     print(f"[phase] serve {time.perf_counter() - t_phase:.1f} s")
 
-    for name, n in launches.items():
+    # -- 9. serve recurrentgemma-9b at full width ------------------------------
+    t_phase = time.perf_counter()
+    gc.collect()                   # the scheduler <-> recorder cycle
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated(dev)
+    cfg = get_config("recurrentgemma-9b")
+    model = build(cfg, ctx, device=dev)
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    mem1 = torch.cuda.memory_allocated(dev)
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers ({' '.join(cfg.pattern)}"
+          f" x {cfg.n_units} + {' '.join(cfg.remainder_kinds)}), d "
+          f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} kv heads x "
+          f"{cfg.head_dim}, window {cfg.window}, d_rnn {cfg.rnn_width}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} params f32 drawn on "
+          f"the card in {(time.perf_counter() - t0) * 1e3:.1f} ms; device "
+          f"bytes allocated {mem0} before, {mem1} after")
+    SLOTS, S_MAX, MAX_NEW = 8, 4096, 32
+    lengths = np.random.default_rng(0).permutation(
+        np.repeat(HYBRID_LENGTHS, HYBRID_PER_LENGTH))
+    lm = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=int(lengths.max()),
+                                global_batch=lengths.size, seed=0))
+    tokens = lm.next_batch()["tokens"]
+    prompts = [tokens[i, :lengths[i]].astype(np.int32)
+               for i in range(lengths.size)]
+    mem0 = torch.cuda.memory_allocated(dev)
+    rec = StreamRecorder(model)
+    sched = ContinuousBatchingScheduler(model, params, slots=SLOTS,
+                                        s_max=S_MAX, decode_fn=rec.decode_fn)
+    rec.sched = sched
+    page_bytes = torch.cuda.memory_allocated(dev) - mem0
+    c1 = sched.pages.assert_c1()
+    if page_bytes != c1["logical_bytes"]:
+        raise AssertionError(f"pages: {page_bytes} device bytes allocated "
+                             f"vs {c1['logical_bytes']} for one copy")
+    leaf_bytes = {}
+    for tree in sched.pages.cache.values():
+        for blk in tree.values():
+            for n, a in blk.items():
+                leaf_bytes[n] = leaf_bytes.get(n, 0) + a.nbytes
+    print(f"[serve] pages: {c1} (device bytes allocated {page_bytes}; by "
+          f"leaf {leaf_bytes})")
+    klru.launches = 0              # main path 3: the hybrid serving run
+    kflash.launches = 0
+    rids, elapsed, done_at = run_closed_batch(sched, prompts, MAX_NEW)
+    launches["lru_scan"] = klru.launches
+    flash_launches[cfg.name] = kflash.launches
+    by_bucket = report_serving(sched, prompts, lengths, elapsed, done_at,
+                               cfg, slots=SLOTS, s_max=S_MAX,
+                               max_new=MAX_NEW)
+    n_groups = sum(len(v_) for v_ in by_bucket.values())
+    groups = {tb: [n for n, _ in v_] for tb, v_ in by_bucket.items()}
+    if groups != {n - 1: [HYBRID_PER_LENGTH] for n in HYBRID_LENGTHS}:
+        raise AssertionError(f"the hybrid serving run's prefill groups "
+                             f"{groups} are not the shapes phase 2 timed")
+    kinds = cfg.block_kinds
+    print(f"[serve] launches in the serving run: lru_scan "
+          f"{launches['lru_scan']}, flash_attention "
+          f"{flash_launches[cfg.name]} ({n_groups} prefill groups x "
+          f"{kinds.count('rglru')} rglru / {kinds.count('local')} local "
+          f"layers)")
+    if launches["lru_scan"] != kinds.count("rglru") * n_groups \
+            or flash_launches[cfg.name] != kinds.count("local") * n_groups:
+        raise AssertionError("the hybrid serving run's launches do not "
+                             "match its prefill groups")
+
+    # (b) streams against each request's solo greedy_generate run
+    check_streams(model, params, sched, rec, prompts, rids[:4],
+                  max_new=MAX_NEW, s_max=S_MAX)
+
+    # (c) one pattern unit (rglru, rglru, local): a prefill past the
+    # window on the card vs the CPU
+    T3 = 2304
+    cfg3 = dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+    p3 = {k_: v_ for k_, v_ in params.items() if k_ != "units"}
+    p3["units"] = _map(lambda a: a[:1], params["units"])
+    batch = {"tokens": torch.from_numpy(tokens[:1, :T3 + 1].astype(
+        np.int32))}
+    before = (klru.launches, kflash.launches)
+    cache_g, logits_g = build(cfg3, ctx, device=dev).prefill_fn(p3, batch,
+                                                                T3)
+    card_launches = (klru.launches - before[0], kflash.launches - before[1])
+    t0 = time.perf_counter()
+    cache_c, logits_c = build(cfg3, ctx, device="cpu").prefill_fn(
+        _map(lambda a: a.cpu(), p3), batch, T3)
+    cpu_s = time.perf_counter() - t0
+    u_g, u_c = cache_g["units"], cache_c["units"]
+    errs = {"logits": rel_err(logits_g, logits_c),
+            "h b0": rel_err(u_g["b0"]["h"], u_c["b0"]["h"]),
+            "h b1": rel_err(u_g["b1"]["h"], u_c["b1"]["h"]),
+            "ring k b2": rel_err(u_g["b2"]["k"], u_c["b2"]["k"])}
+    print(f"[serve] 1-unit prefill of {T3} tokens (window {cfg.window}), "
+          f"card (kernels: {card_launches[0]} lru_scan, {card_launches[1]} "
+          f"flash launches) vs CPU (plain, {cpu_s:.1f} s): rel_err "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in errs.items()))
+    if not max(errs.values()) <= 1e-4 or not torch.isfinite(logits_g).all() \
+            or logits_g.shape != (1, 1, cfg.vocab_padded) \
+            or card_launches != (2, 1):
+        raise AssertionError(f"card vs CPU unit prefill: {errs}, launches "
+                             f"{card_launches}")
+    del sched, rec, params, p3, cache_g, cache_c, model
+    print(f"[phase] serve hybrid {time.perf_counter() - t_phase:.1f} s")
+    launches["flash_attention"] = sum(flash_launches.values())
+
+    for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     print(json.dumps({"kernels": [{
@@ -657,7 +999,14 @@ def main() -> int:
         "launches": launches["flash_attention"], "max_abs_err": flash_err,
         "ms": flash_ms, "plain_ms": flash_plain_ms,
         "bound_ms": flash_bound_ms, "bound_by": flash_bound_by,
-        "library_ms": flash_lib_ms}]}))
+        "library_ms": flash_lib_ms}, {
+        "name": "lru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/lru_scan.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:38",
+        "launches": launches["lru_scan"], "max_abs_err": lru_top["err"],
+        "ms": lru_top["ms"], "plain_ms": lru_top["plain_ms"],
+        "bound_ms": lru_top["bound_ms"], "bound_by": lru_top["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

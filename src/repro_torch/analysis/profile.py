@@ -5,16 +5,18 @@
         [--chunks 2]
     PYTHONPATH=src python -m repro_torch.analysis.profile --ag-matmul
     PYTHONPATH=src python -m repro_torch.analysis.profile --serve
+        [--model recurrentgemma-9b]
 
 SUMMA: for each scheme, one warm-up run, then one profiled run of the whole
 multiply (all rounds, ``use_kernel=True``).  ``--ag-matmul``: the same for
 ``ag_matmul(use_kernel=True)`` at the width of ``mistral-nemo-12b``'s MLP
 down-projection (K = d_ff = 14336, N = d_model = 5120, 2048 tokens per rank,
 1x8 cluster), exact and ``precision="lossy"`` (the q4 kernel).
-``--serve``: ``qwen3-0.6b`` at full width (f32, random weights): one
-prefill of 8 slots x 2048 tokens (the largest bucket, s_max 4096), then one
-decode step of the 8 slots at position 2048, each with the share of device
-time in the flash-attention kernel.  Prints each
+``--serve``: ``--model`` (``qwen3-0.6b`` by default, or
+``recurrentgemma-9b``) at full width (f32, random weights): one prefill of
+8 slots x 2048 tokens (s_max 4096), then one decode step of the 8 slots at
+position 2048, each with the share of device time in the flash-attention
+and lru_scan kernels.  Prints each
 run's wall time, the device busy time (the union of every kernel and copy
 interval on the card, so overlapping streams count once), the busy share of
 the wall time, and the kernels that took most device time.  Needs a CUDA
@@ -110,11 +112,11 @@ def profile_ag_matmul(dev: torch.device, chunks: int) -> None:
                 precision=precision)))
 
 
-def profile_serve(dev: torch.device, top: int = 8) -> None:
-    """Prefill and one decode step of full-width ``qwen3-0.6b``."""
+def profile_serve(dev: torch.device, name: str, top: int = 8) -> None:
+    """Prefill and one decode step of the full-width model ``name``."""
     from repro_torch.configs import get_config
     from repro_torch.models import ParallelCtx, build
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(name)
     model = build(cfg, ParallelCtx.single(), device=dev)
     params = model.init_params(0)
     B, T, s_max = 8, 2048, 4096
@@ -136,12 +138,19 @@ def profile_serve(dev: torch.device, top: int = 8) -> None:
     r = profile_run(lambda: model.decode_fn(params, cache["c"], tok, pos),
                     top)
     _print("decode", r)
+    _print_share(r)
+
+
+#: The port's kernels by a part of their device names.
+KERNELS = {"flash_attention": "flash_fwd", "lru_scan": "lru_scan_kernel"}
 
 
 def _print_share(r: dict) -> None:
-    flash = sum(ms for name, ms in r["all"] if "flash_fwd" in name)
-    print(f"[profile]    flash_attention kernel {flash:.2f} ms = "
-          f"{100 * flash / r['busy_ms']:.1f}% of device busy time")
+    for kernel, part in KERNELS.items():
+        hits = [ms for name, ms in r["all"] if part in name]
+        print(f"[profile]    {kernel} kernel {sum(hits):.2f} ms = "
+              f"{100 * sum(hits) / r['busy_ms']:.1f}% of device busy time"
+              + ("" if hits else " (not launched)"))
 
 
 def main(argv=None):
@@ -151,7 +160,9 @@ def main(argv=None):
     ap.add_argument("--ag-matmul", action="store_true",
                     help="profile exact vs lossy ag_matmul instead of SUMMA")
     ap.add_argument("--serve", action="store_true",
-                    help="profile full-width qwen3-0.6b prefill and decode")
+                    help="profile a full-width model's prefill and decode")
+    ap.add_argument("--model", default="qwen3-0.6b",
+                    help="the model --serve profiles")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -161,7 +172,7 @@ def main(argv=None):
         profile_ag_matmul(dev, args.chunks)
         return
     if args.serve:
-        profile_serve(dev)
+        profile_serve(dev, args.model)
         return
     g = torch.Generator(device=dev).manual_seed(0)
     a = torch.randn((args.n, args.n), generator=g, device=dev)

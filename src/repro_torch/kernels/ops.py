@@ -7,9 +7,11 @@ scales (K/group, N) — or a leading batch on all three — and returns
 ``a @ dequantize_q4(...)`` the same way.  ``flash_attention`` takes q
 (B, H, Tq, hd) and k, v (B, KV, Tkv, hd) — or the model's (B, T, heads, hd)
 with ``layout="bthd"`` — and returns causal / windowed GQA attention in q's
-layout and dtype.  The kernels mask their own ragged edges, so no padding
-is needed.  CPU tensors take a kernel's plain version;
-CUDA tensors take the kernel, or the wrapper raises.
+layout and dtype.  ``lru_scan`` takes a, x (B, T, C) of one dtype and
+returns h_t = a_t * h_{t-1} + x_t (fp32 carry from 0) in x's dtype.  The
+kernels mask their own ragged edges, so no padding is needed.  CPU tensors
+take a kernel's plain version; CUDA tensors take the kernel, or the wrapper
+raises.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain,
                                                  kernel_ready)
+from repro_torch.kernels.lru_scan import lru_scan_cuda, lru_scan_plain
 from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
 from repro_torch.kernels.quant import q4_matmul_cuda, q4_matmul_plain
 
@@ -60,3 +63,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, layout=layout)
+
+
+def lru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(a, x):
+        return lru_scan_plain(a, x)
+    return lru_scan_cuda(a.contiguous(), x.contiguous())

@@ -9,6 +9,8 @@ end-to-end request latency percentiles.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --requests 32 --slots 4 --max-new 8 --rate 50 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --device cpu
 
 The model is the arch's ``reduced()`` config, as in the reference's
 launcher; weights are random, drawn on the device from ``--seed``.

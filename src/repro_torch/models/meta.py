@@ -10,8 +10,8 @@ init rules; it cannot reproduce ``jax.random``'s draws.
 The port builds the single-device tree (tp = 1, no FSDP axes: every
 ``fsdp_dim`` resolves to ``None``).  The PartitionSpec / abstract-shape
 functions of the reference are JAX sharding and wait for the sharded model
-(ROADMAP Queue 1 item 13); so do the block kinds other than ``attn`` /
-``local`` and the MoE channel mix (Queue 1 item 16).
+(ROADMAP Queue 1 item 13); the ``mlstm`` / ``slstm`` blocks and the MoE
+channel mix wait for Queue 1 item 16.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -31,7 +32,7 @@ class PMeta:
     tp_dim: Optional[int] = None
     fsdp_dim: Optional[int] = None
     data_dim: Optional[int] = None
-    init: str = "normal"           # normal | out | zeros | ones
+    init: str = "normal"           # normal | out | zeros | ones | lam
     dtype: torch.dtype = torch.float32
 
 
@@ -75,16 +76,29 @@ def ffn_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
     }
 
 
+def rglru_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
+    d, dr = cfg.d_model, cfg.rnn_width
+    return {
+        "ln": PMeta((d,), init="zeros"),
+        "w_x": PMeta((d, 2, dr), tp_dim=2),
+        "conv": PMeta((dr, cfg.conv_kernel), tp_dim=0),
+        "w_rg": PMeta((d, 2, dr), tp_dim=2),
+        "lam": PMeta((dr,), tp_dim=0, init="lam"),
+        "w_out": PMeta((dr, d), tp_dim=0, init="out"),
+    }
+
+
 def block_defs(kind: str, cfg: ModelConfig, tp: int, serve: bool,
                opts=frozenset()) -> dict:
-    if kind in ("attn", "local"):
-        out = {"attn": attn_defs(cfg, tp, serve, opts)}
+    if kind in ("attn", "local", "rglru"):
+        out = ({"rglru": rglru_defs(cfg, tp)} if kind == "rglru"
+               else {"attn": attn_defs(cfg, tp, serve, opts)})
         if cfg.moe:
             raise not_ported("the MoE channel mix (models/moe.py)", 16)
         if cfg.d_ff:
             out["ffn"] = ffn_defs(cfg, tp)
         return out
-    if kind in ("mlstm", "slstm", "rglru"):
+    if kind in ("mlstm", "slstm"):
         raise not_ported(f"the {kind} block", 16)
     raise ValueError(kind)
 
@@ -130,6 +144,13 @@ def init_leaf(meta: PMeta, n_layers: int, stacked: Optional[int], *,
         return torch.zeros(shape, dtype=meta.dtype, device=device)
     if meta.init == "ones":
         return torch.ones(shape, dtype=meta.dtype, device=device)
+    if meta.init == "lam":
+        # RG-LRU: target a in [0.9, 0.999] at r=1 -> softplus(lam) = -log(a)/C
+        # (the reference's float64 numpy arithmetic, so bit-equal; no draw)
+        a = np.linspace(0.9, 0.999, meta.shape[-1])
+        lam = np.log(np.expm1(np.maximum(-np.log(a) / 8.0, 1e-8)))
+        out = np.broadcast_to(lam, shape).astype(np.float32)
+        return torch.from_numpy(out).to(device=device, dtype=meta.dtype)
     scale = 0.02
     if meta.init == "out":
         scale = 0.02 / math.sqrt(2.0 * max(n_layers, 1))
@@ -141,7 +162,8 @@ def init_params(defs: dict, cfg: ModelConfig, generator: torch.Generator,
                 device) -> dict:
     """Draw the parameter tree on ``device`` from ``generator`` (which
     must live on that device type): ``normal`` x0.02, ``out``
-    x0.02/sqrt(2L), ``zeros``, ``ones``; leaves under ``units`` stacked on a
+    x0.02/sqrt(2L), ``zeros``, ``ones``, ``lam`` (the RG-LRU decay
+    parameter, deterministic); leaves under ``units`` stacked on a
     leading ``n_units`` dim."""
     def leaf(path, meta):
         stacked = cfg.n_units if path and path[0] == "units" else None

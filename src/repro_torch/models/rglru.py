@@ -1,0 +1,98 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427).
+
+The reference's ``repro/models/rglru.py`` for the single-device ctx.  The
+recurrence h_t = a_t * h_{t-1} + x_t is elementwise over the d_rnn
+channels.  The reference scans it in log space with
+``lax.associative_scan``; here prefill runs it through
+``kernels.ops.lru_scan`` on a = exp(log_a): the hand-written kernel
+(``csrc/lru_scan.cu``) on CUDA tensors, its plain version on CPU tensors.
+Decode (T = 1) is one step, ``exp(log_a) * h_prev + x``, and launches no
+kernel, as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.parallel import ParallelCtx
+from repro_torch.models.xlstm import causal_conv1d
+
+C_COEF = 8.0
+
+
+def rglru_scan(log_a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + x_t, elementwise, a = exp(log_a).  (B, T, C)
+    inputs."""
+    return ops.lru_scan(torch.exp(log_a), x)
+
+
+def _conv_state(x_br: torch.Tensor, K: int) -> torch.Tensor:
+    """The last K-1 conv inputs (a copy, not a view of the prefill's
+    activations), left-padded with zeros — the conv's own padding — when
+    the prompt is shorter than that.  (The reference returns the short
+    tail, which no (B, K-1, dr) cache takes.)"""
+    tail = x_br[:, -(K - 1):]
+    return F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
+
+
+def rglru_block(x_sp, p, meta, ctx: ParallelCtx, cfg, *,
+                state: dict | None = None, decode: bool = False,
+                return_state: bool = False):
+    """x_sp: (B, T, d) or (B, 1, d) decode."""
+    eps = cfg.norm_eps
+    h_in = rms_norm(x_sp, ctx.gather_w(p["ln"], meta["ln"].fsdp_dim), eps)
+    hg = h_in if decode else ctx.ag_tokens(h_in)             # (B, T, d)
+    B, T, d = hg.shape
+
+    w_x = ctx.gather_w(p["w_x"], meta["w_x"].fsdp_dim)       # (d, 2, dr)
+    u = (hg @ w_x.reshape(d, -1)).reshape(B, T, 2, -1)
+    y_gate = F.gelu(u[:, :, 0], approximate="tanh")          # (B, T, dr)
+    x_br = u[:, :, 1]
+
+    conv_w = ctx.gather_w(p["conv"], meta["conv"].fsdp_dim)  # (dr, K)
+    if decode:
+        xin = torch.cat([state["conv"], x_br], dim=1)
+        xc = causal_conv1d(xin, conv_w)[:, -1:]
+        new_conv = xin[:, 1:]
+    else:
+        xc = causal_conv1d(x_br, conv_w)
+
+    w_rg = ctx.gather_w(p["w_rg"], meta["w_rg"].fsdp_dim)    # (d, 2, dr)
+    g = (hg @ w_rg.reshape(d, -1)).reshape(B, T, 2, -1).float()
+    r = torch.sigmoid(g[:, :, 0])
+    i = torch.sigmoid(g[:, :, 1])
+    lam = ctx.gather_w(p["lam"], meta["lam"].fsdp_dim).float()
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))   # jax's softplus
+    log_a = -C_COEF * softplus * r                           # (B, T, dr)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
+    gx = beta * i * xc.float()
+
+    if decode:
+        h_new = torch.exp(log_a[:, 0]) * state["h"] + gx[:, 0]
+        h_seq = h_new[:, None]
+        new_state = {"h": h_new, "conv": new_conv}
+    else:
+        h_seq = rglru_scan(log_a, gx)                        # (B, T, dr)
+        new_state = None
+        if return_state:
+            new_state = {"h": h_seq[:, -1].clone(),
+                         "conv": _conv_state(x_br, cfg.conv_kernel)}
+
+    o = h_seq.to(hg.dtype) * y_gate
+    w_out = ctx.gather_w(p["w_out"], meta["w_out"].fsdp_dim)  # (dr, d)
+    y = o @ w_out
+    if decode:
+        return x_sp + ctx.psum_tp(y), new_state
+    out = x_sp + ctx.rs_tokens(y)
+    return (out, new_state) if return_state else out
+
+
+def rglru_state_init(cfg, B: int, ctx: ParallelCtx, dtype=torch.float32,
+                     device="cpu") -> dict:
+    dr = cfg.rnn_width
+    return {"h": torch.zeros((B, dr), dtype=torch.float32, device=device),
+            "conv": torch.zeros((B, cfg.conv_kernel - 1, dr), dtype=dtype,
+                                device=device)}

@@ -7,14 +7,18 @@ on a leading ``n_units`` dim, exactly the reference's parameter tree, and a
 Python loop over units takes the place of ``lax.scan``.
 
 Ported: the ``attn`` / ``local`` blocks (prefill and the 1D decode path),
-the token frontend, prefill with the cache re-layout (ring slots for a
-window), and decode with per-slot positions.  What raises
-``NotImplementedError``: the ``mlstm`` / ``slstm`` / ``rglru`` blocks, the
-MoE channel mix and the ``vit`` / ``encodec`` frontends (ROADMAP Queue 1
-item 16), and the training loss (item 13).
+the ``rglru`` block (``models/rglru.py``: prefill through the lru_scan
+kernel, a one-step decode), the token frontend, prefill with the cache
+re-layout (ring slots for a window; recurrent state passed through), and
+decode with per-slot positions.  What raises ``NotImplementedError``: the
+``mlstm`` / ``slstm`` blocks, the MoE channel mix and the ``vit`` /
+``encodec`` frontends (ROADMAP Queue 1 item 16), and the training loss
+(item 13).
 
-Decode writes the new position of each slot into the cache in place
-(``attention.cache_write``) and returns the same cache tree.
+Decode updates the cache in place and returns the same cache tree:
+attention blocks write each slot's new position
+(``attention.cache_write``); an ``rglru`` block's new ``h`` / ``conv``
+state is copied over its old one.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
                                        rms_norm, rope_decode, sinusoidal_pe)
 from repro_torch.models.meta import not_ported as _not_ported
 from repro_torch.models.parallel import ParallelCtx
+from repro_torch.models.rglru import rglru_block, rglru_state_init
 
 
 class Model(torch.nn.Module):
@@ -100,6 +105,13 @@ def _mix(kind: str, x, p, mt, ctx, cfg, *, serve=False):
 
 
 def _block_train(kind: str, x, p, mt, ctx, cfg, *, return_state=False):
+    if kind == "rglru":
+        out = rglru_block(x, p["rglru"], mt["rglru"], ctx, cfg,
+                          return_state=return_state)
+        if return_state:
+            x, st = out
+            return _mix(kind, x, p, mt, ctx, cfg), st
+        return _mix(kind, out, p, mt, ctx, cfg)
     if kind not in ("attn", "local"):
         raise _not_ported(f"the {kind} block", 16)
     window = cfg.window if kind == "local" else None
@@ -113,6 +125,10 @@ def _block_train(kind: str, x, p, mt, ctx, cfg, *, return_state=False):
 
 
 def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
+    if kind == "rglru":
+        x, st = rglru_block(x, p["rglru"], mt["rglru"], ctx, cfg,
+                            state=state, decode=True)
+        return _mix(kind, x, p, mt, ctx, cfg, serve=True), st
     if kind not in ("attn", "local"):
         raise _not_ported(f"the {kind} block", 16)
     window = cfg.window if kind == "local" else None
@@ -215,6 +231,10 @@ def _state_to_cache(cfg, ctx, st, T: int, s_max: int, kind: str,
 def _cache_init(cfg, ctx, B_loc: int, s_max: int, device) -> dict:
     """Zero caches; every leaf its own tensor (decode writes in place)."""
     def one(kind, lead=()):
+        if kind == "rglru":
+            st = rglru_state_init(cfg, B_loc, ctx, ctx.compute_dtype, device)
+            return {n: a.new_zeros(lead + tuple(a.shape))
+                    for n, a in st.items()}
         if kind not in ("attn", "local"):
             raise _not_ported(f"the {kind} block's decode state", 16)
         window = cfg.window if kind == "local" else None
@@ -259,7 +279,7 @@ def _prefill(cfg, ctx, defs, params, batch, s_max: int):
     for i, k in enumerate(cfg.pattern):
         key = f"b{i}"
         stacked = {n: torch.stack([st[n] for st in states[key]])
-                   for n in ("k", "v")}
+                   for n in states[key][0]}
         cache["units"][key] = _state_to_cache(cfg, ctx, stacked, T, s_max,
                                               k, tdim=2)
     if cfg.remainder_kinds:
@@ -267,6 +287,15 @@ def _prefill(cfg, ctx, defs, params, batch, s_max: int):
                                              s_max, k)
                         for key, k in zip(rem_states, cfg.remainder_kinds)}
     return cache, logits
+
+
+def _store_state(state: dict, new: dict) -> None:
+    """Copy a block's new decode state over its cache leaves in place (a
+    leaf the block already wrote in place, as ``cache_write`` does, is the
+    same tensor and is skipped)."""
+    for n, t in new.items():
+        if t is not state[n]:
+            state[n].copy_(t)
 
 
 def _decode(cfg, ctx, defs, params, cache, token, pos):
@@ -288,13 +317,16 @@ def _decode(cfg, ctx, defs, params, cache, token, pos):
         pu = _unit(params["units"], u)
         for i, k in enumerate(cfg.pattern):
             key = f"b{i}"
-            state = {n: cache["units"][key][n][u] for n in ("k", "v")}
-            x, _ = _block_decode(k, x, pu[key], defs["units"][key], state,
-                                 ctx, cfg, pos=pos)
+            state = _unit(cache["units"][key], u)   # views of the pages
+            x, new = _block_decode(k, x, pu[key], defs["units"][key], state,
+                                   ctx, cfg, pos=pos)
+            _store_state(state, new)
     for i, k in enumerate(cfg.remainder_kinds):
         key = f"r{i}"
-        x, _ = _block_decode(k, x, params["rem"][key], defs["rem"][key],
-                             cache["rem"][key], ctx, cfg, pos=pos)
+        state = cache["rem"][key]
+        x, new = _block_decode(k, x, params["rem"][key], defs["rem"][key],
+                               state, ctx, cfg, pos=pos)
+        _store_state(state, new)
     x = rms_norm(x, ctx.gather_w(params["final_ln"],
                                  defs["final_ln"].fsdp_dim), cfg.norm_eps)
     w_un = _unembed_weight(cfg, ctx, defs, params)

@@ -15,7 +15,10 @@ products and sums within 1e-5.  The lossy wire formats are held to
 ``traffic.check_lossy`` on the card.  The flash-attention kernel is held
 to its plain version (F32 2e-4 / BF16 2e-2), and a full-width
 ``qwen3-0.6b`` unit's prefill on the card (the kernel) to the same prefill
-on the CPU (the plain version) within 1e-4 relative.
+on the CPU (the plain version) within 1e-4 relative.  The lru_scan kernel
+is held to its plain version (f32 2e-4, bf16 5e-2; ragged C and T, B 1 and
+8, the a = 1 carry against ``cumsum``), and a full-width
+``recurrentgemma-9b`` ``rglru`` block's prefill on the card to the CPU.
 """
 
 import dataclasses
@@ -28,6 +31,7 @@ from repro_torch.comm import Communicator
 from repro_torch.comm.quantize import dequantize_q4, quantize_q4
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import lru_scan as klru
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as kquant
@@ -329,3 +333,66 @@ def test_full_width_unit_prefill_on_the_card_matches_the_cpu(cuda):
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
+
+
+LRU_CASES = [(1, 256, 128), (2, 512, 64), (1, 100, 48),   # test_kernels.py
+             (8, 64, 4096), (1, 333, 4096), (3, 7, 5)]   # B 8 / 1, ragged
+
+
+@pytest.mark.parametrize("shape", LRU_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_kernel_matches_plain_version(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    a = (torch.rand(shape, generator=g, device=cuda) * 0.499 + 0.5).to(dtype)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    before = klru.launches
+    got = ops.lru_scan(a, x)
+    torch.cuda.synchronize()
+    assert klru.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(),
+                               klru.lru_scan_plain(a, x).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_lru_scan_kernel_carries_like_cumsum(cuda):
+    x = torch.ones((2, 1000, 96), device=cuda)
+    got = ops.lru_scan(torch.ones_like(x), x)
+    torch.testing.assert_close(got, x.cumsum(1), rtol=0, atol=0)
+
+
+def test_lru_scan_kernel_wrapper_checks_its_operands(cuda):
+    a = torch.ones((1, 8, 16), device=cuda)
+    with pytest.raises(TypeError):
+        klru.lru_scan_cuda(a.half(), a.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        klru.lru_scan_cuda(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        klru.lru_scan_cuda(a, a.cpu())
+    # ops.lru_scan makes a strided operand contiguous for the kernel
+    got = ops.lru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    torch.testing.assert_close(got, a.transpose(1, 2).cumsum(1))
+
+
+def test_full_width_rglru_block_prefill_on_the_card_matches_the_cpu(cuda):
+    """One rglru block of recurrentgemma-9b at its published widths: a
+    300-token prefill through the scan kernel equals the plain version on
+    the CPU, output and state."""
+    from repro_torch.models import meta, rglru
+    cfg = get_config("recurrentgemma-9b")
+    ctx = ParallelCtx.single()
+    defs = meta.rglru_defs(cfg, 1)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    p = meta.map_defs(lambda _, m: meta.init_leaf(
+        m, cfg.n_layers, None, generator=g, device=cuda), defs)
+    x = torch.randn((2, 300, cfg.d_model), generator=g, device=cuda)
+    before = klru.launches
+    y_g, st_g = rglru.rglru_block(x, p, defs, ctx, cfg, return_state=True)
+    torch.cuda.synchronize()
+    assert klru.launches == before + 1
+    y_c, st_c = rglru.rglru_block(x.cpu(), _to_cpu(p), defs, ctx, cfg,
+                                  return_state=True)
+    for a, b in ((y_g, y_c), (st_g["h"], st_c["h"]),
+                 (st_g["conv"], st_c["conv"])):
+        assert ((a.cpu() - b).abs().max() / b.abs().max()).item() <= 1e-4

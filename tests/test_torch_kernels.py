@@ -7,7 +7,8 @@ atol x8.  On the CPU the port's ``ops.matmul`` takes the kernel's plain
 version; the CUDA kernels themselves are checked on the card by
 ``tests/test_torch_gpu.py``.  ``ops.flash_attention``'s plain version is
 held against the reference's Pallas kernel in interpret mode over the
-parametrisation of ``tests/test_kernels.py``.
+parametrisation of ``tests/test_kernels.py``; so is ``ops.lru_scan``'s
+(f32 2e-4, bf16 5e-2, and the a = 1 carry against ``cumsum``).
 """
 
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import lru_scan as klru
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops, ref
 
@@ -243,3 +245,60 @@ def test_flash_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kflash.flash_attention_cuda(q, q, q)
     assert kflash.launches == before
+
+
+# ---------------------------------------------------------------------------
+# ops.lru_scan (the RG-LRU recurrence) vs the reference's Pallas kernel in
+# interpret mode — tests/test_kernels.py's cases
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,T,C,bt,bc", [
+    (1, 256, 128, 64, 64), (2, 512, 64, 128, 64), (1, 100, 48, 32, 32),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_lru_scan_matches_pallas_interpret(B, T, C, bt, bc, dtype):
+    rng = np.random.default_rng(4)
+    a = rng.uniform(0.5, 0.999, size=(B, T, C)).astype(np.float32)
+    x = rng.normal(size=(B, T, C)).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    want = jops.lru_scan(jnp.asarray(a).astype(jd), jnp.asarray(x).astype(jd),
+                         block_t=bt, block_c=bc, interpret=True)
+    got = ops.lru_scan(torch.from_numpy(a).to(td), torch.from_numpy(x).to(td))
+    assert got.shape == (B, T, C) and got.dtype == td
+    tol = F32_TOL if dtype == "float32" else dict(rtol=5e-2, atol=5e-2)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_ops_lru_scan_carries_state_like_cumsum():
+    """a = 1 makes the scan a running sum: the carry flows over all of T
+    (the reference kernel's carry across its time blocks)."""
+    B, T, C = 1, 128, 32
+    a, x = np.ones((B, T, C), np.float32), np.ones((B, T, C), np.float32)
+    want = jops.lru_scan(jnp.asarray(a), jnp.asarray(x), block_t=32,
+                         block_c=32, interpret=True)
+    got = ops.lru_scan(torch.from_numpy(a), torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6)
+    torch.testing.assert_close(got, torch.from_numpy(x).cumsum(1),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("a_shape,x_shape,dtypes,err", [
+    ((1, 4, 8), (1, 4, 8), ("float32", "bfloat16"), TypeError),   # mix
+    ((1, 4, 8), (1, 5, 8), ("float32", "float32"), ValueError),    # shape
+    ((4, 8), (4, 8), ("float32", "float32"), ValueError),          # rank
+])
+def test_ops_lru_scan_rejects_bad_operands(a_shape, x_shape, dtypes, err):
+    a = torch.zeros(a_shape, dtype=DTYPES[dtypes[0]][1])
+    x = torch.zeros(x_shape, dtype=DTYPES[dtypes[1]][1])
+    with pytest.raises(err):
+        ops.lru_scan(a, x)
+    with pytest.raises(TypeError):
+        ops.lru_scan(torch.zeros(1, 2, 3).half(), torch.zeros(1, 2, 3).half())
+
+
+def test_lru_scan_kernel_wrapper_refuses_cpu_tensors():
+    a = torch.ones(1, 8, 4)
+    before = klru.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        klru.lru_scan_cuda(a, a)
+    assert klru.launches == before

@@ -4,9 +4,14 @@ The reference's ``init_params(0)`` tree goes to the port through
 ``convert.params_from_reference``; token inputs come from numpy seeds.  The
 reduced ``qwen3-0.6b`` (2 layers, d 64; GQA 1:1 there, so a 2:1 variant and
 an ``attn`` + ``local`` (window 8) variant ride along) runs prefill and
-per-slot decode in both packages: logits and caches within 1e-4.  On the
-CPU ``models.attention.flash_attention`` takes the kernel's plain version;
-the kernel itself is held to it on the card (``tests/test_torch_gpu.py``).
+per-slot decode in both packages: logits and caches within 1e-4.  So does
+a reduced ``recurrentgemma-9b`` (5 layers: one ``rglru, rglru, local`` unit
+plus an ``rglru, rglru`` remainder, window 16), below and past its window,
+with its ``rglru`` pieces held one by one (the conv, the ``lam`` init, the
+scan, the block's prefill and decode).  On the CPU
+``models.attention.flash_attention`` and ``models.rglru.rglru_scan`` take
+the kernels' plain versions; the kernels themselves are held to them on the
+card (``tests/test_torch_gpu.py``).
 """
 
 import dataclasses
@@ -22,12 +27,15 @@ from repro.models import attention as jattn
 from repro.models import build as jbuild_cfg
 from repro.models import layers as jlayers
 from repro.models import make_batch as jmake_batch
+from repro.models import meta as jmeta
+from repro.models import rglru as jrglru
+from repro.models import xlstm as jxlstm
 from repro.models.parallel import ParallelCtx as JCtx
 from repro_torch import configs
 from repro_torch.convert import params_from_reference
 from repro_torch.models import ParallelCtx, build, build_by_name, make_batch
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, meta
+from repro_torch.models import layers, meta, rglru, xlstm
 from repro_torch.models.parallel import ParamGroup, prefetch_walk
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -164,7 +172,16 @@ def test_cache_write_and_decode_attention_match_reference(pos, window):
 # the model: prefill + per-slot decode against the reference
 # ---------------------------------------------------------------------------
 
+def _hybrid_cfg():
+    """Reduced recurrentgemma-9b at 5 layers: one (rglru, rglru, local)
+    unit plus an (rglru, rglru) remainder; window 16."""
+    return dataclasses.replace(
+        jconfigs.get_config("recurrentgemma-9b").reduced(), n_layers=5)
+
+
 def _variant(name):
+    if name == "recurrentgemma-9b":
+        return _hybrid_cfg()
     cfg = jconfigs.get_config("qwen3-0.6b").reduced()
     if name == "gqa":
         cfg = jconfigs.get_config("qwen3-0.6b").reduced(n_kv=2)
@@ -173,16 +190,26 @@ def _variant(name):
     return cfg
 
 
-@pytest.fixture(scope="module", params=["qwen3-0.6b", "gqa", "local"])
-def pair(request):
+def _build_pair(name):
     """(reference model, its params, port model, the same params)."""
-    cfg = _variant(request.param)
+    cfg = _variant(name)
     jm = jbuild_cfg(cfg, JCTX)
     jp = jm.init_params(0)
     tm = build(configs.ModelConfig(**dataclasses.asdict(cfg)), CTX,
                device="cpu")
     return jm, jp, tm, params_from_reference(
         jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.fixture(scope="module", params=["qwen3-0.6b", "gqa", "local",
+                                        "recurrentgemma-9b"])
+def pair(request):
+    return _build_pair(request.param)
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    return _build_pair("recurrentgemma-9b")
 
 
 def test_prefill_then_per_slot_decode_match_reference(pair):
@@ -261,9 +288,13 @@ def test_unported_parts_raise_naming_their_roadmap_item():
         prefetch_walk([], None, None, 2)
     with pytest.raises(NotImplementedError, match="item 13"):
         CTX.reduce_grads({})
-    for name in ("xlstm-1.3b", "granite-moe-3b-a800m", "recurrentgemma-9b"):
+    for name in ("xlstm-1.3b", "granite-moe-3b-a800m"):
         with pytest.raises(NotImplementedError, match="item 16"):
             build_by_name(name, reduced=True, device="cpu")
+    cfg = dataclasses.replace(configs.get_config("recurrentgemma-9b"),
+                              pattern=("mlstm",))
+    with pytest.raises(NotImplementedError, match="the mlstm block.*item 16"):
+        build(cfg, CTX, device="cpu")
     m = build_by_name("internvl2-1b", reduced=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         m.prefill_fn(m.init_params(0), make_batch(m.cfg, 1, 4,
@@ -272,3 +303,129 @@ def test_unported_parts_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 13"):
         m.loss_fn({}, {})
     assert meta.attn_mode_for(m.cfg, 1) == "head_tp"
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU pieces of recurrentgemma-9b
+# ---------------------------------------------------------------------------
+
+def test_causal_conv1d_matches_reference():
+    rng = np.random.default_rng(5)
+    jx, tx = _pair(rng, (2, 9, 6))
+    jw, tw = _pair(rng, (6, 4))
+    np.testing.assert_allclose(_np(xlstm.causal_conv1d(tx, tw)),
+                               _np(jxlstm.causal_conv1d(jx, jw)),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_lam_init_is_bit_equal_to_the_reference():
+    """The RG-LRU decay parameter is deterministic (no draw): the port's
+    float64 numpy arithmetic gives the reference's f32 leaf bit for bit,
+    stacked or not."""
+    for shape, stacked in (((4096,), 12), ((64,), None)):
+        m = meta.PMeta(shape, tp_dim=0, init="lam")
+        jm_ = jmeta.PMeta(shape, tp_dim=0, init="lam")
+        got = meta.init_leaf(m, 38, stacked, generator=torch.Generator(),
+                             device="cpu")
+        want = np.asarray(jmeta.init_leaf(jm_, None, 38, stacked))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_rglru_scan_matches_the_reference_log_space_scan():
+    """The port scans a = exp(log_a) through ops.lru_scan; the reference
+    runs an associative scan in log space."""
+    rng = np.random.default_rng(6)
+    log_a = np.log(rng.uniform(0.5, 0.999, size=(2, 37, 24))).astype(
+        np.float32)
+    x = rng.normal(size=(2, 37, 24)).astype(np.float32)
+    want = np.asarray(jax.jit(jrglru.rglru_scan)(jnp.asarray(log_a),
+                                                 jnp.asarray(x)))
+    got = rglru.rglru_scan(torch.from_numpy(log_a), torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_rglru_block_prefill_and_decode_match_reference():
+    cfg = _hybrid_cfg()
+    jm = jbuild_cfg(cfg, JCTX)
+    jp = jm.init_params(0)
+    jb, jmt = jp["units"]["b0"]["rglru"], jm.defs["units"]["b0"]["rglru"]
+    jb = jax.tree.map(lambda a: a[0], jb)
+    tb = params_from_reference(jax.tree.map(np.asarray, jb), "cpu")
+    tmt = meta.model_defs(configs.ModelConfig(**dataclasses.asdict(cfg)), 1,
+                          1, "hier")["units"]["b0"]["rglru"]
+    tcfg = configs.ModelConfig(**dataclasses.asdict(cfg))
+    rng = np.random.default_rng(7)
+    jx, tx = _pair(rng, (3, 11, cfg.d_model))
+    prefill = jax.jit(lambda x, p: jrglru.rglru_block(
+        x, p, jmt, JCTX, cfg, return_state=True))
+    step = jax.jit(lambda x, p, st: jrglru.rglru_block(
+        x, p, jmt, JCTX, cfg, state=st, decode=True))
+    jy, jst = prefill(jx, jb)
+    ty, tst = rglru.rglru_block(tx, tb, tmt, CTX, tcfg, return_state=True)
+    np.testing.assert_allclose(_np(ty), _np(jy), **TOL)
+    for n in ("h", "conv"):
+        assert tuple(tst[n].shape) == jst[n].shape
+        np.testing.assert_allclose(_np(tst[n]), _np(jst[n]), **TOL)
+    for _ in range(3):
+        jx, tx = _pair(rng, (3, 1, cfg.d_model))
+        jy, jst = step(jx, jb, jst)
+        ty, tst = rglru.rglru_block(tx, tb, tmt, CTX, tcfg, state=tst,
+                                    decode=True)
+        np.testing.assert_allclose(_np(ty), _np(jy), **TOL)
+        for n in ("h", "conv"):
+            np.testing.assert_allclose(_np(tst[n]), _np(jst[n]), **TOL)
+
+
+def test_hybrid_prefill_past_the_window_then_decode_match_reference(hybrid):
+    """The reduced recurrentgemma-9b with T = 40 past its window of 16:
+    prefill logits and every cache leaf (ring k / v, h, conv), then 4
+    decode steps at per-slot positions, against the reference."""
+    jm, jp, tm, tp = hybrid
+    rng = np.random.default_rng(8)
+    B, T, s_max = 2, 40, 48
+    toks = rng.integers(0, tm.cfg.vocab, size=(B, T + 1)).astype(np.int32)
+    jc, jl = jax.jit(lambda p, b: jm.prefill_fn(p, b, s_max))(
+        jp, {"tokens": jnp.asarray(toks)})
+    tc, tl = tm.prefill_fn(tp, {"tokens": torch.from_numpy(toks)}, s_max)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    names = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_leaves_with_path(jc)]
+    assert {n.split("'")[-2] for n in names} == {"k", "v", "h", "conv"}
+    for a, b in zip(jax.tree.leaves(jc), jax.tree.leaves(tc)):
+        assert a.shape == tuple(b.shape)
+        np.testing.assert_allclose(_np(b), _np(a), **TOL)
+    pos = np.array([T, T - 7], np.int32)
+    tok = rng.integers(0, tm.cfg.vocab, size=(B, 1)).astype(np.int32)
+    decode = jax.jit(jm.decode_fn)
+    for _ in range(4):
+        jc, jl = decode(jp, jc, jnp.asarray(tok), jnp.asarray(pos))
+        tc2, tl = tm.decode_fn(tp, tc, torch.from_numpy(tok),
+                               torch.from_numpy(pos))
+        assert tc2 is tc                    # updated in place
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+        tok = np.asarray(jnp.argmax(jl[:, -1], -1))[:, None].astype(np.int32)
+        pos = pos + 1
+    for a, b in zip(jax.tree.leaves(jc), jax.tree.leaves(tc)):
+        np.testing.assert_allclose(_np(b), _np(a), **TOL)
+
+
+def test_hybrid_prompt_shorter_than_the_conv_decodes_like_a_prefill(hybrid):
+    """A 1- or 2-token prefill (shorter than the conv's K - 1 = 3) keeps a
+    zero-padded conv state, so one decode step gives the logits of the
+    one-longer prefill.  (The reference's state is the short tail, which
+    its (B, K-1, dr) cache does not take.)"""
+    tm, tp = hybrid[2], hybrid[3]
+    p = np.random.default_rng(9).integers(0, tm.cfg.vocab, 4).astype(np.int32)
+
+    def batch(n):
+        return {"tokens": torch.from_numpy(np.r_[p[:n], 0][None].astype(
+            np.int32))}
+    for n in (1, 2, 3):
+        cache, _ = tm.prefill_fn(tp, batch(n), 8)
+        assert cache["units"]["b0"]["conv"].shape[2] == 3
+        _, got = tm.decode_fn(tp, cache, torch.from_numpy(p[None, n:n + 1]),
+                              n)
+        _, want = tm.prefill_fn(tp, batch(n + 1), 8)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -32,6 +32,7 @@ from repro_torch.comm import Communicator, registry, tuning
 from repro_torch.comm import quantize as qz
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import lru_scan as klru
 from repro_torch.kernels import matmul as kmatmul
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as kquant
@@ -525,7 +526,7 @@ def test_every_kernel_builds_through_one_builder(monkeypatch):
     """Every kernel module binds its entry points on the library the one
     builder returns for its own source."""
     asked = []
-    mods = (kmatmul, kquant, kflash)
+    mods = (kmatmul, kquant, kflash, klru)
 
     def fake(source):
         asked.append(source)
@@ -542,7 +543,8 @@ def test_every_kernel_builds_through_one_builder(monkeypatch):
     finally:
         for mod in mods:
             mod.library.cache_clear()
-    assert asked == ["matmul.cu", "q4_matmul.cu", "flash_attention.cu"]
+    assert asked == ["matmul.cu", "q4_matmul.cu", "flash_attention.cu",
+                     "lru_scan.cu"]
     assert set(asked) == set(_cuda.SOURCES)
     for lib, mod in zip(libs, mods):
         for name in mod._ENTRY.values():

@@ -7,9 +7,13 @@ give identical tokens and log-probs within 1e-4 of ``repro.serving``.
 Temperature sampling draws from a ``torch.Generator`` keyed per
 (seed, rid, token index), so it is held to slot independence within the
 port, not to ``jax.random``'s draws.  The queue's admission and bucketing
-cases are the reference's own (``tests/test_serving_engine.py``).
+cases are the reference's own (``tests/test_serving_engine.py``).  The
+reduced ``recurrentgemma-9b`` (``rglru, rglru, local``, window 16) serves
+through exact-length buckets with prompts below and past its window; its
+pages hold the recurrent ``h`` / ``conv`` state beside the ring k / v.
 """
 
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -26,7 +30,7 @@ from repro.serving.scheduler import generate as jgenerate
 from repro_torch.comm import Communicator, SharedWindow, WindowEpochError
 from repro_torch.convert import params_from_reference
 from repro_torch.launch import serve
-from repro_torch.models import build_by_name
+from repro_torch.models import ParallelCtx, build, build_by_name
 from repro_torch.serving.engine import greedy_generate, materialize_params
 from repro_torch.serving.kv_cache import KVCachePages
 from repro_torch.serving.queue import AdmissionError, RequestQueue, bucket_len
@@ -43,6 +47,16 @@ def qwen():
     jm = jbuild_by_name("qwen3-0.6b", reduced=True)
     jp = jm.init_params(0)
     tm = build_by_name("qwen3-0.6b", reduced=True, device="cpu")
+    return jm, jp, tm, params_from_reference(
+        jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.fixture(scope="module")
+def rgemma():
+    """The reduced recurrentgemma-9b: (reference, params, port, params)."""
+    jm = jbuild_by_name("recurrentgemma-9b", reduced=True)
+    jp = jm.init_params(0)
+    tm = build_by_name("recurrentgemma-9b", reduced=True, device="cpu")
     return jm, jp, tm, params_from_reference(
         jax.tree.map(np.asarray, jp), "cpu")
 
@@ -225,3 +239,54 @@ def test_prefill_longer_than_the_cache_is_refused(qwen):
     toks = torch.zeros((1, 33), dtype=torch.int32)
     with pytest.raises(ValueError, match="s_max=27"):
         tm.prefill_fn(tp, {"tokens": toks}, 27)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid model (rglru + local attention)
+# ---------------------------------------------------------------------------
+
+def test_hybrid_scheduler_matches_reference_and_solo_runs(rgemma):
+    """Exact-length buckets; a prompt shorter than the window (the
+    reference's NaN regression, tests/test_serving_engine.py) and one past
+    it: the streams equal the reference scheduler's and each request's
+    solo greedy_generate run."""
+    jm, jp, tm, tp = rgemma
+    assert _bucket_mode(tm.cfg) == "exact" and tm.cfg.window == 16
+    prompts = _prompts(tm.cfg.vocab, [5, 24, 5])
+    want = jgenerate(jm, jp, prompts, max_new=4, slots=2, s_max=32)
+    got = generate(tm, tp, prompts, max_new=4, slots=2, s_max=32)
+    assert np.isfinite(got.logprobs).all()
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.logprobs, want.logprobs, **LP_TOL)
+    for i, p in enumerate(prompts):
+        solo = greedy_generate(tm, tp, p[None], max_new=4, s_max=32)
+        np.testing.assert_array_equal(got.tokens[i:i + 1], solo.tokens)
+        np.testing.assert_allclose(got.logprobs[i:i + 1], solo.logprobs,
+                                   **LP_TOL)
+
+
+def test_hybrid_pages_hold_recurrent_state_once(rgemma):
+    """The pages scatter h / conv on the slot axis of k / v (1 under units,
+    0 under rem) and C1 counts every leaf."""
+    cfg = dataclasses.replace(rgemma[2].cfg, n_layers=5)    # + a remainder
+    tm = build(cfg, ParallelCtx.single(), device="cpu")
+    pages = KVCachePages.for_model(tm, slots=3, s_max=24)
+    names = {n for tree in pages.windows.values() for blk in tree.values()
+             for n in blk}
+    assert names == {"k", "v", "h", "conv"}
+    sub = tm.cache_init(1, 24)
+    sub["units"]["b0"]["h"].fill_(2.0)
+    sub["rem"]["r1"]["conv"].fill_(3.0)
+    cache = pages.admit(np.array([2]), sub).fence().cache
+    h, conv = cache["units"]["b0"]["h"], cache["rem"]["r1"]["conv"]
+    assert h[:, 2].eq(2).all() and not h[:, :2].any()
+    assert conv[2].eq(3).all() and not conv[:2].any()
+    acct = pages.assert_c1()
+    assert acct["copies_per_node"] == 1
+    assert acct["logical_bytes"] == sum(
+        t.nbytes for t in jax.tree.leaves(tm.cache_init(3, 24)))
+
+
+def test_serve_launcher_runs_the_hybrid_model_on_the_cpu():
+    assert serve.main(["--arch", "recurrentgemma-9b", "--device", "cpu",
+                       "--requests", "4", "--slots", "2"]) == 0
