@@ -10,12 +10,18 @@ Phases (any failed check raises, and the script exits nonzero):
    source, all started together), with each one's registers, shared memory
    and spills;
 2. kernels against their plain versions on the card: ``ops.matmul`` — f32
-   and bf16 at 4096^3 and the ragged (96, 160, 224), and at the SUMMA
+   and bf16 at 4096^3, the ragged (96, 160, 224) and (5, 96, 20), K < 32
+   and N = 4 in (64, 20, 4), rows not 16-byte aligned in (33, 131, 21) (K
+   and N not multiples of 4), and at the SUMMA
    round's batched shape (16 ranks x 4096^3, f32), timed beside the plain
-   version and ``torch.matmul``; ``ops.q4_matmul`` — (4, 64, 16), the ragged
+   version and ``torch.matmul``, with both products' errors against a
+   float64 product on 2 of the 16 panels (the kernel's may be at most 2x
+   ``torch.matmul``'s); ``ops.q4_matmul`` — (4, 64, 16), the ragged
    (5, 96, 20), bf16 ``a`` at (96, 256, 224), all group 32, and the lossy
    ``ag_matmul`` chunk's batched shape (8 ranks x 2048 x 7168 x 5120),
-   timed beside the plain version; every timed row prints its bound;
+   timed beside the plain version; every timed row prints its bound, and
+   an f32 product row both: 3 x FLOP at the 495 TFLOP/s TF32 tensor-core
+   rate (3xTF32, the least time) and FLOP at the 67 TFLOP/s fp32 FMA rate;
 3. collectives: every primitive over ``default_matrix()`` at 2^20 f32
    elements per rank — values agree across schemes, the traffic record
    prices to each scheme's ``links()``, and the measured resident result
@@ -66,7 +72,9 @@ hd 256) and times it at the model's prefill shape (8 x 16 heads, 8 kv
 heads, 2048 tokens, hd 128, f32, causal) beside the plain version and
 ``scaled_dot_product_attention``, and at ``recurrentgemma-9b``'s local
 layer in phase 9's largest prefill group (4 x 16 heads, 1 kv head, 3071
-tokens, hd 256, window 2048) beside the plain version; and
+tokens, hd 256, window 2048) beside the plain version and
+``scaled_dot_product_attention`` with the causal window as a boolean mask;
+and
 ``ops.lru_scan`` to its plain version (``tests/test_kernels.py``'s shapes
 in f32 and bf16, the a = 1 carry against ``cumsum``), timed f32 at phase
 9's prefill groups (4, 511 / 1023 / 2047 / 3071, 4096), then at (8, 2048,
@@ -168,16 +176,33 @@ def pct(xs, q):
         else 0.0
 
 
-def bound(flops: float, moved: float, peak: float) -> tuple[float, str]:
-    """The least time the card could take (ms): the larger of ``moved``
-    bytes at 3.35 TB/s and ``flops`` at ``peak`` FLOP/s, and which."""
-    ops_ms, bytes_ms = flops / peak * 1e3, moved / 3.35e12 * 1e3
+# H100 SXM dense peaks (FLOP/s) by route: an fp32-accurate product as
+# 3xTF32 on the tensor cores (three TF32 products per FLOP), as fp32 FMA on
+# the CUDA cores, or a bf16 product on the tensor cores
+PEAK = {"3xtf32": 495e12 / 3, "fma": 67e12, "bf16": 989e12}
+
+
+def bound(flops: float, moved: float, route: str) -> tuple[float, str]:
+    """The least time the card could take (ms) by ``route``: the larger of
+    ``moved`` bytes at 3.35 TB/s and ``flops`` at the route's rate, and
+    which."""
+    ops_ms, bytes_ms = flops / PEAK[route] * 1e3, moved / 3.35e12 * 1e3
     if ops_ms >= bytes_ms:
         return ops_ms, "operations"
     return bytes_ms, "bytes"
 
 
-FP32_FMA, BF16_TENSOR = 67e12, 989e12     # H100 SXM peaks, FLOP/s
+def f32_bounds(flops: float, moved: float) -> dict:
+    """An f32 product's bounds: the least time (3xTF32 tensor cores) and
+    the fp32 FMA one beside it."""
+    ms, by = bound(flops, moved, "3xtf32")
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_fma_ms": bound(flops, moved, "fma")[0]}
+
+
+def bounds_text(b: dict) -> str:
+    return (f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}, 3xTF32 at "
+            f"495 TFLOP/s; fp32 FMA at 67 TFLOP/s {b['bound_fma_ms']:.3f} ms)")
 
 
 def _map(fn, tree):
@@ -414,8 +439,11 @@ def main() -> int:
 
     # -- 2. kernel vs its plain version ----------------------------------------
     t_phase = time.perf_counter()
+    # 4096^3, then ragged edges, K < 32, N = 4 and rows whose K and N are
+    # not multiples of 4 (the kernel's element-wise load path)
     for dtype in (torch.float32, torch.bfloat16):
-        for M, K, N in ((4096, 4096, 4096), (96, 160, 224)):
+        for M, K, N in ((4096, 4096, 4096), (96, 160, 224), (5, 96, 20),
+                        (64, 20, 4), (33, 131, 21)):
             a = torch.randn((M, K), generator=g, device=dev).to(dtype)
             b = torch.randn((K, N), generator=g, device=dev).to(dtype)
             got = ops.matmul(a, b)
@@ -425,16 +453,20 @@ def main() -> int:
             line = f"[kernel] {str(dtype)[6:]:8s} {M}x{K}x{N}: " \
                    f"max|err| {err:.3g}"
             if M == 4096:
-                b_ms, b_by = bound(2.0 * M * K * N,
-                                   (M * K + K * N + M * N) * a.element_size(),
-                                   FP32_FMA if dtype == torch.float32
-                                   else BF16_TENSOR)
+                flops = 2.0 * M * K * N
+                moved = (M * K + K * N + M * N) * a.element_size()
+                if dtype == torch.float32:
+                    b_txt = bounds_text(f32_bounds(flops, moved))
+                else:
+                    b_ms, b_by = bound(flops, moved, "bf16")
+                    b_txt = (f"bound {b_ms:.3f} ms ({b_by}, bf16 tensor "
+                             f"cores)")
                 line += (f"  kernel {cuda_ms(lambda: ops.matmul(a, b), 5):.3f}"
                          f" ms  plain "
                          f"{cuda_ms(lambda: kmatmul.matmul_plain(a, b), 5):.3f}"
                          f" ms  torch.matmul "
                          f"{cuda_ms(lambda: torch.matmul(a, b), 5):.3f} ms  "
-                         f"bound {b_ms:.3f} ms ({b_by})")
+                         + b_txt)
             print(line)
     # the main path's shape: one SUMMA round = 16 rank panels of 4096^3 f32
     B, M = summa.NODES * summa.CORES, 4096
@@ -444,17 +476,31 @@ def main() -> int:
     torch.cuda.synchronize()
     main_err = check_close(got, kmatmul.matmul_plain(a, b), torch.float32,
                            M, "matmul f32 16x4096^3")
-    del got
+    # accuracy against a float64 product on 2 of the 16 panels, the kernel
+    # and torch.matmul side by side (max |err|, and over max |C|)
+    want64 = torch.matmul(a[:2].double(), b[:2].double())
+    f64 = {}
+    for name, c in (("kernel", got[:2]), ("torch.matmul",
+                                           torch.matmul(a[:2], b[:2]))):
+        e = (c.double() - want64).abs().max().item()
+        f64[name] = (e, e / want64.abs().max().item())
+    del got, want64
+    print(f"[kernel] f32 {B}x{M}^3 (SUMMA round), 2 panels against float64: "
+          + "  ".join(f"{n} max|err| {e:.4g} (rel {r:.3g})"
+                      for n, (e, r) in f64.items()))
+    if not f64["kernel"][0] <= 2 * f64["torch.matmul"][0]:
+        raise AssertionError(f"matmul f64 error {f64['kernel'][0]} above 2x "
+                             f"torch.matmul's {f64['torch.matmul'][0]}")
     k_ms = cuda_ms(lambda: ops.matmul(a, b), 3)
     plain_ms = cuda_ms(lambda: kmatmul.matmul_plain(a, b), 3)
     lib_ms = cuda_ms(lambda: torch.matmul(a, b), 3)
     flops = 2.0 * B * M * M * M
     moved = 3.0 * B * M * M * 4                 # A, B read once, C written
-    bound_ms, bound_by = bound(flops, moved, FP32_FMA)
+    mm_bounds = f32_bounds(flops, moved)
     print(f"[kernel] f32 {B}x{M}^3 (SUMMA round): max|err| {main_err:.3g}  "
           f"kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s)  plain "
-          f"{plain_ms:.3f} ms  torch.matmul {lib_ms:.3f} ms  bound "
-          f"{bound_ms:.3f} ms ({bound_by})")
+          f"{plain_ms:.3f} ms  torch.matmul {lib_ms:.3f} ms  "
+          + bounds_text(mm_bounds))
     del a, b
 
     # q4_matmul against its plain version (group 32), then at the lossy
@@ -488,12 +534,12 @@ def main() -> int:
     q4_flops = 2.0 * QB * QM * QK * QN
     q4_moved = QB * (QM * QK * 4 + QK // 2 * QN + QK // 32 * QN * 4
                      + QM * QN * 4)
-    q4_bound_ms, q4_bound_by = bound(q4_flops, q4_moved, FP32_FMA)
+    q4_bounds = f32_bounds(q4_flops, q4_moved)
     print(f"[kernel] q4_matmul f32 {QB}x{QM}x{QK}x{QN} g32 (lossy ag_matmul "
           f"chunk): max|err| {q4_err:.3g}  kernel {q4_ms:.3f} ms "
           f"({q4_flops / q4_ms / 1e9:.1f} TFLOP/s)  plain {q4_plain_ms:.3f} "
-          f"ms  bound {q4_bound_ms:.3f} ms ({q4_bound_by}; "
-          f"{q4_flops:.3g} FLOP, {q4_moved / 1e9:.3f} GB)  library: none "
+          f"ms  {bounds_text(q4_bounds)} ({q4_flops:.3g} FLOP, "
+          f"{q4_moved / 1e9:.3f} GB)  library: none "
           f"computes this function (for orientation only, a different "
           f"function: torch.matmul on the pre-dequantized dense weight "
           f"{dense_ms:.3f} ms)")
@@ -547,16 +593,14 @@ def main() -> int:
     del qs, ks, vs
     flash_flops = attn_flops(FB, FT, FT, FH, FD, causal=True, window=None)
     flash_moved = 4 * (2 * q.numel() + 2 * k.numel())   # q, k, v read, o
-    flash_bound_ms, flash_bound_by = bound(flash_flops, flash_moved,
-                                           FP32_FMA)
+    flash_bounds = f32_bounds(flash_flops, flash_moved)
     print(f"[kernel] flash_attention f32 B{FB} H{FH} KV{FKV} T{FT} hd{FD} "
           f"causal (one layer's prefill, 8 slots at the 2048 bucket): "
           f"max|err| {flash_err:.3g}  kernel {flash_ms:.3f} ms "
           f"({flash_flops / flash_ms / 1e9:.1f} TFLOP/s)  plain "
           f"{flash_plain_ms:.3f} ms  scaled_dot_product_attention "
-          f"{flash_lib_ms:.3f} ms  bound {flash_bound_ms:.3f} ms "
-          f"({flash_bound_by}; {flash_flops:.4g} FLOP, "
-          f"{flash_moved / 1e9:.3f} GB)")
+          f"{flash_lib_ms:.3f} ms  {bounds_text(flash_bounds)} "
+          f"({flash_flops:.4g} FLOP, {flash_moved / 1e9:.3f} GB)")
     del q, k, v
     # recurrentgemma-9b's local layer: 16 heads, 1 kv head x 256, window
     # 2048, at the hybrid serving run's largest prefill group (4 x 3071)
@@ -575,16 +619,25 @@ def main() -> int:
                                                layout="bthd"), 5)
     h_plain_ms = cuda_ms(lambda: kflash.flash_attention_plain(
         q, k, v, window=HW, layout="bthd"), 2)
+    # the library yardstick (timed only): SDPA with the causal band of the
+    # window as a boolean mask, GQA over the one kv head
+    qpos = torch.arange(HT, device=dev)
+    band = (qpos[None, :] <= qpos[:, None]) \
+        & (qpos[:, None] - qpos[None, :] < HW)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    h_lib_ms = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=band,
+                                    enable_gqa=True), 3)
+    del qs, ks, vs, band
     # the (q, k) pairs this causal window needs: min(q + 1, W) per row
     pairs = HB * (HW * (HW + 1) // 2 + (HT - HW) * HW)
     h_flops = 4.0 * pairs * HH * HD
-    h_bound_ms, h_bound_by = bound(h_flops, 4 * (2 * q.numel()
-                                                 + 2 * k.numel()), FP32_FMA)
+    h_bounds = f32_bounds(h_flops, 4 * (2 * q.numel() + 2 * k.numel()))
     print(f"[kernel] flash_attention f32 B{HB} H{HH} KV1 T{HT} hd{HD} "
           f"window {HW} (recurrentgemma-9b's local layer, {HB} slots at {HT}): "
           f"max|err| {err:.3g}  kernel {h_ms:.3f} ms "
           f"({h_flops / h_ms / 1e9:.1f} TFLOP/s)  plain {h_plain_ms:.3f} ms"
-          f"  bound {h_bound_ms:.3f} ms ({h_bound_by}; {h_flops:.4g} FLOP)")
+          f"  scaled_dot_product_attention (band mask) {h_lib_ms:.3f} ms  "
+          f"{bounds_text(h_bounds)} ({h_flops:.4g} FLOP)")
     del q, k, v
 
     # lru_scan against its plain version: tests/test_kernels.py's shapes,
@@ -628,7 +681,7 @@ def main() -> int:
                "cumsum_ms": cuda_ms(lambda: torch.cumsum(x, 1), 20)}
         moved = 3.0 * B * T * C * 4          # a, x read once, h written
         row["bound_ms"], row["bound_by"] = bound(2.0 * B * T * C, moved,
-                                                 FP32_FMA)
+                                                 "fma")
         print(f"[kernel] lru_scan f32 ({B}, {T}, {C}): max|err| {err:.3g}  "
               f"kernel {row['ms']:.3f} ms ({moved / row['ms'] / 1e6:.1f} "
               f"GB/s)  plain {row['plain_ms']:.3f} ms  bound "
@@ -985,20 +1038,18 @@ def main() -> int:
         "source": "src/repro_torch/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:33",
         "launches": launches["matmul"], "max_abs_err": main_err, "ms": k_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms}, {
+        "plain_ms": plain_ms, **mm_bounds, "library_ms": lib_ms}, {
         "name": "q4_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/q4_matmul.cu",
         "replaces": "src/repro/kernels/quant.py:53",
         "launches": launches["q4_matmul"], "max_abs_err": q4_err,
-        "ms": q4_ms, "plain_ms": q4_plain_ms, "bound_ms": q4_bound_ms,
-        "bound_by": q4_bound_by, "library_ms": None}, {
+        "ms": q4_ms, "plain_ms": q4_plain_ms, **q4_bounds,
+        "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:71",
         "launches": launches["flash_attention"], "max_abs_err": flash_err,
-        "ms": flash_ms, "plain_ms": flash_plain_ms,
-        "bound_ms": flash_bound_ms, "bound_by": flash_bound_by,
+        "ms": flash_ms, "plain_ms": flash_plain_ms, **flash_bounds,
         "library_ms": flash_lib_ms}, {
         "name": "lru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/lru_scan.cu",
@@ -1006,7 +1057,7 @@ def main() -> int:
         "launches": launches["lru_scan"], "max_abs_err": lru_top["err"],
         "ms": lru_top["ms"], "plain_ms": lru_top["plain_ms"],
         "bound_ms": lru_top["bound_ms"], "bound_by": lru_top["bound_by"],
-        "library_ms": None}]}))
+        "bound_fma_ms": lru_top["bound_ms"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-// Causal / sliding-window flash attention for Hopper (sm_90a), GQA-native:
+// Causal / sliding-window flash attention on Hopper's tensor cores (sm_90a),
+// GQA-native:
 //   O[b, h] = softmax(scale * Q[b, h] K[b, h / group]^T + mask) V[b, h / group]
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
@@ -14,30 +15,44 @@
 //
 // On the TPU the kv axis was a fori_loop inside one grid step, with o/m/l
 // as its carry.  Here one CTA owns one (b, h, 64-row q tile) for its whole
-// life and walks the kv tiles in a loop: the q tile (pre-scaled, widened to
-// fp32) stays in shared memory, each kv tile's K (transposed) and V are
-// staged in shared memory, and m, l and the o accumulator live in
-// registers.  256 threads as 16 x 16: thread (ty, tx) owns q rows
-// ty*4..ty*4+3 of both the score tile and the output tile, so the softmax
-// rescale is thread-local; a row's max and sum are reduced over the 16
-// lanes of its half-warp with shuffles.  The causal limit stops the loop at
+// life and walks the kv tiles in a loop; each warp owns 16 q rows (at hd
+// 256 a pair of warps does, each taking half of hd: 8 warps, half the
+// registers).  The q tile (pre-scaled) stays in shared memory; K and V
+// tiles stream through a 2-stage cp.async ring, the copy of tile i + 1
+// overlapping the math of tile i, with one barrier per tile.  S = Q K^T
+// and O += P V run as 3xTF32 m16n8k8 tensor-core products (tf32x3.cuh),
+// fragments split into big / small in registers as they are read; a warp
+// pair adds its two halves of S through shared memory.  The online softmax
+// (m, l, the rescale of O) stays in fp32 registers in the accumulator
+// layout; a row's max and sum reduce over the 4 lanes of its quad with
+// shuffles.  The score accumulator is P's A fragment as it stands (keys
+// 2t, 2t + 1 in the k slots), so P never touches shared memory.  Each
+// tile's P V is summed from zero and folded into O with one fma (o = alpha
+// o + P V), so the tensor cores, which truncate as they accumulate, never
+// sum more than one tile.  Masks are applied only on tiles that cross Tkv,
+// the causal limit or the window edge.  The causal limit stops the loop at
 // the kv tile holding the tile's last q position, and a window skips the
 // leading tiles wholly before it (exp(-1e30 - m) = 0 exactly, so a skipped
 // tile would have added nothing).  Heavy (late) q tiles are scheduled
 // first.
 //
-// What bounds it: at the main path's shape (8 x 16 heads x 2048 tokens,
-// hd 128, causal, f32) the work is ~1.4e11 FLOP (attn_flops) against
-// ~0.13 GB of q, k, v and o, so the card's fp32 FMA rate is the bound.
-// Arithmetic is IEEE fp32 FMA (fmaf) and expf (no fast math, no TF32);
-// bf16 operands are widened to fp32 as they are staged.
+// What bounds it: at the main path's shapes (qwen3: 8 x 16 heads x 2048
+// tokens, hd 128, causal; recurrentgemma: 4 x 16 heads x 3071, hd 256,
+// window 2048; f32) the work is 1.4e11 / 2.7e11 FLOP (attn_flops) against
+// 0.40 / 0.43 GB of q, k, v and o, so arithmetic bounds it: 3 x FLOP at the
+// card's 495 TFLOP/s TF32 rate (0.83 / 1.66 ms), against FLOP at 67 TFLOP/s
+// for the fp32 FMA loop (2.05 / 4.10 ms).  Exponentials are expf (no fast
+// math).  bf16 operands are widened to fp32 as they are staged and take
+// the one big.big product.
 //
-// What the simple design gives up: no tensor cores (wgmma / mma.sync), no
-// TMA or cp.async double buffering (a kv tile's loads do not overlap the
-// previous tile's math), three barriers per kv tile, one CTA per 64 q rows
-// (hd 256 keeps 140 KB of shared memory, one CTA per SM).  Tile sizes:
-// 64 q rows; 64 kv rows for hd <= 64, 32 for hd 128 and 256 (so hd 128
-// fits three CTAs per SM).
+// Sizes: 64 kv rows per tile for hd <= 64, 32 for hd 128 and 256; row
+// strides hd + 8 (Q, K) and hd + 4 (V) floats keep the fragment reads free
+// of bank conflicts.  Shared memory: 101 KB at hd 128 (4 warps, two CTAs
+// per SM), 213 KB at hd 256 (8 warps, one CTA).
+//
+// What it still gives up: wgmma and TMA with a producer warp (warp
+// specialisation), K / V split once per CTA instead of once per warp, a
+// 128-row q tile, and a backward kernel.
 //
 // Operands are (B, H, T, hd) views with element strides for b, h and t and
 // a unit stride along hd, so the model's (B, T, H, hd) tensors run without
@@ -46,26 +61,32 @@
 // stores).  Plain C entry points (no PyTorch headers) keep the build to one
 // nvcc call; each returns the launch's CUDA error code.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32x3.cuh"
 
 namespace {
 
+using namespace tf32x3;
+
 constexpr int BQ = 64;
-constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;
 
 template <int HD>
 struct Tile {
   static constexpr int BKV = HD >= 128 ? 32 : 64;
-  static constexpr int CS = BKV / 16;              // score cols per thread
-  static constexpr int CO = HD / 16;               // output cols per thread
-  static constexpr int VW = CO < 4 ? CO : 4;       // vector width along hd
-  static constexpr int NG = CO / VW;               // vector groups along hd
-  static constexpr int PS = BKV + 4;               // P row stride (floats)
+  // warps along hd: at hd 256 a pair of warps shares 16 q rows, each
+  // taking half of hd (half of o and of the q.k sums)
+  static constexpr int WN = HD >= 256 ? 2 : 1;
+  static constexpr int THREADS = 128 * WN;
+  static constexpr int SQK = HD + 8;  // Q, K row stride (floats): float2
+                                      // fragment reads conflict-free
+  static constexpr int SV = HD + 4;   // V row stride: column reads
+                                      // conflict-free
+  static constexpr int STAGE_FLOATS = BKV * (SQK + SV);  // one K + V tile
+  // partial scores swapped between the warps of a pair (WN = 2)
+  static constexpr int SX_FLOATS = WN > 1 ? 4 * WN * BKV * 16 : 0;
   static constexpr int SMEM_FLOATS =
-      HD * BQ + HD * BKV + BKV * HD + BQ * PS;     // Qt, Kt, Vs, Ps
+      BQ * SQK + 2 * STAGE_FLOATS + SX_FLOATS;
+  static constexpr int MIN_BLOCKS = WN > 1 ? 1 : 2;
 };
 
 struct Params {
@@ -74,84 +95,28 @@ struct Params {
   long long qs[3], ks[3], vs[3], os[3];            // strides of b, h, t
 };
 
-__device__ __forceinline__ void load4(const float* p, float* x) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* x) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
-
-template <int W>
-__device__ __forceinline__ void lds(const float* p, float* x) {
-  if constexpr (W == 4) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
-  } else if constexpr (W == 2) {
-    const float2 u = *reinterpret_cast<const float2*>(p);
-    x[0] = u.x; x[1] = u.y;
-  } else {
-    x[0] = p[0];
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void sts(float* p, const float* x) {
-  if constexpr (W == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else if constexpr (W == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-  } else {
-    p[0] = x[0];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// max / sum over the 16 lanes that share a q row (one half-warp)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
     flash_fwd(const T* __restrict__ Q, const T* __restrict__ K,
               const T* __restrict__ V, T* __restrict__ O, const Params p) {
   using Tl = Tile<HD>;
-  constexpr int BKV = Tl::BKV, CS = Tl::CS, CO = Tl::CO, VW = Tl::VW,
-                NG = Tl::NG, PS = Tl::PS;
+  constexpr int BKV = Tl::BKV, SQK = Tl::SQK, SV = Tl::SV, WN = Tl::WN;
+  constexpr int THREADS = Tl::THREADS;
+  constexpr int HDW = HD / WN;  // hd columns per warp
+  constexpr int NS = BKV / 8;   // score n-tiles (keys) per warp
+  constexpr int NO = HDW / 8;   // output n-tiles (hd) per warp
+  constexpr int NG = NO < 4 ? NO : 4;  // output n-tiles per P.V pass
+  constexpr bool X3 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;              // [HD][BQ]  q tile, scaled, transposed
-  float* Kt = Qt + HD * BQ;      // [HD][BKV] k tile, transposed
-  float* Vs = Kt + HD * BKV;     // [BKV][HD] v tile
-  float* Ps = Vs + BKV * HD;     // [BQ][PS]  probabilities
+  float* Qs = smem;              // [BQ][SQK] q tile, scaled
+  float* KV = Qs + BQ * SQK;     // 2 stages of K [BKV][SQK] then V [BKV][SV]
+  float* Sx = KV + 2 * Tl::STAGE_FLOATS;  // [warp][NS * 4][32] (WN = 2)
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3;           // the warp's 16 q rows
+  const int d0w = (warp >> 2) * HDW; // ... and its hd columns
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
   const int kvh = h / p.group;
@@ -159,17 +124,22 @@ __global__ void __launch_bounds__(THREADS)
   const T* q = Q + b * p.qs[0] + h * p.qs[1];
   const T* k = K + b * p.ks[0] + kvh * p.ks[1];
   const T* v = V + b * p.vs[0] + kvh * p.vs[1];
-  T* o = O + b * p.os[0] + h * p.os[1];
+  T* o_ptr = O + b * p.os[0] + h * p.os[1];
 
-  // q tile: consecutive threads take consecutive rows (conflict-free
-  // transposed stores)
-  for (int i = tid; i < BQ * HD / 4; i += THREADS) {
-    const int r = i % BQ, d0 = (i / BQ) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < p.Tq) load4(q + (long long)(q0 + r) * p.qs[2] + d0, x);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Qt[(d0 + j) * BQ + r] = x[j] * p.scale;
-  }
+  // kv tile `tile` into ring slot s: rows of 4-element chunks, consecutive
+  // threads along a row (coalesced); rows past Tkv zero-filled
+  auto load_kv = [&](int tile, int s) {
+    float* Ks = KV + s * Tl::STAGE_FLOATS;
+    float* Vs = Ks + BKV * SQK;
+    const int k0 = tile * BKV;
+    for (int i = tid; i < BKV * HD / 4; i += THREADS) {
+      const int r = i / (HD / 4), d0 = (i % (HD / 4)) * 4;
+      const bool ok = k0 + r < p.Tkv;
+      const long long row = ok ? k0 + r : 0;
+      load4(Ks + r * SQK + d0, k + row * p.ks[2] + d0, ok);
+      load4(Vs + r * SV + d0, v + row * p.vs[2] + d0, ok);
+    }
+  };
 
   // kv tiles [lo, hi): the causal limit and the window's leading edge
   const int n_kv = (p.Tkv + BKV - 1) / BKV;
@@ -184,112 +154,181 @@ __global__ void __launch_bounds__(THREADS)
     lo = first <= 0 ? 0 : (int)min((long long)n_kv, first / BKV);
   }
 
-  float m[4], l[4], acc[4][CO];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CO; ++c) acc[i][c] = 0.f;
+  for (int i = tid; i < BQ * HD / 4; i += THREADS) {
+    const int r = i / (HD / 4), d0 = (i % (HD / 4)) * 4;
+    const bool ok = q0 + r < p.Tq;
+    load4(Qs + r * SQK + d0, q + (ok ? q0 + r : 0) * p.qs[2] + d0, ok);
+  }
+  if (lo < hi) load_kv(lo, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  // pre-scale this thread's own q chunks (its copies have landed); the
+  // loop's first barrier publishes them
+  for (int i = tid; i < BQ * HD / 4; i += THREADS) {
+    float4* x = reinterpret_cast<float4*>(Qs + (i / (HD / 4)) * SQK
+                                          + (i % (HD / 4)) * 4);
+    float4 y = *x;
+    y.x *= p.scale; y.y *= p.scale; y.z *= p.scale; y.w *= p.scale;
+    *x = y;
   }
 
-  for (int t = lo; t < hi; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // the previous tile's reads are done (and Qt written)
-    for (int i = tid; i < BKV * HD / 4; i += THREADS) {
-      const int r = i % BKV, d0 = (i / BKV) * 4;
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + r < p.Tkv) load4(k + (long long)(k0 + r) * p.ks[2] + d0, x);
+  // this thread's rows: g and g + 8 of the warp's 16
+  const long long qpos0 = (long long)p.q_offset + q0 + rg * 16 + g;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, o[NO][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Kt[(d0 + j) * BKV + r] = x[j];
-    }
-    for (int i = tid; i < BKV * HD / 4; i += THREADS) {
-      const int r = i / (HD / 4), d0 = (i % (HD / 4)) * 4;
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + r < p.Tkv) load4(v + (long long)(k0 + r) * p.vs[2] + d0, x);
-      sts<4>(&Vs[r * HD + d0], x);
-    }
-    __syncthreads();  // K and V tiles visible
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-    // scores: rows ty*4 + i, cols tx*CS + j
-    float s[4][CS];
+  for (int it = lo; it < hi; ++it) {
+    const int s = (it - lo) & 1;
+    cp_async_wait<0>();  // tile `it` has landed (this thread's part)
+    __syncthreads();     // ... everyone's, and slot s ^ 1 is free
+    if (it + 1 < hi) load_kv(it + 1, s ^ 1);
+    cp_async_commit();
+    const float* Ks = KV + s * Tl::STAGE_FLOATS;
+    const float* Vs = Ks + BKV * SQK;
+    const int k0 = it * BKV;
+
+    // S = (scaled Q) K^T over the warp's hd columns: 16 rows x BKV keys,
+    // from zero each tile
+    float sc[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < CS; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], kb[CS];
-      lds<4>(&Qt[d * BQ + ty * 4], qa);
-      lds<CS>(&Kt[d * BKV + tx * CS], kb);
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kq = 0; kq < HDW; kq += 8) {
+      const int kk = d0w + kq;
+      const float* qp = Qs + (rg * 16 + g) * SQK + kk + 2 * t;
+      const float2 lo2 = *reinterpret_cast<const float2*>(qp);
+      const float2 hi2 = *reinterpret_cast<const float2*>(qp + 8 * SQK);
+      uint32_t ab[4], as[4];
+      split<X3>(lo2.x, ab[0], as[0]);
+      split<X3>(hi2.x, ab[1], as[1]);
+      split<X3>(lo2.y, ab[2], as[2]);
+      split<X3>(hi2.y, ab[3], as[3]);
 #pragma unroll
-        for (int j = 0; j < CS; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+      for (int j = 0; j < NS; ++j) {
+        const float2 kv2 = *reinterpret_cast<const float2*>(
+            Ks + (8 * j + g) * SQK + kk + 2 * t);
+        uint32_t bb[2], bs[2];
+        split<X3>(kv2.x, bb[0], bs[0]);
+        split<X3>(kv2.y, bb[1], bs[1]);
+        mma3<X3>(sc[j], ab, as, bb, bs);
+      }
+    }
+    if constexpr (WN > 1) {
+      // add the pair's other half: both warps then hold the same scores
+      // (the pair's reads finish before the next tile's barrier, so one
+      // buffer serves every tile)
+      float* mine = Sx + warp * NS * 4 * 32 + lane;
+      const float* other = Sx + (warp ^ 4) * NS * 4 * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32] = sc[j][e];
+      asm volatile("bar.sync %0, 64;" ::"r"(1 + rg) : "memory");
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += other[(4 * j + e) * 32];
     }
 
-    // mask + online softmax (fp32 m, l; o rescaled by exp(m_old - m_new))
+    // masks, only on tiles that cross Tkv, the causal limit or the window
+    // (element e of n-tile j: row g + 8 (e >> 1), key k0 + 8 j + 2 t + (e & 1))
+    const bool edge =
+        k0 + BKV > p.Tkv ||
+        (p.causal && (long long)k0 + BKV - 1 > (long long)p.q_offset + q0) ||
+        (p.window > 0 &&
+         (long long)p.q_offset + q0 + BQ - 1 - k0 >= p.window);
+    if (edge) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long qpos = (long long)p.q_offset + q0 + ty * 4 + i;
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long long qpos = qpos0 + 8 * (e >> 1);
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          bool ok = kpos < p.Tkv;
+          if (p.causal) ok = ok && kpos <= qpos;
+          if (p.window > 0) ok = ok && qpos - kpos < p.window;
+          if (!ok) sc[j][e] = NEG;
+        }
+    }
+
+    // online softmax (fp32 m, l; o rescaled by exp(m_old - m_new)); a row's
+    // max and sum reduce over the 4 lanes of its quad
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
       float mx = NEG;
 #pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        const int kpos = k0 + tx * CS + j;
-        bool ok = kpos < p.Tkv;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && qpos - kpos < p.window;
-        s[i][j] = ok ? s[i][j] : NEG;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      for (int j = 0; j < NS; ++j)
+        mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = expf(m[r] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
+      for (int j = 0; j < NS; ++j) {
+        sc[j][2 * r] = expf(sc[j][2 * r] - m_new);
+        sc[j][2 * r + 1] = expf(sc[j][2 * r + 1] - m_new);
+        rs += sc[j][2 * r] + sc[j][2 * r + 1];
       }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CO; ++c) acc[i][c] *= alpha;
-      sts<CS>(&Ps[(ty * 4 + i) * PS + tx * CS], s[i]);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[r] = l[r] * alpha[r] + rs;
+      m[r] = m_new;
     }
-    __syncthreads();  // P tile visible
 
-    // o += P V: rows ty*4 + i, cols g*16*VW + tx*VW + j
-#pragma unroll 2
-    for (int c = 0; c < BKV; c += 4) {
-      float pr[4][4];
+    // o = alpha o + P V over the warp's hd columns: the score accumulator
+    // is P's A fragment (keys 2t, 2t + 1 in k slots k0, k1), split in
+    // registers; each pass sums its NG n-tiles from zero over the tile and
+    // folds them into o with one fma
+    uint32_t pb[NS][4], ps[NS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) lds<4>(&Ps[(ty * 4 + i) * PS + c], pr[i]);
+    for (int j = 0; j < NS; ++j) {
+      split<X3>(sc[j][0], pb[j][0], ps[j][0]);
+      split<X3>(sc[j][2], pb[j][1], ps[j][1]);
+      split<X3>(sc[j][1], pb[j][2], ps[j][2]);
+      split<X3>(sc[j][3], pb[j][3], ps[j][3]);
+    }
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float vv[CO];
+    for (int n0 = 0; n0 < NO; n0 += NG) {
+      float d[NG][4];
 #pragma unroll
-        for (int g = 0; g < NG; ++g)
-          lds<VW>(&Vs[(c + cc) * HD + g * 16 * VW + tx * VW], vv + g * VW);
+      for (int n = 0; n < NG; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
 #pragma unroll
-          for (int n = 0; n < CO; ++n)
-            acc[i][n] = fmaf(pr[i][cc], vv[n], acc[i][n]);
+      for (int j = 0; j < NS; ++j) {
+        const float* vp = Vs + (8 * j + 2 * t) * SV + d0w + 8 * n0 + g;
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          uint32_t bb[2], bs[2];
+          split<X3>(vp[8 * n], bb[0], bs[0]);
+          split<X3>(vp[8 * n + SV], bb[1], bs[1]);
+          mma3<X3>(d[n], pb[j], ps[j], bb, bs);
+        }
       }
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n0 + n][e] = fmaf(o[n0 + n][e], alpha[e >> 1], d[n][e]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= p.Tq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* row = o + (long long)r * p.os[2];
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rg * 16 + g + 8 * r;
+    if (row >= p.Tq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    T* op = o_ptr + (long long)row * p.os[2] + d0w + 2 * t;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int j = 0; j < VW; ++j)
-        row[g * 16 * VW + tx * VW + j] = narrow<T>(acc[i][g * VW + j] / den);
+    for (int n = 0; n < NO; ++n)
+      store2(op + 8 * n, o[n][2 * r] / den, o[n][2 * r + 1] / den);
   }
 }
 
@@ -302,7 +341,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.Tq + BQ - 1) / BQ, B * p.H);
-  flash_fwd<T, HD><<<grid, THREADS, smem, stream>>>(
+  flash_fwd<T, HD><<<grid, Tile<HD>::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), p);
   return static_cast<int>(cudaGetLastError());

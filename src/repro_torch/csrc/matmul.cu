@@ -1,152 +1,308 @@
-// Blocked panel matmul for Hopper (sm_90a): C[z] = A[z] @ B[z].
+// Panel matmul on Hopper's tensor cores (sm_90a): C[z] = A[z] @ B[z].
 //
 // Replaces the TPU kernel src/repro/kernels/matmul.py::matmul_pallas, the
 // SUMMA panel product of the paper's §5.2.1.  On the TPU a sequential k grid
 // axis carried a (block_m, block_n) fp32 accumulator in VMEM scratch and wrote
 // it out on the last k step.  Here blocks run in parallel with no order, so
-// each block owns one 128x128 output tile for its whole life: it walks K in a
-// loop, staging 128x8 tiles of A and 8x128 tiles of B in shared memory, and
-// keeps its accumulator in registers (8x8 per thread, fp32), written once.
+// each block owns one 128x128 output tile for its whole life, walks K in 32-
+// deep tiles and keeps its fp32 accumulators in registers, written once.
 //
-// What bounds it: at the SUMMA panel shape (4096^3 per rank, fp32) the work
-// is 2*4096^3 FLOP against 3*64 MiB of traffic, ~700 FLOP per byte, so the
-// card's fp32 FMA rate is the bound (compute-bound).  f32 inputs run as IEEE
-// fp32 FMA on the CUDA cores — never TF32, whose 10-bit mantissa would break
-// the reference tolerance.  bf16 inputs are widened to fp32 in shared memory
-// and use the same FMA loop; the output is rounded to the input dtype.
+// What bounds it: at the SUMMA panel shape (4096^3 per rank, f32) the work
+// is 2*4096^3 FLOP against 3*64 MiB of traffic, ~700 FLOP per byte, so
+// arithmetic bounds it.  f32 runs as 3xTF32 (tf32x3.cuh): three TF32
+// tensor-core products per fragment, big.big + big.small + small.big, with
+// fp32 accumulators, as accurate as the fp32 FMA loop.  Its least time is
+// 3 x FLOP at the card's 495 TFLOP/s TF32 rate (13.3 ms for a SUMMA round
+// of 16 panels), against FLOP at 67 TFLOP/s for the fp32 FMA loop on the
+// CUDA cores (32.8 ms).  bf16 operands are exact in TF32 and take the one
+// big.big product; the output is rounded once to the input dtype.
 //
-// What the simple design gives up: no tensor cores (wgmma / mma.sync), no TMA
-// or cp.async pipelining (the next tile is prefetched through registers
-// only), scalar global loads, one shared-memory stage, no split-K and no
-// persistent scheduling.  The ragged M/N/K edges are masked in the loads
-// (zero fill) and in the store, so any shape is accepted.
+// Design: warpgroup products (wgmma.mma_async m64n128k8 .tf32), which take
+// their B operand K-major from shared memory and, for TF32, cannot
+// transpose it.  A is K-major already, B is not, so each block computes its
+// tile transposed, C^T = B^T A^T: the A tile is the shared operand and B^T
+// the register operand.  256 threads, two warpgroups of 64 C columns each.
+// Raw A (128 x 32) and B (32 x 128) tiles stream through a 4-stage ring of
+// 16-byte cp.async copies (zero-filled past the ragged M / N / K edges).
+// Once per tile the block splits the raw A tile into big and small tiles
+// (double-buffered) in wgmma's 128-byte swizzle; each warp splits its B^T
+// fragments in registers.  A tile's 12 products (4 k-steps x 3) are issued
+// back to back, with a quarter of the copies of the tile 3 ahead and of the
+// next tile's split after each k-step, so that work runs while the tensor
+// cores do.  The tensor cores truncate as they accumulate, so the 12
+// products sum from zero into a second set of registers, which is added
+// into the fp32 accumulator with IEEE adds once per tile (accumulating all
+// of K in the tensor cores made the product several times less accurate
+// than torch.matmul; chip_smoke.py prints both against a float64 product).
+// One barrier per tile; 197 KB of dynamic shared memory, one block per SM.
+// Rows that do not start 16-byte aligned (K or N not a multiple of 4, or an
+// unaligned base) take a guarded element-wise load into the same ring, as
+// do bf16 operands (widened to f32 through registers).  Stores are guarded.
+//
+// What it still gives up: TMA with mbarriers and a producer warp (warp
+// specialisation), a persistent tile schedule with the epilogue overlapped,
+// thread block clusters sharing tiles, and split-K.
 //
 // Operands are row-major and contiguous per batch entry; blockIdx.z walks an
 // optional leading batch, so one launch covers every rank's panel product of
 // a SUMMA round.  Plain C entry points (no PyTorch headers) keep the build to
-// one nvcc call; each returns cudaGetLastError() after the launch.
+// one nvcc call; each returns the launch's CUDA error code.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 8;
+using namespace tf32x3;
+
+constexpr int BM = 128;      // C rows per block (the wgmma's N)
+constexpr int BN = 128;      // C columns: 2 warpgroups x 64 (the wgmma's M)
+constexpr int BK = 32;       // one 128-byte swizzle row of f32
+constexpr int STAGES = 4;
 constexpr int THREADS = 256;
+constexpr int SB = BN + 8;                   // raw B row stride (floats):
+                                             // fragment reads conflict-free
+constexpr int RAW_A = BM * BK;               // raw A tile, rows of 128 bytes
+constexpr int RAW_FLOATS = RAW_A + BK * SB;  // one ring stage
+constexpr int SPLIT_FLOATS = BM * BK;        // one swizzled 16 KB tile
+// [big 0][small 0][big 1][small 1] (1024-byte aligned) then the ring
+constexpr int SMEM_BYTES =
+    sizeof(float) * (4 * SPLIT_FLOATS + STAGES * RAW_FLOATS) + 1024;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (+)= a b^T for one warpgroup: a 64 x 8 from registers (the m16n8k8 A
+// layout per warp), b 128 x 8 K-major in shared memory; scale_d = 0 starts
+// the sum from zero
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// shared-memory writes made by threads visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// keep the compiler from moving reads of d across the wait
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// elements row[col .. col + 3] that lie below limit, zeros elsewhere
+template <typename T>
+__device__ __forceinline__ void load4_guarded(float* dst, const T* row,
+                                              int col, int limit) {
+  float x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    x[j] = col + j < limit ? widen(row[col + j]) : 0.f;
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
 template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
     panel_matmul(const T* __restrict__ A, const T* __restrict__ B,
                  T* __restrict__ C, int M, int N, int K, long long sa,
-                 long long sb, long long sc) {
-  __shared__ __align__(16) float As[BK][BM];  // A tile, k-major
-  __shared__ __align__(16) float Bs[BK][BN];
+                 long long sb, long long sc, int vec_a, int vec_b) {
+  constexpr bool X3 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* split_buf = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* ring = split_buf + 4 * SPLIT_FLOATS;
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nw = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's columns
   A += blockIdx.z * sa;
   B += blockIdx.z * sb;
   C += blockIdx.z * sc;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
+  const int n_k = (K + BK - 1) / BK;
 
-  // Loads: each thread brings 4 elements of the A tile (one row, 4 k) and
-  // 4 of the B tile (one k, 4 consecutive columns).
-  const int a_row = tid >> 1;
-  const int a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5;
-  const int b_col = (tid & 31) * 4;
+  // quarter i of tile kt into ring slot s: chunk tid + 256 i of A (128 rows
+  // x 8 chunks of 4) and of B (32 rows x 32 chunks), rows read coalesced
+  auto load_part = [&](int kt, int s, int i) {
+    float* As = ring + s * RAW_FLOATS;
+    float* Bs = As + RAW_A;
+    const int k0 = kt * BK;
+    const int q = tid + i * THREADS;
+    {
+      const int r = q >> 3, kc = k0 + (q & 7) * 4;
+      const int gr = row0 + r;
+      float* dst = As + r * BK + (q & 7) * 4;
+      if (vec_a) {
+        const bool ok = gr < M && kc < K;
+        load4(dst, ok ? A + (long long)gr * K + kc : A, ok);
+      } else {
+        load4_guarded(dst, A + (long long)gr * K, kc, gr < M ? K : 0);
+      }
+    }
+    {
+      const int r = q >> 5, nc = col0 + (q & 31) * 4;
+      const int gk = k0 + r;
+      float* dst = Bs + r * SB + (q & 31) * 4;
+      if (vec_b) {
+        const bool ok = gk < K && nc < N;
+        load4(dst, ok ? B + (long long)gk * N + nc : B, ok);
+      } else {
+        load4_guarded(dst, B + (long long)gk * N, nc, gk < K ? N : 0);
+      }
+    }
+  };
 
-  // Compute: thread (ty, tx) owns rows ty*4+{0..3}, 64+ty*4+{0..3} and the
-  // same split of columns, so a quarter warp's float4 reads of a shared row
-  // are one contiguous 128-byte span.
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
+  // quarter i of the raw A tile in slot s -> big / small tiles of split
+  // buffer `buf`, 16-byte chunk c of row r at chunk c ^ (r % 8) (the
+  // 128-byte swizzle)
+  auto split_part = [&](int s, int buf, int i) {
+    const float* raw = ring + s * RAW_FLOATS;
+    float* big = split_buf + buf * 2 * SPLIT_FLOATS;
+    const int q = tid + i * THREADS;
+    const int r = q >> 3, c = q & 7;
+    const float4 x = *reinterpret_cast<const float4*>(raw + r * BK + c * 4);
+    uint4 hb, hs;
+    split<X3>(x.x, hb.x, hs.x);
+    split<X3>(x.y, hb.y, hs.y);
+    split<X3>(x.z, hb.z, hs.z);
+    split<X3>(x.w, hb.w, hs.w);
+    const int off = r * BK + ((c ^ (r & 7)) << 2);
+    *reinterpret_cast<uint4*>(big + off) = hb;
+    if constexpr (X3)
+      *reinterpret_cast<uint4*>(big + SPLIT_FLOATS + off) = hs;
+  };
 
-  float acc[8][8];
+  float acc[64], d[64];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
+
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float ra[4], rb[4];
-  const int ar = row0 + a_row;
-  const int bc = col0 + b_col;
-
-#define LOAD_TILES(k0)                                                   \
-  _Pragma("unroll") for (int i = 0; i < 4; ++i) {                        \
-    const int ka = (k0) + a_k + i;                                       \
-    ra[i] = (ar < M && ka < K) ? widen(A[(long long)ar * K + ka]) : 0.f; \
-    const int kb = (k0) + b_k;                                           \
-    rb[i] = (kb < K && bc + i < N) ? widen(B[(long long)kb * N + bc + i])\
-                                   : 0.f;                                \
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_part(s, s, i);
+    cp_async_commit();
   }
-
-  LOAD_TILES(0)
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  cp_async_wait<STAGES - 2>();  // tile 0 has landed (this thread's part)
+  __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) As[a_k + i][a_row] = ra[i];
-    *reinterpret_cast<float4*>(&Bs[b_k][b_col]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
+  for (int i = 0; i < 4; ++i) split_part(0, 0, i);
+  fence_proxy_async();
+  cp_async_wait<STAGES - 3>();  // tile 1 too
+  __syncthreads();
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    // B^T fragments of the tile's 4 k-steps (the m16n8k8 A layout:
+    // B[k0 + 8 s + t (+4)][nw + g (+8)])
+    uint32_t fb[4][4], fs[4][4];
+    const float* Bs = ring + (kt % STAGES) * RAW_FLOATS + RAW_A;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float* p = Bs + (8 * s + t) * SB + nw + g;
+      split<X3>(p[0], fb[s][0], fs[s][0]);
+      split<X3>(p[8], fb[s][1], fs[s][1]);
+      split<X3>(p[4 * SB], fb[s][2], fs[s][2]);
+      split<X3>(p[4 * SB + 8], fb[s][3], fs[s][3]);
+    }
+    const uint32_t base = static_cast<uint32_t>(
+        __cvta_generic_to_shared(split_buf + (kt & 1) * 2 * SPLIT_FLOATS));
+    const bool more = kt + STAGES - 1 < n_k, next = kt + 1 < n_k;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t db = desc_sw128(base + 32 * s);
+      if constexpr (X3) {
+        const uint64_t ds = desc_sw128(base + 4 * SPLIT_FLOATS + 32 * s);
+        wgmma_tf32(d, fs[s], db, s > 0);
+        wgmma_tf32(d, fb[s], ds, 1);
+        wgmma_tf32(d, fb[s], db, 1);
+      } else {
+        wgmma_tf32(d, fb[s], db, s > 0);
+      }
+      // slot (kt - 1) % STAGES is free: its B was read before the last
+      // barrier and its A split the tile before; split buffer (kt + 1) & 1
+      // was last read by tile kt - 1's products, waited for before it
+      if (more) load_part(kt + STAGES - 1, (kt + STAGES - 1) % STAGES, s);
+      if (next) split_part((kt + 1) % STAGES, (kt + 1) & 1, s);
+    }
+    wgmma_commit();
+    cp_async_commit();
+    if (next) fence_proxy_async();
+    wgmma_wait_all();
+    pin(d);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += d[i];
+    cp_async_wait<STAGES - 3>();  // tile kt + 2 has landed
     __syncthreads();
-    if (k0 + BK < K) {
-      LOAD_TILES(k0 + BK)  // next tile's loads overlap this tile's FMAs
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
   }
-#undef LOAD_TILES
+  cp_async_wait<0>();
 
+  // acc holds C^T: element 4 j + e is C[8 j + 2 t + (e & 1)][nw + g +
+  // 8 (e >> 1)] of the tile
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (r >= M) continue;
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (c < N) C[(long long)r * N + c] = narrow<T>(acc[i][j]);
+    for (int e = 0; e < 4; ++e) {
+      const int m = row0 + 8 * j + 2 * t + (e & 1);
+      const int n = col0 + nw + g + 8 * (e >> 1);
+      if (m < M && n < N) C[(long long)m * N + n] = narrow<T>(acc[4 * j + e]);
     }
-  }
 }
 
 template <typename T>
 int launch(const void* a, const void* b, void* c, int batch, int M, int N,
            int K, long long sa, long long sb, long long sc, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_matmul<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a row of 4 elements is one 16-byte (f32) / 8-byte (bf16) copy when every
+  // row start is aligned to it
+  constexpr unsigned UNIT = 4 * sizeof(T);
+  const int vec_a = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % UNIT == 0;
+  const int vec_b = N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % UNIT == 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  panel_matmul<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  panel_matmul<T><<<grid, THREADS, SMEM_BYTES,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      M, N, K, sa, sb, sc);
+      M, N, K, sa, sb, sc, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 

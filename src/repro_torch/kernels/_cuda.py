@@ -2,8 +2,9 @@
 
 Each kernel is a ``csrc/<name>.cu`` file with a plain C interface.  At first
 use ``nvcc`` builds it for ``sm_90a`` into a shared library under ``_build/``
-beside the package, named by the source's stem and content hash (an edited
-source builds anew; an up-to-date build is reused), and ``ctypes`` loads it.
+beside the package, named by the source's stem and a hash of its bytes and
+of every ``csrc/*.cuh`` header it may include (an edited source or header
+builds anew; an up-to-date build is reused), and ``ctypes`` loads it.
 The kernel modules set their own entry points' ``argtypes``.
 ``build_all`` starts one ``nvcc`` per source at once.
 """
@@ -51,12 +52,21 @@ def _nvcc() -> str:
                        f"the kernels in {CSRC}")
 
 
+def tag(source: str) -> str:
+    """The build's name: a hash of ``csrc/<source>`` and of every
+    ``csrc/*.cuh`` header (name and bytes)."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def library(source: str) -> Library:
-    """Build ``csrc/<source>`` (once per source hash) and load it."""
+    """Build ``csrc/<source>`` (once per hash of it and the headers) and
+    load it."""
     src = CSRC / source
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{src.stem}-{tag}.so"
+    so = BUILD_DIR / f"lib{src.stem}-{tag(source)}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

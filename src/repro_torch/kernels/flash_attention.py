@@ -6,8 +6,9 @@ sliding-window online-softmax attention with fp32 running max, sum and
 output, ``q_offset``, GQA through kv head ``h // (H // KV)`` read in place,
 scores masked to -1e30 and the output ``o / max(l, 1e-30)`` in q's dtype.
 It is CUDA C++ for ``sm_90a`` with a plain C interface, built at first use
-by ``kernels._cuda`` and loaded with ``ctypes``; the source's header note
-says what bounds it and what the simple design gives up.
+by ``kernels._cuda`` and loaded with ``ctypes``: its two products run on the
+tensor cores (``mma.sync``) in 3xTF32 for f32.  The source's header note
+says what bounds it and what the design gives up.
 
 Layouts: ``layout="bhtd"`` takes q (B, H, Tq, hd) and k, v (B, KV, Tkv, hd)
 — the TPU kernel's layout — and returns (B, H, Tq, hd); ``layout="bthd"``

@@ -3,8 +3,9 @@
 The kernel (``csrc/matmul.cu``) replaces the TPU kernel
 ``src/repro/kernels/matmul.py::matmul_pallas``, the SUMMA per-panel product.
 It is CUDA C++ for ``sm_90a`` with a plain C interface, built at first use by
-``kernels._cuda`` and loaded with ``ctypes``.  The source's header note says
-what bounds it and what the simple design gives up.
+``kernels._cuda`` and loaded with ``ctypes``: warpgroup tensor-core products
+(``wgmma``) in 3xTF32 for f32, as accurate as an fp32 FMA loop.  The
+source's header note says what bounds it and what the design gives up.
 
 ``matmul_cuda`` is the wrapper: it checks device, dtype, shape and
 contiguity, raises on anything else, launches on the current stream and

@@ -1,4 +1,6 @@
-"""Plain PyTorch oracles for every kernel (the allclose ground truth)."""
+"""Plain PyTorch oracles for every kernel (the allclose ground truth), and
+CPU emulations of the kernels' 3xTF32 arithmetic (test aids, never on a
+main path)."""
 
 from __future__ import annotations
 
@@ -45,3 +47,54 @@ def lru_scan_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         h = af[:, t] * h + xf[:, t]
         out[:, t] = h
     return out.to(x.dtype)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as the kernels carry it on the tensor cores, two f32 tensors
+    ``(big, small)``: big = tf32(x), rounded to nearest (ties away) on the
+    10-bit mantissa through an int32 view, the bits of cvt.rna.tf32.f32;
+    small = x - big as the tensor core reads it, truncated to TF32."""
+    xf = x.float()
+    big = ((xf.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    small = ((xf - big).view(torch.int32) & -0x2000).view(torch.float32)
+    return big, small
+
+
+def matmul_tf32x3_emulated(a: torch.Tensor, b: torch.Tensor, *,
+                           products: int = 3) -> torch.Tensor:
+    """``a @ b`` as the kernels compute it: 3xTF32, a_small b_big +
+    a_big b_small + a_big b_big (each product of two TF32 values exact in
+    f32, the sums in f32), or with ``products=1`` the one big.big product
+    (plain TF32).  Output in ``a.dtype``."""
+    (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
+    out = ab @ bb
+    if products == 3:
+        out = (as_ @ bb + ab @ bs) + out
+    elif products != 1:
+        raise ValueError(f"products is 1 or 3, got {products}")
+    return out.to(a.dtype)
+
+
+def attention_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              q_offset: int = 0) -> torch.Tensor:
+    """The flash kernel's plain version (q (B, H, Tq, hd), k and v (B, KV,
+    Tkv, hd), pre-scaled q, -1e30 masks, fp32 softmax) with its two
+    products, q.k and p.v, as emulated 3xTF32."""
+    B, H, Tq, hd = q.shape
+    KV, Tkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, Tq, hd) * (1.0 / math.sqrt(hd))
+    s = matmul_tf32x3_emulated(qf, k.float()[:, :, None].transpose(-1, -2))
+    qpos = q_offset + torch.arange(Tq, device=q.device)
+    kpos = torch.arange(Tkv, device=q.device)
+    mask = torch.ones((Tq, Tkv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = matmul_tf32x3_emulated(p, v.float()[:, :, None])
+    o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(B, H, Tq, hd).to(q.dtype)
