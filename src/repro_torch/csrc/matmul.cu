@@ -23,7 +23,9 @@
 // tile transposed, C^T = B^T A^T: the A tile is the shared operand and B^T
 // the register operand.  256 threads, two warpgroups of 64 C columns each.
 // Raw A (128 x 32) and B (32 x 128) tiles stream through a 4-stage ring of
-// 16-byte cp.async copies (zero-filled past the ragged M / N / K edges).
+// cp.async copies, 16 bytes of f32 or 8 of bf16 (zero-filled past the
+// ragged M / N / K edges); bf16 stays bf16 in the ring and is widened where
+// it is split.
 // Once per tile the block splits the raw A tile into big and small tiles
 // (double-buffered) in wgmma's 128-byte swizzle; each warp splits its B^T
 // fragments in registers.  A tile's 12 products (4 k-steps x 3) are issued
@@ -36,8 +38,8 @@
 // than torch.matmul; chip_smoke.py prints both against a float64 product).
 // One barrier per tile; 197 KB of dynamic shared memory, one block per SM.
 // Rows that do not start 16-byte aligned (K or N not a multiple of 4, or an
-// unaligned base) take a guarded element-wise load into the same ring, as
-// do bf16 operands (widened to f32 through registers).  Stores are guarded.
+// unaligned base) take a guarded element-wise load into the same ring.
+// Stores are guarded.
 //
 // What it still gives up: TMA with mbarriers and a producer warp (warp
 // specialisation), a persistent tile schedule with the epilogue overlapped,
@@ -62,7 +64,8 @@ constexpr int THREADS = 256;
 constexpr int SB = BN + 8;                   // raw B row stride (floats):
                                              // fragment reads conflict-free
 constexpr int RAW_A = BM * BK;               // raw A tile, rows of 128 bytes
-constexpr int RAW_FLOATS = RAW_A + BK * SB;  // one ring stage
+constexpr int RAW_FLOATS = RAW_A + BK * SB;  // one ring stage (bf16
+                                             // fills half)
 constexpr int SPLIT_FLOATS = BM * BK;        // one swizzled 16 KB tile
 // [big 0][small 0][big 1][small 1] (1024-byte aligned) then the ring
 constexpr int SMEM_BYTES =
@@ -125,15 +128,52 @@ __device__ __forceinline__ void pin(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// elements row[col .. col + 3] that lie below limit, zeros elsewhere
+// four consecutive elements (aligned to their size) into the ring as they
+// are, zeros when !ok
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void copy4(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, bool ok) {
+  cp_async8(dst, src, ok);
+}
+
+// elements row[col .. col + 3] that lie below limit, zeros elsewhere, in
+// one 16-byte (f32) / 8-byte (bf16) store
 template <typename T>
-__device__ __forceinline__ void load4_guarded(float* dst, const T* row,
-                                              int col, int limit) {
-  float x[4];
+__device__ __forceinline__ void load4_guarded(T* dst, const T* row, int col,
+                                              int limit) {
+  struct alignas(4 * sizeof(T)) Four {
+    T x[4];
+  } v;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    x[j] = col + j < limit ? widen(row[col + j]) : 0.f;
-  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+    v.x[j] = col + j < limit ? row[col + j] : narrow<T>(0.f);
+  *reinterpret_cast<Four*>(dst) = v;
+}
+
+// four staged elements, widened to f32
+__device__ __forceinline__ float4 read4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 read4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// split<X3>, except that a widened bf16 value (X3 = false) is exact in TF32,
+// so its bits are big as they are
+template <bool X3>
+__device__ __forceinline__ void split_exact(float x, uint32_t& big,
+                                            uint32_t& small) {
+  if constexpr (X3)
+    split<true>(x, big, small);
+  else
+    big = __float_as_uint(x);
 }
 
 template <typename T>
@@ -161,17 +201,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   // quarter i of tile kt into ring slot s: chunk tid + 256 i of A (128 rows
   // x 8 chunks of 4) and of B (32 rows x 32 chunks), rows read coalesced
   auto load_part = [&](int kt, int s, int i) {
-    float* As = ring + s * RAW_FLOATS;
-    float* Bs = As + RAW_A;
+    T* As = reinterpret_cast<T*>(ring + s * RAW_FLOATS);
+    T* Bs = As + RAW_A;
     const int k0 = kt * BK;
     const int q = tid + i * THREADS;
     {
       const int r = q >> 3, kc = k0 + (q & 7) * 4;
       const int gr = row0 + r;
-      float* dst = As + r * BK + (q & 7) * 4;
+      T* dst = As + r * BK + (q & 7) * 4;
       if (vec_a) {
         const bool ok = gr < M && kc < K;
-        load4(dst, ok ? A + (long long)gr * K + kc : A, ok);
+        copy4(dst, ok ? A + (long long)gr * K + kc : A, ok);
       } else {
         load4_guarded(dst, A + (long long)gr * K, kc, gr < M ? K : 0);
       }
@@ -179,10 +219,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     {
       const int r = q >> 5, nc = col0 + (q & 31) * 4;
       const int gk = k0 + r;
-      float* dst = Bs + r * SB + (q & 31) * 4;
+      T* dst = Bs + r * SB + (q & 31) * 4;
       if (vec_b) {
         const bool ok = gk < K && nc < N;
-        load4(dst, ok ? B + (long long)gk * N + nc : B, ok);
+        copy4(dst, ok ? B + (long long)gk * N + nc : B, ok);
       } else {
         load4_guarded(dst, B + (long long)gk * N, nc, gk < K ? N : 0);
       }
@@ -193,16 +233,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   // buffer `buf`, 16-byte chunk c of row r at chunk c ^ (r % 8) (the
   // 128-byte swizzle)
   auto split_part = [&](int s, int buf, int i) {
-    const float* raw = ring + s * RAW_FLOATS;
+    const T* raw = reinterpret_cast<const T*>(ring + s * RAW_FLOATS);
     float* big = split_buf + buf * 2 * SPLIT_FLOATS;
     const int q = tid + i * THREADS;
     const int r = q >> 3, c = q & 7;
-    const float4 x = *reinterpret_cast<const float4*>(raw + r * BK + c * 4);
+    const float4 x = read4(raw + r * BK + c * 4);
     uint4 hb, hs;
-    split<X3>(x.x, hb.x, hs.x);
-    split<X3>(x.y, hb.y, hs.y);
-    split<X3>(x.z, hb.z, hs.z);
-    split<X3>(x.w, hb.w, hs.w);
+    split_exact<X3>(x.x, hb.x, hs.x);
+    split_exact<X3>(x.y, hb.y, hs.y);
+    split_exact<X3>(x.z, hb.z, hs.z);
+    split_exact<X3>(x.w, hb.w, hs.w);
     const int off = r * BK + ((c ^ (r & 7)) << 2);
     *reinterpret_cast<uint4*>(big + off) = hb;
     if constexpr (X3)
@@ -232,14 +272,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     // B^T fragments of the tile's 4 k-steps (the m16n8k8 A layout:
     // B[k0 + 8 s + t (+4)][nw + g (+8)])
     uint32_t fb[4][4], fs[4][4];
-    const float* Bs = ring + (kt % STAGES) * RAW_FLOATS + RAW_A;
+    const T* Bs =
+        reinterpret_cast<const T*>(ring + (kt % STAGES) * RAW_FLOATS) + RAW_A;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const float* p = Bs + (8 * s + t) * SB + nw + g;
-      split<X3>(p[0], fb[s][0], fs[s][0]);
-      split<X3>(p[8], fb[s][1], fs[s][1]);
-      split<X3>(p[4 * SB], fb[s][2], fs[s][2]);
-      split<X3>(p[4 * SB + 8], fb[s][3], fs[s][3]);
+      const T* p = Bs + (8 * s + t) * SB + nw + g;
+      split_exact<X3>(widen(p[0]), fb[s][0], fs[s][0]);
+      split_exact<X3>(widen(p[8]), fb[s][1], fs[s][1]);
+      split_exact<X3>(widen(p[4 * SB]), fb[s][2], fs[s][2]);
+      split_exact<X3>(widen(p[4 * SB + 8]), fb[s][3], fs[s][3]);
     }
     const uint32_t base = static_cast<uint32_t>(
         __cvta_generic_to_shared(split_buf + (kt & 1) * 2 * SPLIT_FLOATS));
@@ -293,8 +334,8 @@ int launch(const void* a, const void* b, void* c, int batch, int M, int N,
       panel_matmul<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // a row of 4 elements is one 16-byte (f32) / 8-byte (bf16) copy when every
-  // row start is aligned to it
+  // a row's 4 elements are one 16-byte (f32) / 8-byte (bf16) cp.async when
+  // every row start is aligned to it
   constexpr unsigned UNIT = 4 * sizeof(T);
   const int vec_a = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % UNIT == 0;
   const int vec_b = N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % UNIT == 0;

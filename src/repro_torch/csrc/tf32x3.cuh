@@ -12,8 +12,9 @@
 // product, is dropped): about as accurate as the IEEE fp32 FMA loop, at
 // 3/495 TFLOP/s per FLOP instead of 1/67.  A NaN in x reaches the result
 // through small (x - big is NaN whatever big is).  A bf16 value is exact
-// in TF32, so a bf16 operand takes the one big.big product (X3 = false),
-// with big from cvt.rna.
+// in TF32, so a bf16 operand takes the one big.big product (X3 = false):
+// the matmul passes a widened bf16 value's bits through as big, flash
+// attention takes big from cvt.rna (its P is an f32 softmax value).
 //
 // The tensor cores add each product into the fp32 accumulator with
 // truncation, not rounding to nearest, which biases a long sum toward zero
@@ -94,6 +95,16 @@ __device__ __forceinline__ void cp_async16(float* dst, const void* src,
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 8-byte global -> shared copy (through L1: .cg takes only 16 bytes), with
+// the same zero fill
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0)
                : "memory");
 }
 

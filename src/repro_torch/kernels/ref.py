@@ -60,19 +60,12 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return big, small
 
 
-def matmul_tf32x3_emulated(a: torch.Tensor, b: torch.Tensor, *,
-                           products: int = 3) -> torch.Tensor:
+def matmul_tf32x3_emulated(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` as the kernels compute it: 3xTF32, a_small b_big +
     a_big b_small + a_big b_big (each product of two TF32 values exact in
-    f32, the sums in f32), or with ``products=1`` the one big.big product
-    (plain TF32).  Output in ``a.dtype``."""
+    f32, the sums in f32).  Output in ``a.dtype``."""
     (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
-    out = ab @ bb
-    if products == 3:
-        out = (as_ @ bb + ab @ bs) + out
-    elif products != 1:
-        raise ValueError(f"products is 1 or 3, got {products}")
-    return out.to(a.dtype)
+    return ((as_ @ bb + ab @ bs) + ab @ bb).to(a.dtype)
 
 
 def attention_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor,

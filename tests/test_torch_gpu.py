@@ -192,16 +192,21 @@ def test_q4_kernel_matches_plain_version(cuda, shape, dtype):
 
 def test_q4_kernel_equals_panel_kernel_on_the_dense_weight(cuda):
     """The fused unpack gives the panel-matmul kernel's result on the
-    dequantized weight, within the reference matmul tolerance (the q4
-    kernel sums in fp32 FMA, the panel kernel as 3xTF32 on the tensor
-    cores)."""
+    dequantized weight bit for bit.  The two kernels sum in different
+    orders (fp32 FMA against 3xTF32 on the tensor cores), so the operands
+    make every product and partial sum exact in f32 and in TF32: small
+    integers for ``a``, every int4 code, power-of-two scales.  Both kernels
+    then give the exact product."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    a = torch.randn((2, 200, 320), generator=g, device=cuda)
-    packed, scales = quantize_q4(
-        torch.randn((2, 320, 144), generator=g, device=cuda), group=32)
+    a = torch.randint(-8, 9, (2, 200, 320), generator=g, device=cuda).float()
+    packed = torch.randint(0, 256, (2, 160, 144), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    scales = torch.ldexp(torch.ones((2, 10, 144), device=cuda), torch.randint(
+        -3, 4, (2, 10, 144), generator=g, device=cuda))
+    w = dequantize_q4(packed, scales, group=32)
     got = ops.q4_matmul(a, packed, scales, group=32)
-    dense = ops.matmul(a, dequantize_q4(packed, scales, group=32))
-    torch.testing.assert_close(got, dense, **_tol(torch.float32, 320))
+    assert torch.equal(got, ops.matmul(a, w))
+    assert torch.equal(got, (a.double() @ w.double()).float())
 
 
 def test_q4_kernel_wrapper_checks_its_operands(cuda):

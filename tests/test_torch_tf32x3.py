@@ -48,8 +48,8 @@ def test_tf32x3_product_matches_the_reference_and_float64(M, K, N):
 def test_one_tf32_product_misses_the_float64_gate(M, K, N):
     """Why three products: plain TF32 (big.big) is ~30x outside 1e-5."""
     a, b = _operands(M, K, N)
-    got = ref.matmul_tf32x3_emulated(torch.from_numpy(a), torch.from_numpy(b),
-                                     products=1)
+    got = ref.split_tf32(torch.from_numpy(a))[0] \
+        @ ref.split_tf32(torch.from_numpy(b))[0]
     assert _rel_err(got, a.astype(np.float64) @ b.astype(np.float64)) > 1e-5
 
 
