@@ -19,9 +19,13 @@ Phases (any failed check raises, and the script exits nonzero):
    ``torch.matmul``'s); ``ops.q4_matmul`` — (4, 64, 16), the ragged
    (5, 96, 20), bf16 ``a`` at (96, 256, 224), all group 32, and the lossy
    ``ag_matmul`` chunk's batched shape (8 ranks x 2048 x 7168 x 5120),
-   timed beside the plain version; every timed row prints its bound, and
-   an f32 product row both: 3 x FLOP at the 495 TFLOP/s TF32 tensor-core
-   rate (3xTF32, the least time) and FLOP at the 67 TFLOP/s fp32 FMA rate;
+   timed beside the plain version with its share of the bound; every
+   timed row prints its bound, and an f32 product row both: 3 x FLOP at the
+   495 TFLOP/s TF32 tensor-core rate (3xTF32, the least time) and FLOP at
+   the 67 TFLOP/s fp32 FMA rate; then the non-finite rule (csrc/tf32x3.cuh)
+   for matmul (f32, bf16), q4_matmul and flash attention: infinite, NaN and
+   near-max entries, each kernel against its plain version by class and
+   value, with the tiles it recomputed;
 3. collectives: every primitive over ``default_matrix()`` at 2^20 f32
    elements per rank — values agree across schemes, the traffic record
    prices to each scheme's ``links()``, and the measured resident result
@@ -51,7 +55,8 @@ Phases (any failed check raises, and the script exits nonzero):
    log-probs and every step's last-position logits row; (c) a
    2048-token prefill through the first 2 units on the card (the kernel)
    against the CPU (its plain version), last-token logits within 1e-4
-   relative;
+   relative, then two decode steps from each side's cache, logits within
+   1e-4 relative;
 9. serve: ``recurrentgemma-9b`` at full width and depth (38 layers:
    ``rglru, rglru, local`` x 12 + ``rglru, rglru``, f32, 9.4e9 random
    params drawn on the card from a seed, after phase 8's model is freed) —
@@ -64,7 +69,9 @@ Phases (any failed check raises, and the script exits nonzero):
    ``h`` / ``conv`` state after its last step against the solo run's;
    (c) one pattern unit, a 2304-token
    prefill on the card against the CPU: last-token logits, both ``h``
-   states and the ring k within 1e-4 relative.
+   states and the ring k within 1e-4 relative; then two decode steps from
+   each side's cache: logits and both blocks' ``h`` / ``conv`` within 1e-4
+   relative.
 
 Phase 2 also holds ``ops.flash_attention`` to its plain version (f32 and
 bf16: ``tests/test_kernels.py``'s shapes, windows 16 and 64, non-causal,
@@ -82,7 +89,8 @@ in f32 and bf16, the a = 1 carry against ``cumsum``), timed f32 at phase
 ``torch.cumsum``.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
-then phase 8's and phase 9's serving runs) and read just after.  The line
+then phase 8's and phase 9's serving runs) and read just after; so are the
+non-finite rule's recompute counters, which must read 0 there.  The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -160,6 +168,28 @@ def check_lru(got, want, dtype, what: str) -> float:
         raise AssertionError(f"{what}: {bad} elements outside {tol} "
                              f"(max |err| {err.max().item()})")
     return err.max().item()
+
+
+def check_classes(got, want, bound, tol: float, what: str) -> dict:
+    """The non-finite rule's check: ``got`` non-finite exactly where
+    ``want`` is, with its class (NaN, +inf, -inf); the finite values within
+    ``tol * (1 + bound)``.  Returns the count of each class."""
+    import torch
+    g, w = got.float(), want.float()
+    counts = {}
+    for name, kind in (("nan", torch.isnan), ("+inf", torch.isposinf),
+                       ("-inf", torch.isneginf)):
+        miss = int((kind(g) != kind(w)).sum())
+        if miss:
+            raise AssertionError(f"{what}: {name} differs from the plain "
+                                 f"version at {miss} places")
+        counts[name] = int(kind(w).sum())
+    fin = torch.isfinite(w)
+    bad = int(((g - w).abs() > tol * (1 + bound))[fin].sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} finite values outside "
+                             f"{tol} * (1 + bound)")
+    return counts
 
 
 def rel_err(got, want) -> float:
@@ -391,6 +421,31 @@ def check_streams(model, params, sched, rec, prompts, rids, *,
               f" logits rows rel_err <= {row_err:.2e}, {state}")
 
 
+def decode_both(m_g, m_c, p_g, p_c, cache_g, cache_c, logits_g, pos: int,
+                state: list) -> dict:
+    """Two greedy decode steps on the card (``m_g``) and on the CPU
+    (``m_c``) from their prefill caches, both fed the card's tokens: each
+    step's logits and, after the last, the named unit-0 ``state`` leaves
+    ("b0 h") within 1e-4 relative.  Returns the errors."""
+    import torch
+    errs = {}
+    tok = logits_g[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    for step in range(2):
+        cache_g, lg = m_g.decode_fn(p_g, cache_g, tok, pos + step)
+        cache_c, lc = m_c.decode_fn(p_c, cache_c, tok.cpu(), pos + step)
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"decode step {step}: non-finite logits")
+        errs[f"logits step {step}"] = rel_err(lg, lc)
+        tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    for name in state:
+        blk, leaf = name.split()
+        errs[name] = rel_err(cache_g["units"][blk][leaf][0],
+                             cache_c["units"][blk][leaf][0])
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError(f"card vs CPU decode: {errs}")
+    return errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -542,8 +597,10 @@ def main() -> int:
     q4_bounds = f32_bounds(q4_flops, q4_moved)
     print(f"[kernel] q4_matmul f32 {QB}x{QM}x{QK}x{QN} g32 (lossy ag_matmul "
           f"chunk): max|err| {q4_err:.3g}  kernel {q4_ms:.3f} ms "
-          f"({q4_flops / q4_ms / 1e9:.1f} TFLOP/s)  plain {q4_plain_ms:.3f} "
-          f"ms  {bounds_text(q4_bounds)} ({q4_flops:.3g} FLOP, "
+          f"({q4_flops / q4_ms / 1e9:.1f} TFLOP/s, "
+          f"{q4_bounds['bound_ms'] / q4_ms:.2f} of the bound)  plain "
+          f"{q4_plain_ms:.3f} ms  {bounds_text(q4_bounds)} "
+          f"({q4_flops:.3g} FLOP, "
           f"{q4_moved / 1e9:.3f} GB)  library: none "
           f"computes this function (for orientation only, a different "
           f"function: torch.matmul on the pre-dequantized dense weight "
@@ -645,6 +702,76 @@ def main() -> int:
           f"{bounds_text(h_bounds)} ({h_flops:.4g} FLOP)")
     del q, k, v
 
+    # the non-finite rule (csrc/tf32x3.cuh): infinite, NaN and near-max
+    # entries (the largest f32 rounds to inf in TF32), and an exact column
+    # of 1.0 in the matmul's b; each kernel against its plain version by
+    # class and, where finite, within tol * (1 + a bound on the magnitudes
+    # summed), with the tiles it recomputed
+    special = (float("inf"), float("-inf"), float("nan"),
+               torch.finfo(torch.float32).max, -3.4e38)
+
+    def plant(x, where):
+        for idx, val in zip(where, special):
+            x[idx] = val
+
+    def recomputed(mod, what, tiles):
+        n = mod.recomputes.read()
+        mod.recomputes.reset()
+        if not 0 < n <= tiles:
+            raise AssertionError(f"{what}: {n} tiles recomputed")
+        return f"{n} of {tiles} tiles recomputed"
+
+    for m_ in (kmatmul, kquant, kflash):
+        m_.recomputes.reset()
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn((2, 200, 96), generator=g, device=dev)
+        b = torch.randn((2, 96, 300), generator=g, device=dev)
+        b[..., 0] = 1.0
+        plant(a, [(0, 3 + 40 * i, 5 + i) for i in range(5)])
+        plant(b, [(1, 7 + i, 2 + 60 * i) for i in range(5)])
+        a, b = a.to(dtype), b.to(dtype)
+        what = f"matmul {str(dtype)[6:]} 2x200x96x300"
+        counts = check_classes(ops.matmul(a, b), kmatmul.matmul_plain(a, b),
+                               a.double().abs() @ b.double().abs(),
+                               2e-4 if dtype == torch.float32 else 2e-2,
+                               what)
+        print(f"[nonfinite] {what}, {special} in a and in b: classes as the "
+              f"plain version's {counts}, "
+              + recomputed(kmatmul, what, 2 * 2 * 3))
+    a = torch.randn((2, 160, 128), generator=g, device=dev)
+    packed, scales = quantize_q4(torch.randn((2, 128, 200), generator=g,
+                                             device=dev), group=32)
+    plant(a, [(0, 3 + 30 * i, 5 + i) for i in range(5)])
+    plant(scales, [(1, i % 4, 7 + 40 * i) for i in range(5)])
+    what = "q4_matmul f32 2x160x128x200 g32"
+    w = dequantize_q4(packed, scales, group=32)
+    counts = check_classes(ops.q4_matmul(a, packed, scales, group=32),
+                           kquant.q4_matmul_plain(a, packed, scales, 32),
+                           a.double().abs() @ w.double().abs(), 2e-4, what)
+    print(f"[nonfinite] {what}, {special} in a and in the scales: classes as "
+          f"the plain version's {counts}, "
+          + recomputed(kquant, what, 2 * 2 * 2))
+    for B, H, KV, T, hd, window in ((1, 4, 2, 128, 64, None),
+                                    (1, 8, 1, 200, 256, 16)):
+        q, k, v = (torch.randn((B, n_, T, hd), generator=g, device=dev)
+                   for n_ in (H, KV, KV))
+        q[0, 1, 10, 3], q[0, 2, 70, 5] = special[0], special[3]
+        k[0, 0, 20, 7], k[0, KV - 1, 40, 9] = special[1], special[3]
+        for v_too in (False, True):
+            if v_too:
+                v[0, KV - 1, 50, 11], v[0, 0, 30, 12] = special[0], special[3]
+            vmax = torch.where(torch.isfinite(v), v.abs(), 0).amax(2, True)
+            what = (f"flash_attention f32 B{B} H{H} KV{KV} T{T} hd{hd} "
+                    f"window={window}, specials in q, k"
+                    + (", v" if v_too else ""))
+            counts = check_classes(
+                ops.flash_attention(q, k, v, window=window),
+                kflash.flash_attention_plain(q, k, v, window=window),
+                vmax.repeat_interleave(H // KV, 1), 2e-4, what)
+            print(f"[nonfinite] {what}: classes as the plain version's "
+                  f"{counts}, " + recomputed(kflash, what, B * H * -(-T // 64)))
+    del a, b, packed, scales, w, q, k, v
+
     # lru_scan against its plain version: tests/test_kernels.py's shapes,
     # decays in U(0.5, 0.999) (the RG-LRU regime)
     def lru_inputs(shape, dtype):
@@ -709,6 +836,8 @@ def main() -> int:
     # -- main path: zero the counts, drive phases 3-7, read them -----------------
     kmatmul.launches = 0
     kquant.launches = 0
+    for m_ in (kmatmul, kquant, kflash):    # read after phase 9
+        m_.recomputes.reset()
 
     # -- 3. collectives over the topology matrix --------------------------------
     t_phase = time.perf_counter()
@@ -909,12 +1038,12 @@ def main() -> int:
     p2["units"] = _map(lambda a: a[:2], params["units"])
     batch = {"tokens": torch.from_numpy(tokens[:1, :2049].astype(np.int32))}
     before = kflash.launches
-    cache_g, logits_g = build(cfg2, ctx, device=dev).prefill_fn(p2, batch,
-                                                                2048)
+    m_g, m_c = build(cfg2, ctx, device=dev), build(cfg2, ctx, device="cpu")
+    p2_c = _map(lambda a: a.cpu(), p2)
+    cache_g, logits_g = m_g.prefill_fn(p2, batch, 2048 + 2)  # room to decode
     card_launches = kflash.launches - before
     t0 = time.perf_counter()
-    cache_c, logits_c = build(cfg2, ctx, device="cpu").prefill_fn(
-        _map(lambda a: a.cpu(), p2), batch, 2048)
+    cache_c, logits_c = m_c.prefill_fn(p2_c, batch, 2048 + 2)
     cpu_s = time.perf_counter() - t0
     rel = ((logits_g.cpu() - logits_c).abs().max()
            / logits_c.abs().max()).item()
@@ -926,7 +1055,11 @@ def main() -> int:
     if not rel <= 1e-4 or not torch.isfinite(logits_g).all() \
             or logits_g.shape != (1, 1, cfg.vocab_padded):
         raise AssertionError(f"card vs CPU prefill: rel_err {rel} > 1e-4")
-    del sched, rec, params, p2, cache_g, cache_c, model
+    errs = decode_both(m_g, m_c, p2, p2_c, cache_g, cache_c, logits_g, 2048,
+                       [])
+    print(f"[serve] 2 decode steps from those caches, card vs CPU: rel_err "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in errs.items()))
+    del sched, rec, params, p2, p2_c, cache_g, cache_c, model, m_g, m_c
     print(f"[phase] serve {time.perf_counter() - t_phase:.1f} s")
 
     # -- 9. serve recurrentgemma-9b at full width ------------------------------
@@ -1010,12 +1143,12 @@ def main() -> int:
     batch = {"tokens": torch.from_numpy(tokens[:1, :T3 + 1].astype(
         np.int32))}
     before = (klru.launches, kflash.launches)
-    cache_g, logits_g = build(cfg3, ctx, device=dev).prefill_fn(p3, batch,
-                                                                T3)
+    m_g, m_c = build(cfg3, ctx, device=dev), build(cfg3, ctx, device="cpu")
+    p3_c = _map(lambda a: a.cpu(), p3)
+    cache_g, logits_g = m_g.prefill_fn(p3, batch, T3 + 2)  # room to decode
     card_launches = (klru.launches - before[0], kflash.launches - before[1])
     t0 = time.perf_counter()
-    cache_c, logits_c = build(cfg3, ctx, device="cpu").prefill_fn(
-        _map(lambda a: a.cpu(), p3), batch, T3)
+    cache_c, logits_c = m_c.prefill_fn(p3_c, batch, T3 + 2)
     cpu_s = time.perf_counter() - t0
     u_g, u_c = cache_g["units"], cache_c["units"]
     errs = {"logits": rel_err(logits_g, logits_c),
@@ -1031,13 +1164,25 @@ def main() -> int:
             or card_launches != (2, 1):
         raise AssertionError(f"card vs CPU unit prefill: {errs}, launches "
                              f"{card_launches}")
-    del sched, rec, params, p3, cache_g, cache_c, model
+    errs = decode_both(m_g, m_c, p3, p3_c, cache_g, cache_c, logits_g, T3,
+                       [f"{b_} {n_}" for b_ in ("b0", "b1")
+                        for n_ in ("h", "conv")])
+    print(f"[serve] 2 decode steps from those caches, card vs CPU: rel_err "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in errs.items()))
+    del sched, rec, params, p3, p3_c, cache_g, cache_c, model, m_g, m_c
     print(f"[phase] serve hybrid {time.perf_counter() - t_phase:.1f} s")
     launches["flash_attention"] = sum(flash_launches.values())
 
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
+    recomputes = {name: m_.recomputes.read() for name, m_ in (
+        ("matmul", kmatmul), ("q4_matmul", kquant),
+        ("flash_attention", kflash))}
+    print(f"[nonfinite] tiles recomputed over phases 3-9: {recomputes}")
+    if any(recomputes.values()):
+        raise AssertionError("the non-finite rule recomputed tiles of "
+                             "finite main-path products")
     print(json.dumps({"kernels": [{
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/matmul.cu",

@@ -50,6 +50,17 @@
 // of bank conflicts.  Shared memory: 101 KB at hd 128 (4 warps, two CTAs
 // per SM), 213 KB at hd 256 (8 warps, one CTA).
 //
+// Non-finite operands follow the rule of tf32x3.cuh, per q tile: a CTA
+// whose tile holds a non-finite output recomputes it with an exact loop
+// (exact_tile: plain attention's fp32 arithmetic over every key, the mask
+// as -1e30) and counts that in *recomputes.  Plain attention also spreads
+// a non-finite V element to that column of every row through 0 * inf (a
+// masked key's weight is 0, not absent), including rows whose tiles the
+// causal limit or the window skip here; so a pre-pass (v_nonfinite) reads
+// V once and, if it finds one, every tile takes the exact loop.  The
+// pre-pass costs one read of V; the check, one isfinite per output and
+// one barrier per tile.
+//
 // What it still gives up: wgmma and TMA with a producer warp (warp
 // specialisation), K / V split once per CTA instead of once per warp, a
 // 128-row q tile, and a backward kernel.
@@ -93,7 +104,93 @@ struct Params {
   int H, Tq, Tkv, group, causal, window, q_offset;
   float scale;
   long long qs[3], ks[3], vs[3], os[3];            // strides of b, h, t
+  const int* v_bad;  // set by v_nonfinite: V holds a non-finite element
+  int* recomputes;   // tiles recomputed under the non-finite rule
 };
+
+// *flag = 1 if an element of V is not finite.  Grid (x, B * KV); hd is
+// 4 << hd4_log2 elements; 256 threads, four independent 4-element loads
+// each per step.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    v_nonfinite(const T* __restrict__ V, const Params p, int KV,
+                int hd4_log2, int* __restrict__ flag) {
+  const T* v = V + (blockIdx.y / KV) * p.vs[0] + (blockIdx.y % KV) * p.vs[1];
+  const int n = p.Tkv << hd4_log2, mask = (1 << hd4_log2) - 1;
+  bool bad = false;
+  for (int i0 = blockIdx.x * 1024 + threadIdx.x; i0 < n;
+       i0 += gridDim.x * 1024) {
+    float4 x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + 256 * u;
+      x[u] = i < n ? read4(v + (long long)(i >> hd4_log2) * p.vs[2] +
+                           ((i & mask) << 2))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      bad |= !(isfinite(x[u].x) && isfinite(x[u].y) && isfinite(x[u].z) &&
+               isfinite(x[u].w));
+  }
+  if (bad) *flag = 1;
+}
+
+// The non-finite rule's recompute of one q tile: flash_attention_plain's
+// arithmetic in fp32, a warp per row and hd across its lanes, over every
+// key (masked ones as -1e30).  As there, a NaN score or scores all -inf
+// make the row NaN, and a weight of 0 times an infinite V element is NaN.
+template <typename T, int HD, int THREADS>
+__device__ void exact_tile(const T* q, const T* k, const T* v, T* o,
+                           const Params& p, int q0, int warp, int lane) {
+  constexpr int DL = (HD + 31) / 32;  // hd columns per lane
+  for (int r = warp; r < BQ && q0 + r < p.Tq; r += THREADS / 32) {
+    const int row = q0 + r;
+    const long long qpos = (long long)p.q_offset + row;
+    float qv[DL], ov[DL];
+#pragma unroll
+    for (int i = 0; i < DL; ++i) {
+      const int d = lane + 32 * i;
+      qv[i] = d < HD ? widen(q[(long long)row * p.qs[2] + d]) * p.scale : 0.f;
+      ov[i] = 0.f;
+    }
+    float m = -INFINITY, l = 0.f;
+    bool nan = false;
+    for (int j = 0; j < p.Tkv; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < DL; ++i)
+        if (lane + 32 * i < HD)
+          s = fmaf(qv[i], widen(k[(long long)j * p.ks[2] + lane + 32 * i]), s);
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      bool ok = !p.causal || j <= qpos;
+      if (p.window > 0) ok = ok && qpos - j < p.window;
+      if (!ok) s = NEG;
+      nan = nan || isnan(s);
+      const float m_new = fmaxf(m, s);
+      float alpha = 1.f, pj = 0.f;  // until a score above -inf is seen
+      if (m_new != -INFINITY) {
+        alpha = expf(m - m_new);
+        pj = expf(s - m_new);
+      }
+      l = l * alpha + pj;
+#pragma unroll
+      for (int i = 0; i < DL; ++i)
+        if (lane + 32 * i < HD)
+          ov[i] = ov[i] * alpha +
+                  pj * widen(v[(long long)j * p.vs[2] + lane + 32 * i]);
+      m = m_new;
+    }
+    const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < DL; ++i)
+      if (lane + 32 * i < HD)
+        o[(long long)row * p.os[2] + lane + 32 * i] =
+            narrow<T>(nan || m == -INFINITY ? NAN : ov[i] / den);
+  }
+}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
@@ -320,6 +417,24 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
     }
   }
 
+  // the non-finite rule: a non-finite output in the tile, or in V, sends
+  // the whole tile to the exact loop
+  // (o / max(l, 1e-30) is finite where o and l are: l >= 1 once a row
+  // has seen a key, and o = 0 before)
+  bool bad = *p.v_bad != 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (q0 + rg * 16 + g + 8 * r >= p.Tq) continue;
+    bad |= !isfinite(l[r]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      bad |= !(isfinite(o[n][2 * r]) && isfinite(o[n][2 * r + 1]));
+  }
+  if (__syncthreads_or(bad)) {
+    if (tid == 0) atomicAdd(p.recomputes, 1);
+    exact_tile<T, HD, THREADS>(q, k, v, o_ptr, p, q0, warp, lane);
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + rg * 16 + g + 8 * r;
@@ -348,10 +463,12 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // dims: B, H, Tq, Tkv, hd, group, causal, window (0 = none), q_offset, then
-// the b, h, t element strides of q, k, v and o (12 values).
+// the b, h, t element strides of q, k, v and o (12 values).  flag: one
+// device int of scratch (the pre-pass's); recomputes: the device counter.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* dims, float scale, void* stream) {
+           const long long* dims, float scale, void* flag, void* recomputes,
+           void* stream) {
   Params p;
   const int B = (int)dims[0];
   p.H = (int)dims[1];
@@ -369,7 +486,21 @@ int launch(const void* q, const void* k, const void* v, void* o,
     p.vs[i] = dims[15 + i];
     p.os[i] = dims[18 + i];
   }
+  p.v_bad = static_cast<const int*>(flag);
+  p.recomputes = static_cast<int*>(recomputes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int hd4_log2 = __builtin_ctz(hd / 4);
+  const int KV = p.H / p.group;
+  const long long chunks = ((long long)p.Tkv * (hd / 4) + 1023) / 1024;
+  const int gx = chunks < 1024 ? (int)chunks : 1024;
+  v_nonfinite<T><<<dim3(gx, B * KV), 256, 0, s>>>(
+      static_cast<const T*>(v), p, KV, hd4_log2, static_cast<int*>(flag));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   switch (hd) {
     case 16: return launch_hd<T, 16>(q, k, v, o, B, p, s);
     case 32: return launch_hd<T, 32>(q, k, v, o, B, p, s);
@@ -385,13 +516,16 @@ int launch(const void* q, const void* k, const void* v, void* o,
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* o,
                                          const long long* dims, float scale,
+                                         void* flag, void* recomputes,
                                          void* stream) {
-  return launch<float>(q, k, v, o, dims, scale, stream);
+  return launch<float>(q, k, v, o, dims, scale, flag, recomputes, stream);
 }
 
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o,
                                           const long long* dims, float scale,
+                                          void* flag, void* recomputes,
                                           void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, dims, scale, stream);
+  return launch<__nv_bfloat16>(q, k, v, o, dims, scale, flag, recomputes,
+                               stream);
 }

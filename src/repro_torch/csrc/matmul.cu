@@ -39,7 +39,11 @@
 // One barrier per tile; 197 KB of dynamic shared memory, one block per SM.
 // Rows that do not start 16-byte aligned (K or N not a multiple of 4, or an
 // unaligned base) take a guarded element-wise load into the same ring.
-// Stores are guarded.
+// Stores are guarded.  Non-finite and near-max operands follow the rule of
+// tf32x3.cuh: a block whose tile holds a non-finite output recomputes it
+// with the fp32 FMA loop and counts that in *recomputes, so the result is
+// the IEEE product's (+-inf and NaN where it has them).  The check is one
+// isfinite per output and one barrier per tile.
 //
 // What it still gives up: TMA with mbarriers and a producer warp (warp
 // specialisation), a persistent tile schedule with the epilogue overlapped,
@@ -71,116 +75,12 @@ constexpr int SPLIT_FLOATS = BM * BK;        // one swizzled 16 KB tile
 constexpr int SMEM_BYTES =
     sizeof(float) * (4 * SPLIT_FLOATS + STAGES * RAW_FLOATS) + 1024;
 
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d (+)= a b^T for one warpgroup: a 64 x 8 from registers (the m16n8k8 A
-// layout per warp), b 128 x 8 K-major in shared memory; scale_d = 0 starts
-// the sum from zero
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// shared-memory writes made by threads visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-// keep the compiler from moving reads of d across the wait
-__device__ __forceinline__ void pin(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// four consecutive elements (aligned to their size) into the ring as they
-// are, zeros when !ok
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
-  cp_async16(dst, src, ok);
-}
-__device__ __forceinline__ void copy4(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src, bool ok) {
-  cp_async8(dst, src, ok);
-}
-
-// elements row[col .. col + 3] that lie below limit, zeros elsewhere, in
-// one 16-byte (f32) / 8-byte (bf16) store
-template <typename T>
-__device__ __forceinline__ void load4_guarded(T* dst, const T* row, int col,
-                                              int limit) {
-  struct alignas(4 * sizeof(T)) Four {
-    T x[4];
-  } v;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    v.x[j] = col + j < limit ? row[col + j] : narrow<T>(0.f);
-  *reinterpret_cast<Four*>(dst) = v;
-}
-
-// four staged elements, widened to f32
-__device__ __forceinline__ float4 read4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 read4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// split<X3>, except that a widened bf16 value (X3 = false) is exact in TF32,
-// so its bits are big as they are
-template <bool X3>
-__device__ __forceinline__ void split_exact(float x, uint32_t& big,
-                                            uint32_t& small) {
-  if constexpr (X3)
-    split<true>(x, big, small);
-  else
-    big = __float_as_uint(x);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     panel_matmul(const T* __restrict__ A, const T* __restrict__ B,
                  T* __restrict__ C, int M, int N, int K, long long sa,
-                 long long sb, long long sc, int vec_a, int vec_b) {
+                 long long sb, long long sc, int vec_a, int vec_b,
+                 int* __restrict__ recomputes) {
   constexpr bool X3 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* split_buf = reinterpret_cast<float*>(
@@ -316,7 +216,36 @@ __global__ void __launch_bounds__(THREADS, 1)
   cp_async_wait<0>();
 
   // acc holds C^T: element 4 j + e is C[8 j + 2 t + (e & 1)][nw + g +
-  // 8 (e >> 1)] of the tile
+  // 8 (e >> 1)] of the tile.  The non-finite rule: a tile with a
+  // non-finite output is recomputed by the fp32 FMA loop (in the ring,
+  // whose copies have all landed)
+  bool bad = false;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = row0 + 8 * j + 2 * t + (e & 1);
+      const int n = col0 + nw + g + 8 * (e >> 1);
+      if (m < M && n < N && !isfinite(acc[4 * j + e])) bad = true;
+    }
+  if (__syncthreads_or(bad)) {
+    if (tid == 0) atomicAdd(recomputes, 1);
+    fma_tile(
+        ring, K, t, nw + g, nw + g + 8,
+        [=](int r, int k) {
+          return row0 + r < M && k < K
+                     ? widen(A[(long long)(row0 + r) * K + k]) : 0.f;
+        },
+        [=](int k, int c) {
+          return k < K && col0 + c < N
+                     ? widen(B[(long long)k * N + col0 + c]) : 0.f;
+        },
+        [=](int r, int c, float v) {
+          if (row0 + r < M && col0 + c < N)
+            C[(long long)(row0 + r) * N + col0 + c] = narrow<T>(v);
+        });
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -329,7 +258,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <typename T>
 int launch(const void* a, const void* b, void* c, int batch, int M, int N,
-           int K, long long sa, long long sb, long long sc, void* stream) {
+           int K, long long sa, long long sb, long long sc, void* recomputes,
+           void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       panel_matmul<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
@@ -343,20 +273,26 @@ int launch(const void* a, const void* b, void* c, int batch, int M, int N,
   panel_matmul<T><<<grid, THREADS, SMEM_BYTES,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      M, N, K, sa, sb, sc, vec_a, vec_b);
+      M, N, K, sa, sb, sc, vec_a, vec_b, static_cast<int*>(recomputes));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// recomputes: one device int, incremented once per tile recomputed under
+// the non-finite rule
 extern "C" int repro_matmul_f32(const void* a, const void* b, void* c,
                                 int batch, int M, int N, int K, long long sa,
-                                long long sb, long long sc, void* stream) {
-  return launch<float>(a, b, c, batch, M, N, K, sa, sb, sc, stream);
+                                long long sb, long long sc, void* recomputes,
+                                void* stream) {
+  return launch<float>(a, b, c, batch, M, N, K, sa, sb, sc, recomputes,
+                       stream);
 }
 
 extern "C" int repro_matmul_bf16(const void* a, const void* b, void* c,
                                  int batch, int M, int N, int K, long long sa,
-                                 long long sb, long long sc, void* stream) {
-  return launch<__nv_bfloat16>(a, b, c, batch, M, N, K, sa, sb, sc, stream);
+                                 long long sb, long long sc, void* recomputes,
+                                 void* stream) {
+  return launch<__nv_bfloat16>(a, b, c, batch, M, N, K, sa, sb, sc,
+                               recomputes, stream);
 }

@@ -6,7 +6,8 @@ beside the package, named by the source's stem and a hash of its bytes and
 of every ``csrc/*.cuh`` header it may include (an edited source or header
 builds anew; an up-to-date build is reused), and ``ctypes`` loads it.
 The kernel modules set their own entry points' ``argtypes``.
-``build_all`` starts one ``nvcc`` per source at once.
+``build_all`` starts one ``nvcc`` per source at once.  ``DeviceCounter`` is
+a count that kernels keep on the card (the non-finite rule's recomputes).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -86,3 +89,31 @@ def build_all() -> dict[str, Library]:
     """Build every source of ``SOURCES`` concurrently (one ``nvcc`` each)."""
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
         return dict(zip(SOURCES, pool.map(library, SOURCES)))
+
+
+class DeviceCounter:
+    """One int32 count on each CUDA device that kernels add to with
+    ``atomicAdd``: ``buffer(device)`` is what a launch passes, ``read()``
+    sums the devices' counts (a device-to-host copy each, which waits for
+    the launches before it) and ``reset()`` sets them to 0."""
+
+    def __init__(self):
+        self._bufs: dict[int, torch.Tensor] = {}
+
+    def buffer(self, device: torch.device) -> torch.Tensor:
+        index = torch.device(device).index
+        index = torch.cuda.current_device() if index is None else index
+        buf = self._bufs.get(index)
+        if buf is None:
+            buf = torch.zeros(1, dtype=torch.int32,
+                              device=torch.device("cuda", index))
+            torch.cuda.synchronize(buf.device)   # zeroed before any stream
+            self._bufs[index] = buf              # adds to it
+        return buf
+
+    def read(self) -> int:
+        return sum(int(b.item()) for b in self._bufs.values())
+
+    def reset(self) -> None:
+        for b in self._bufs.values():
+            b.zero_()

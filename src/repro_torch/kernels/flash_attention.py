@@ -18,9 +18,12 @@ transpose copy); hd is one of ``HEAD_DIMS``; f32 or bf16.
 
 ``flash_attention_cuda`` checks device, dtype, shape and strides, raises on
 anything else, launches on the current stream and counts the launch in
-``launches``.  ``flash_attention_plain`` is the same function in plain
-PyTorch (exact softmax over the whole key axis, fp32); it serves CPU
-tensors and is what the card's result is held against.
+``launches``.  ``recomputes`` counts, on the card, the q tiles that the
+non-finite rule sent to the kernel's exact loop (``csrc/tf32x3.cuh``): 0
+wherever q, k, v and the output are finite.  ``flash_attention_plain``
+is the same function in plain PyTorch (exact softmax over the whole key
+axis, fp32); it serves CPU tensors and is what the card's result is held
+against.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ NEG = -1e30
 #: Kernel launches made through ``flash_attention_cuda`` (reset to 0 to
 #: count a run).
 launches = 0
+#: q tiles recomputed under the non-finite rule (``recomputes.read()``,
+#: ``recomputes.reset()``).
+recomputes = _cuda.DeviceCounter()
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
@@ -54,8 +60,8 @@ def library() -> _cuda.Library:
     lib = _cuda.library(SOURCE.name)
     for name in _ENTRY.values():
         fn = getattr(lib.cdll, name)
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float,
-                                                ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return lib
 
@@ -164,9 +170,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *o4.stride()[:3])
     fn = getattr(library().cdll, _ENTRY[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    flag = torch.empty(1, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-                 dims, 1.0 / math.sqrt(hd), stream)
+                 dims, 1.0 / math.sqrt(hd), flag.data_ptr(),
+                 recomputes.buffer(q.device).data_ptr(), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {err} for q {tuple(q.shape)}, k "

@@ -5,8 +5,10 @@ The kernel (``csrc/lru_scan.cu``) replaces the TPU kernel
 x_t elementwise over channels on (B, T, C), h_{-1} = 0, an fp32 carry and
 the output in x's dtype.  It is CUDA C++ for ``sm_90a`` with a plain C
 interface, built at first use by ``kernels._cuda`` and loaded with
-``ctypes``; the source's header note says what bounds it and what the
-simple design gives up.
+``ctypes``: T is split into chunks across CTAs, the carry passed forward
+by a decoupled look-back (``ref.lru_scan_chunked_emulated`` repeats its
+arithmetic on the CPU).  The source's header note says what bounds it and
+what the design gives up.
 
 ``lru_scan_cuda`` checks device, dtype, shape and contiguity, raises on
 anything else, launches on the current stream and counts the launch in
@@ -33,6 +35,18 @@ launches = 0
 
 _ENTRY = {torch.float32: "repro_lru_scan_f32",
           torch.bfloat16: "repro_lru_scan_bf16"}
+#: The kernel's tiling (``csrc/lru_scan.cu``'s TT and CT): time steps per
+#: chunk, channels per CTA.
+CHUNK, CHANNELS = 128, 64
+
+
+def scratch_bytes(B: int, T: int, C: int) -> int:
+    """The kernel's scratch (``csrc/lru_scan.cu``, which refuses less): a
+    ticket and a flag per CTA, padded to 16 bytes, then the aggregates and
+    carries, 3 x (B, chunks, C) f32."""
+    chunks = -(-T // CHUNK)
+    tiles = B * -(-C // CHANNELS) * chunks
+    return 4 * (-(-(tiles + 1) // 4) * 4) + 12 * B * chunks * C
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,8 +56,9 @@ def library() -> _cuda.Library:
     lib = _cuda.library(SOURCE.name)
     for name in _ENTRY.values():
         fn = getattr(lib.cdll, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_longlong,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -83,9 +98,14 @@ def lru_scan_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     fn = getattr(library().cdll, _ENTRY[x.dtype])
+    # the carries passed between T-chunks and their flags (the kernel
+    # zeroes the flags)
+    scratch = torch.empty(scratch_bytes(B, T, C), dtype=torch.uint8,
+                          device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), B, T, C, stream)
+        err = fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), B, T, C,
+                 scratch.data_ptr(), scratch.numel(), stream)
     if err:
         raise RuntimeError(f"lru_scan kernel launch failed with CUDA error "
                            f"{err} for {tuple(x.shape)} ({x.dtype})")

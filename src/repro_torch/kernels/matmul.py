@@ -9,9 +9,12 @@ source's header note says what bounds it and what the design gives up.
 
 ``matmul_cuda`` is the wrapper: it checks device, dtype, shape and
 contiguity, raises on anything else, launches on the current stream and
-counts the launch in ``launches``.  ``matmul_plain`` is the same function in
-plain PyTorch (fp32 product, cast to ``a.dtype`` — ``ref.matmul_ref``); it
-serves CPU tensors and is what the card's result is held against.
+counts the launch in ``launches``.  ``recomputes`` counts, on the card, the
+output tiles that the non-finite rule recomputed with the fp32 FMA loop
+(``csrc/tf32x3.cuh``): 0 wherever operands and product are finite.
+``matmul_plain`` is the same function in plain PyTorch (fp32 product, cast
+to ``a.dtype`` — ``ref.matmul_ref``); it serves CPU tensors and is what the
+card's result is held against.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ SOURCE = _cuda.CSRC / "matmul.cu"
 
 #: Kernel launches made through ``matmul_cuda`` (reset it to 0 to count a run).
 launches = 0
+#: Output tiles recomputed under the non-finite rule (``recomputes.read()``,
+#: ``recomputes.reset()``).
+recomputes = _cuda.DeviceCounter()
 
 _ENTRY = {torch.float32: "repro_matmul_f32",
           torch.bfloat16: "repro_matmul_bf16"}
@@ -40,7 +46,7 @@ def library() -> _cuda.Library:
     for name in _ENTRY.values():
         fn = getattr(lib.cdll, name)
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return lib
 
@@ -93,7 +99,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, N, K,
-                 M * K, K * N, M * N, stream)
+                 M * K, K * N, M * N,
+                 recomputes.buffer(a.device).data_ptr(), stream)
     if err:
         raise RuntimeError(f"matmul kernel launch failed with CUDA error "
                            f"{err} for {tuple(a.shape)} @ {tuple(b.shape)}")

@@ -5,7 +5,9 @@ The kernel (``csrc/q4_matmul.cu``) replaces the TPU kernel
 scales)`` for the ``q4_shared`` weight wire format, with the packed weight
 unpacked and rescaled tile by tile inside the k loop (never densified in
 device memory).  It is CUDA C++ for ``sm_90a`` with a plain C interface,
-built at first use by ``kernels._cuda`` and loaded with ``ctypes``.
+built at first use by ``kernels._cuda`` and loaded with ``ctypes``:
+warpgroup tensor-core products (``wgmma``) in 3xTF32, as accurate as an
+fp32 FMA loop, with the weight unpacked in the register operand.
 
 Operands: ``a`` f32 or bf16 ``(M, K)``; ``packed`` uint8 ``(K // 2, N)``
 (byte *r* = row 2r | row 2r+1 << 4, codes + 8); ``scales`` f32
@@ -15,8 +17,10 @@ fp32.
 
 ``q4_matmul_cuda`` checks device, dtype, shape and contiguity, raises on
 anything else, launches on the current stream and counts the launch in
-``launches``.  ``q4_matmul_plain`` is the same function in plain PyTorch; it
-serves CPU tensors and is what the card's result is held against.
+``launches``; ``recomputes`` counts, on the card, the output tiles that the
+non-finite rule recomputed with the fp32 FMA loop (``csrc/tf32x3.cuh``).
+``q4_matmul_plain`` is the same function in plain PyTorch; it serves CPU
+tensors and is what the card's result is held against.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ SOURCE = _cuda.CSRC / "q4_matmul.cu"
 
 #: Kernel launches made through ``q4_matmul_cuda`` (reset to 0 to count a run).
 launches = 0
+#: Output tiles recomputed under the non-finite rule (``recomputes.read()``,
+#: ``recomputes.reset()``).
+recomputes = _cuda.DeviceCounter()
 
 _ENTRY = {torch.float32: "repro_q4_matmul_f32",
           torch.bfloat16: "repro_q4_matmul_bf16"}
@@ -45,7 +52,7 @@ def library() -> _cuda.Library:
     for name in _ENTRY.values():
         fn = getattr(lib.cdll, name)
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return lib
 
@@ -117,7 +124,8 @@ def q4_matmul_cuda(a: torch.Tensor, packed: torch.Tensor,
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                  out.data_ptr(), batch, M, N, K, group, M * K, (K // 2) * N,
-                 (K // group) * N, M * N, stream)
+                 (K // group) * N, M * N,
+                 recomputes.buffer(a.device).data_ptr(), stream)
     if err:
         raise RuntimeError(f"q4_matmul kernel launch failed with CUDA error "
                            f"{err} for a {tuple(a.shape)}, packed "

@@ -1,6 +1,7 @@
 """Plain PyTorch oracles for every kernel (the allclose ground truth), and
-CPU emulations of the kernels' 3xTF32 arithmetic (test aids, never on a
-main path)."""
+CPU emulations of the kernels' arithmetic — 3xTF32 with the non-finite
+rule, the q4 unpack, the chunked scan — as test aids, never on a main
+path."""
 
 from __future__ import annotations
 
@@ -60,12 +61,80 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return big, small
 
 
-def matmul_tf32x3_emulated(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` as the kernels compute it: 3xTF32, a_small b_big +
-    a_big b_small + a_big b_big (each product of two TF32 values exact in
-    f32, the sums in f32).  Output in ``a.dtype``."""
+def _tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a_small b_big + a_big b_small + a_big b_big in f32 (each product of
+    two TF32 values exact in f32, the sums in f32)."""
     (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
-    return ((as_ @ bb + ab @ bs) + ab @ bb).to(a.dtype)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _recompute_tiles(out: torch.Tensor, exact, rows: int,
+                     cols: int) -> torch.Tensor:
+    """The kernels' non-finite rule: each (rows, cols) tile of the last two
+    dims of ``out`` that holds a non-finite value is taken from
+    ``exact()`` (the IEEE fp32 arithmetic on the same operands)."""
+    bad = ~torch.isfinite(out)
+    if not bad.any():
+        return out
+    full, out = exact(), out.clone()
+    M, N = out.shape[-2:]
+    for i in range(0, M, rows):
+        for j in range(0, N, cols):
+            tile = (..., slice(i, i + rows), slice(j, j + cols))
+            hit = bad[tile].flatten(-2).any(-1)[..., None, None]
+            out[tile] = torch.where(hit, full[tile], out[tile])
+    return out
+
+
+def matmul_tf32x3_emulated(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels compute it: 3xTF32 (``_tf32x3``), then the
+    non-finite rule on each 128 x 128 output tile (a tile with a
+    non-finite value is recomputed in fp32, as ``a @ b`` gives it).  Output
+    in ``a.dtype``."""
+    out = _recompute_tiles(_tf32x3(a, b), lambda: a.float() @ b.float(),
+                           128, 128)
+    return out.to(a.dtype)
+
+
+def q4_matmul_tf32x3_emulated(a: torch.Tensor, packed: torch.Tensor,
+                              scales: torch.Tensor,
+                              group: int = 32) -> torch.Tensor:
+    """``csrc/q4_matmul.cu``'s arithmetic: the weight unpacked as
+    (code - 8) * scale (one f32 multiply, ``dequantize_q4``'s value), then
+    ``a`` times it as 3xTF32 with the non-finite rule
+    (``matmul_tf32x3_emulated``; a bf16 ``a`` splits with small = 0)."""
+    from repro_torch.comm.quantize import dequantize_q4
+    return matmul_tf32x3_emulated(a, dequantize_q4(packed, scales,
+                                                   group=group))
+
+
+def lru_scan_chunked_emulated(a: torch.Tensor, x: torch.Tensor,
+                              chunk: int = 128) -> torch.Tensor:
+    """``csrc/lru_scan.cu``'s arithmetic: each T-chunk's aggregate from a
+    zero carry, (prod a, h at its end); the carries passed forward chunk by
+    chunk (carry_j = A_j carry_{j-1} + X_j, chunk 0's = X_0); each chunk
+    rescanned from the carry before it.  fp32 throughout, output in x's
+    dtype."""
+    B, T, C = x.shape
+    n = -(-T // chunk)
+    pad = n * chunk - T               # identity steps: a = 1, x = 0
+    ap = torch.cat([a.float(), torch.ones(B, pad, C)], 1).reshape(
+        B, n, chunk, C)
+    xp = torch.cat([x.float(), torch.zeros(B, pad, C)], 1).reshape(
+        B, n, chunk, C)
+    agg_a, agg_x = torch.ones(B, n, C), torch.zeros(B, n, C)
+    for t in range(chunk):
+        agg_x = ap[:, :, t] * agg_x + xp[:, :, t]
+        agg_a = agg_a * ap[:, :, t]
+    carry, carries = torch.zeros(B, C), []
+    for j in range(n):
+        carries.append(carry)
+        carry = agg_a[:, j] * carry + agg_x[:, j] if j else agg_x[:, 0]
+    h, out = torch.stack(carries, 1), torch.empty(B, n, chunk, C)
+    for t in range(chunk):
+        h = ap[:, :, t] * h + xp[:, :, t]
+        out[:, :, t] = h
+    return out.reshape(B, n * chunk, C)[:, :T].to(x.dtype)
 
 
 def attention_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor,
@@ -74,11 +143,14 @@ def attention_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor,
                               q_offset: int = 0) -> torch.Tensor:
     """The flash kernel's plain version (q (B, H, Tq, hd), k and v (B, KV,
     Tkv, hd), pre-scaled q, -1e30 masks, fp32 softmax) with its two
-    products, q.k and p.v, as emulated 3xTF32."""
+    products, q.k and p.v, as emulated 3xTF32; then the kernel's
+    non-finite rule: each 64-row q tile of a head with a non-finite output,
+    and every tile if V holds a non-finite element, is recomputed with
+    fp32 products."""
     B, H, Tq, hd = q.shape
     KV, Tkv = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, KV, H // KV, Tq, hd) * (1.0 / math.sqrt(hd))
-    s = matmul_tf32x3_emulated(qf, k.float()[:, :, None].transpose(-1, -2))
+    kt, vf = k.float()[:, :, None].transpose(-1, -2), v.float()[:, :, None]
     qpos = q_offset + torch.arange(Tq, device=q.device)
     kpos = torch.arange(Tkv, device=q.device)
     mask = torch.ones((Tq, Tkv), dtype=torch.bool, device=q.device)
@@ -86,8 +158,16 @@ def attention_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor,
         mask &= kpos[None, :] <= qpos[:, None]
     if window is not None:
         mask &= (qpos[:, None] - kpos[None, :]) < window
-    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    o = matmul_tf32x3_emulated(p, v.float()[:, :, None])
-    o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+    def attend(product):
+        s = torch.where(mask, product(qf, kt),
+                        torch.full((), -1e30, device=q.device))
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        return product(p, vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+    def exact():
+        return attend(torch.matmul)
+
+    o = exact() if not torch.isfinite(v).all() else _recompute_tiles(
+        attend(_tf32x3), exact, 64, hd)
     return o.reshape(B, H, Tq, hd).to(q.dtype)

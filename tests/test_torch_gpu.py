@@ -9,6 +9,10 @@ PyTorch (the suite's conftest imports the JAX package, hence
 
 The kernels are held against their plain versions with the reference
 kernel tests' tolerances (F32 2e-4 / BF16 2e-2, rtol K-scaled, atol x8).
+On infinite, NaN and near-max operands the matmul, q4 and flash kernels
+equal their plain versions class by class (the non-finite rule of
+``csrc/tf32x3.cuh``), their recompute counters count the tiles that took
+the rule, and finite operands recompute nothing.
 The card's collectives and fused collective-matmuls (side stream + events)
 are held against the same code run on the CPU: gathers bit for bit,
 products and sums within 1e-5.  The lossy wire formats are held to
@@ -77,6 +81,43 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     torch.testing.assert_close(got.float(),
                                kmatmul.matmul_plain(a, b).float(),
                                **_tol(dtype, K))
+
+
+F32_MAX = torch.finfo(torch.float32).max         # 3.4028235e38
+NONFINITE = [float("inf"), float("-inf"), float("nan"), F32_MAX, -3.4e38]
+
+
+def _same_classes(got, want, bound, tol):
+    """``got`` is non-finite exactly where ``want`` is, with its class; the
+    finite values within ``tol * (1 + bound)``."""
+    g, w = got.float(), want.float()
+    for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(kind(g), kind(w)), kind.__name__
+    fin = torch.isfinite(w)
+    assert ((g - w).abs() <= tol * (1 + bound))[fin].all()
+
+
+@pytest.mark.parametrize("value", NONFINITE, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_follows_ieee_on_nonfinite_operands(cuda, value, dtype):
+    """One special entry in ``a`` (batch 0) and one in ``b`` (batch 1), and
+    a column of exact 1.0 in ``b``: the kernel equals ``matmul_plain`` by
+    class and, where finite, within 2e-4 (bf16 2e-2) of |a| @ |b|; the
+    tiles it touched were recomputed.  Finite operands recompute none."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.randn((2, 200, 96), generator=g, device=cuda)
+    b = torch.randn((2, 96, 300), generator=g, device=cuda)
+    b[..., 0] = 1.0
+    kmatmul.recomputes.reset()
+    ops.matmul(a.to(dtype), b.to(dtype))
+    assert kmatmul.recomputes.read() == 0
+    a[0, 3, 5], b[1, 7, 2] = value, value
+    a, b = a.to(dtype), b.to(dtype)
+    got = ops.matmul(a, b)
+    assert kmatmul.recomputes.read() > 0
+    _same_classes(got, kmatmul.matmul_plain(a, b),
+                  a.double().abs() @ b.double().abs(),
+                  2e-4 if dtype == torch.float32 else 2e-2)
 
 
 def test_kernel_wrapper_checks_its_operands(cuda):
@@ -209,6 +250,26 @@ def test_q4_kernel_equals_panel_kernel_on_the_dense_weight(cuda):
     assert torch.equal(got, (a.double() @ w.double()).float())
 
 
+@pytest.mark.parametrize("value", NONFINITE, ids=str)
+def test_q4_kernel_follows_ieee_on_nonfinite_operands(cuda, value):
+    """A special entry in ``a`` (batch 0) and in a scale (batch 1): the q4
+    kernel equals its plain version by class and, where finite, within
+    2e-4 of |a| @ |w|; finite operands recompute nothing."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    a = torch.randn((2, 160, 128), generator=g, device=cuda)
+    packed, scales = quantize_q4(torch.randn((2, 128, 200), generator=g,
+                                             device=cuda), group=32)
+    kquant.recomputes.reset()
+    ops.q4_matmul(a, packed, scales, group=32)
+    assert kquant.recomputes.read() == 0
+    a[0, 3, 5], scales[1, 2, 7] = value, value
+    got = ops.q4_matmul(a, packed, scales, group=32)
+    assert kquant.recomputes.read() > 0
+    w = dequantize_q4(packed, scales, group=32)
+    _same_classes(got, kquant.q4_matmul_plain(a, packed, scales, 32),
+                  a.double().abs() @ w.double().abs(), 2e-4)
+
+
 def test_q4_kernel_wrapper_checks_its_operands(cuda):
     a = torch.ones(4, 64, device=cuda)
     packed, scales = quantize_q4(torch.ones(64, 8, device=cuda), group=32)
@@ -297,6 +358,39 @@ def test_flash_kernel_matches_plain_version(cuda, case, dtype):
     torch.testing.assert_close(
         got.float(), kflash.flash_attention_plain(q, k, v, **kw).float(),
         **_flash_tol(dtype))
+
+
+@pytest.mark.parametrize("case", [(1, 4, 2, 128, 64, None),
+                                  (1, 8, 1, 200, 256, 16)], ids=str)
+def test_flash_kernel_follows_the_plain_version_on_nonfinite_entries(cuda,
+                                                                     case):
+    """q and k with one infinite and one near-max entry each, then v too:
+    the kernel equals its plain version by class and, where finite, within
+    2e-4 of 1 + the largest finite |v| of the column.  q and k send only the
+    tiles they touch to the exact loop; an infinite v reaches every row in
+    the plain version (0 * inf through the masked keys), so every tile."""
+    B, H, KV, T, hd, window = case
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.randn((B, H, T, hd), generator=g, device=cuda)
+    k = torch.randn((B, KV, T, hd), generator=g, device=cuda)
+    v = torch.randn((B, KV, T, hd), generator=g, device=cuda)
+    kflash.recomputes.reset()
+    ops.flash_attention(q, k, v, window=window)
+    assert kflash.recomputes.read() == 0
+    q[0, 1, 10, 3], q[0, 2, 70, 5] = float("inf"), F32_MAX
+    k[0, 0, 20, 7], k[0, KV - 1, 40, 9] = float("-inf"), F32_MAX
+    tiles = -(-T // 64) * B * H
+    for v_too in (False, True):
+        if v_too:
+            v[0, KV - 1, 50, 11], v[0, 0, 30, 12] = float("inf"), F32_MAX
+        kflash.recomputes.reset()
+        got = ops.flash_attention(q, k, v, window=window)
+        n = kflash.recomputes.read()
+        assert n == tiles if v_too else 0 < n <= tiles
+        vmax = torch.where(torch.isfinite(v), v.abs(), 0).amax(2, True)
+        _same_classes(got, kflash.flash_attention_plain(q, k, v,
+                                                        window=window),
+                      vmax.repeat_interleave(H // KV, 1), 2e-4)
 
 
 def test_flash_kernel_reads_the_models_strided_layout(cuda):
