@@ -71,7 +71,30 @@ Phases (any failed check raises, and the script exits nonzero):
    prefill on the card against the CPU: last-token logits, both ``h``
    states and the ring k within 1e-4 relative; then two decode steps from
    each side's cache: logits and both blocks' ``h`` / ``conv`` within 1e-4
-   relative.
+   relative;
+10. collectives bench (run after phase 7, before phase 8, while the card
+   holds no model): (a) ``repro_torch.bench``'s quick sweep over
+   ``default_matrix()`` (the six collective families at 1024 and 2^20
+   elements per rank, f32 and bf16, 5 reps, every body captured in a CUDA
+   graph and its replays timed with CUDA events): validation OK with its
+   check count, per topology the allgather naive / hier / shared medians
+   at 2^20 and the measured C1 ratio (must equal ``chips``); the sweep
+   folded into a table in a temporary directory and self-checked, and the
+   committed ``src/repro_torch/artifacts/TUNING_h100.json`` held to the
+   fresh sweep by the staleness gate (tol 3.0); (b) on each topology at
+   2^20 ``auto`` resolves every family from measurement to the committed
+   table's exact winner, and the ``auto`` allgather's values equal the
+   naive one's; (c) ``allgather_async(...).resolve()`` equal to
+   ``allgather(scheme="shared").read()`` on each topology at 2^20, a store
+   between issue and resolve raising ``WindowEpochError``, and on 2x4 at
+   2^22 issue / ``ops.matmul`` f32 4096^3 (the panel kernel) / resolve
+   timed against gather plus matmul run serially (printed, not gated);
+   (d) the step graph on 2x4: one allreduce per leaf of ``qwen3-0.6b``'s
+   stacked per-layer parameter tree (440,466,432 elements, 1.76 GB per
+   rank) plus loss / count / norm, ``rec.run()`` equal to the per-leaf
+   eager allreduce, messages and bytes before and after, the bucket count,
+   schedule against eager time, and the schedule gate.  Phase 8 runs its
+   scheduler with a ``LiveTuner`` and prints its EWMA and overlay size.
 
 Phase 2 also holds ``ops.flash_attention`` to its plain version (f32 and
 bf16: ``tests/test_kernels.py``'s shapes, windows 16 and 64, non-causal,
@@ -89,8 +112,9 @@ in f32 and bf16, the a = 1 carry against ``cumsum``), timed f32 at phase
 ``torch.cumsum``.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
-then phase 8's and phase 9's serving runs) and read just after; so are the
-non-finite rule's recompute counters, which must read 0 there.  The line
+phase 10, then phase 8's and phase 9's serving runs) and read just after;
+the non-finite rule's recompute counters are zeroed before phase 3 and must
+read 0 after phase 9.  The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -446,6 +470,185 @@ def decode_both(m_g, m_c, p_g, p_c, cache_g, cache_c, logits_g, pos: int,
     return errs
 
 
+def collectives_bench(dev, g, *, sweep_elems, elems: int, big: int,
+                      mm: int, tree: dict, table_path: str) -> None:
+    """Phase 10: (a) the quick bench sweep, validated, folded into a table
+    and held against the committed one; (b) ``auto`` resolving from that
+    table; (c) async gathers against eager ones, the torn-handle rule and
+    the overlap of a gather with the panel kernel; (d) the step graph on a
+    gradient record of ``tree`` (leaf path -> per-rank shape) on 2x4."""
+    import tempfile
+
+    import torch
+    from repro_torch.analysis import traffic
+    from repro_torch.bench import __main__ as bench_cli
+    from repro_torch.bench import gates, report, suites
+    from repro_torch.comm import (Communicator, WindowEpochError, registry,
+                                  tuning)
+    from repro_torch.comm.tuning import TuningTable
+    from repro_torch.kernels import ops
+    from repro_torch.substrate import collectives as coll
+    from repro_torch.substrate import default_matrix
+
+    matrix = default_matrix(device=dev)
+    # (a) the quick sweep over the matrix
+    t0 = time.perf_counter()
+    cases = suites.build_cases(clusters=matrix, elems=sweep_elems,
+                               dtypes=suites.DTYPES, on_skip=lambda m: None)
+    suite = suites.run_suite(cases, reps=5)       # raises on any mismatch
+    rep = report.to_report(suite, quick=True, reps=5,
+                           families=suites.COLLECTIVE_FAMILIES,
+                           elems=sweep_elems, dtypes=suites.DTYPES,
+                           device=dev)
+    eager = [c["name"] for c in rep["cases"]
+             if dev.type == "cuda" and c["timing"]["mode"] != "graph"]
+    print(f"[bench] quick sweep: {len(cases)} cases in "
+          f"{time.perf_counter() - t0:.1f} s, validation OK, "
+          f"{rep['validation']['num_checks']} checks; timed eagerly: "
+          f"{len(eager)} {eager[:4]}")
+    med = {(c["topology"], c["family"], c["scheme"], c["elems"],
+            c["dtype"]): c["timing"]["median_us"] for c in rep["cases"]}
+    c1 = {ch["name"]: ch["measured"] for ch in rep["cross_checks"]}
+    for vc in matrix:
+        ag = {s: med.get((vc.label, "allgather", s, elems, "float32"))
+              for s in ("naive", "hier", "shared")}
+        ratio = c1.get(f"C1/allgather/{vc.label}/e{elems}")
+        print(f"[bench] {vc.label} allgather e{elems} f32 median us: "
+              + "  ".join(f"{s} {v:.1f}" for s, v in ag.items())
+              + f"  C1 naive/shared {ratio}")
+        if ratio != vc.chips:
+            raise AssertionError(f"C1 {vc.label}: {ratio} != {vc.chips}")
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh = os.path.join(tmp, "bench.json")
+        report.write_report(rep, fresh)
+        if bench_cli.emit_tuning_table(fresh, os.path.join(tmp, "t.json"),
+                                       log=lambda m: None):
+            raise AssertionError("the fresh table failed its self-check")
+    with open(table_path) as f:
+        committed = json.load(f)
+    errs = gates.schema_errors(committed)
+    rows, stale = gates.staleness_failures(committed, rep, 3.0)
+    if errs or stale:
+        raise AssertionError(f"committed table {table_path}: "
+                             f"{(errs + stale)[:5]}")
+    print(f"[bench] fresh table self-checked; committed table "
+          f"({committed['meta'].get('nvidia_smi')}) not stale at tol 3.0 "
+          f"over {len(rows)} cells")
+
+    # (b) auto resolves from the committed table
+    table = TuningTable.from_dict(committed)
+    picks = []
+    for vc in matrix:
+        comm = Communicator.from_cluster(vc)
+        for family in traffic.FAMILIES:
+            res = tuning.resolve_for(comm, family, elems=elems)
+            entry = table.lookup(family, tuning.signature_for(comm),
+                                 "float32", elems * 4)
+            want = next(ch.scheme for ch in entry.ranking
+                        if registry.get_scheme(ch.scheme).precision
+                        == "exact")
+            if res.source != "measured" or res.scheme != want:
+                raise AssertionError(f"auto {vc.label}/{family}: {res} != "
+                                     f"measured {want}")
+            picks.append(f"{family}={res.scheme}")
+        with vc.bind():
+            x = torch.randn((vc.num_devices, elems), generator=g, device=dev)
+            auto = traffic._full("allgather", comm.allgather(x), comm)
+            naive = comm.allgather(x, scheme="naive")
+            if not torch.equal(auto, naive):
+                raise AssertionError(f"auto allgather {vc.label}: values "
+                                     "differ from naive")
+        print(f"[auto] {vc.label} e{elems}: measured " + " ".join(picks[-6:])
+              + "; allgather values == naive")
+
+    # (c) async handles
+    for vc in matrix:
+        comm = Communicator.from_cluster(vc)
+        with vc.bind():
+            x = torch.randn((vc.num_devices, elems), generator=g, device=dev)
+            h = comm.allgather_async(x)
+            got = h.resolve()
+            if not torch.equal(got, comm.allgather(x, scheme="shared")
+                               .read()):
+                raise AssertionError(f"async {vc.label}: != eager")
+            h = comm.allgather_async(x)
+            torn = dataclasses.replace(h, window=h.window.store(x))
+            try:
+                torn.resolve()
+            except WindowEpochError:
+                pass
+            else:
+                raise AssertionError(f"async {vc.label}: a store between "
+                                     "issue and resolve did not raise")
+    print(f"[async] allgather_async(...).resolve() == allgather(shared)"
+          f".read() on {len(matrix)} topologies at e{elems}; a store "
+          f"between issue and resolve raises WindowEpochError")
+    vc = next(v for v in matrix if v.label == "2x4")
+    comm = Communicator.from_cluster(vc)
+    a = torch.randn((mm, mm), generator=g, device=dev)
+    b = torch.randn((mm, mm), generator=g, device=dev)
+    with vc.bind():
+        x = torch.randn((vc.num_devices, big), generator=g, device=dev)
+
+        def serial():
+            comm.allgather(x, scheme="shared").read()
+            ops.matmul(a, b)
+
+        def overlapped():
+            h = comm.allgather_async(x, scheme="shared")
+            ops.matmul(a, b)
+            h.resolve()
+
+        t_gather = cuda_ms(lambda: comm.allgather(x, scheme="shared")
+                           .read(), 3)
+        t_mm = cuda_ms(lambda: ops.matmul(a, b), 3)
+        t_serial, t_async = cuda_ms(serial, 3), cuda_ms(overlapped, 3)
+    print(f"[async] 2x4 e{big}: issue, ops.matmul f32 {mm}^3, resolve "
+          f"{t_async:.3f} ms against serial {t_serial:.3f} ms (gather "
+          f"{t_gather:.3f} + matmul {t_mm:.3f})")
+    del a, b, x
+
+    # (d) the step graph on a gradient record
+    R = vc.num_devices
+    grads = {k: torch.randn((R,) + s, generator=g, device=dev)
+             for k, s in tree.items()}
+    for k in ("loss", "count", "norm"):
+        grads[k] = torch.randn((R,), generator=g, device=dev)
+    n_elems = sum(t[0].numel() for t in grads.values())
+    with vc.bind():
+        rec = comm.record()
+        refs = {k: rec.allreduce(v, axes=comm.axes, scheme="naive", key=k)
+                for k, v in grads.items()}
+        res = rec.run()
+        for k, v in grads.items():
+            if not torch.equal(res[refs[k]], coll.psum(v, comm.axes)):
+                raise AssertionError(f"step graph: {k} != eager allreduce")
+        r = res.report()
+        del res
+
+        def eager():
+            for v in grads.values():
+                comm.allreduce(v, scheme="naive")
+
+        t_eager = cuda_ms(eager, 2)
+        t_sched = cuda_ms(rec.run, 2)
+    ar = r["allreduce"]
+    r.update(config="qwen3-0.6b units + loss/count/norm",
+             topology=vc.label, pods=vc.pods, chips=vc.chips, elems=n_elems)
+    bad = gates.schedule_failures({"schema": r["schema"], "reports": [r]})
+    if bad:
+        raise AssertionError(f"schedule gate: {bad}")
+    print(f"[stepgraph] {vc.label}, {n_elems} elements per rank "
+          f"({n_elems * 4 / 1e9:.2f} GB; {n_elems * 4 * R / 1e9:.1f} GB a "
+          f"copy): rec.run() == per-leaf eager allreduce (torch.equal); "
+          f"messages {ar['before_messages']} -> {ar['after_messages']} "
+          f"({len(r['buckets'])} buckets, {r['singles']} singles), bytes "
+          f"{ar['before_bytes']} -> {ar['after_bytes']}; schedule "
+          f"{t_sched:.3f} ms against eager {t_eager:.3f} ms; schedule gate "
+          f"OK")
+    del grads, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -456,7 +659,8 @@ def main() -> int:
     import numpy as np
     from repro_torch.analysis import traffic
     from repro_torch.apps import bpmf, summa
-    from repro_torch.comm import Communicator
+    from repro_torch.bench import suites
+    from repro_torch.comm import Communicator, tuning
     from repro_torch.comm.quantize import dequantize_q4, quantize_q4
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
@@ -467,7 +671,9 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as kquant
     from repro_torch.models import ParallelCtx, build
+    from repro_torch.models import meta
     from repro_torch.models.attention import attn_flops
+    from repro_torch.serving.live_tuning import LiveTuner
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
     from repro_torch.substrate import VirtualCluster, default_matrix
     from repro_torch.substrate.collectives import recording
@@ -984,6 +1190,25 @@ def main() -> int:
     print(f"[phase] ag_matmul {time.perf_counter() - t_phase:.1f} s")
     launches = {"matmul": kmatmul.launches, "q4_matmul": kquant.launches}
 
+    # -- 10. collectives bench (while the card holds no model) -----------------
+    t_phase = time.perf_counter()
+    kmatmul.launches = 0            # the bench phase's own path
+    cfg = get_config("qwen3-0.6b")
+    tree = {}                       # the stacked per-layer parameter tree
+    meta.map_defs(lambda path, m: tree.setdefault(
+        "/".join(path), (cfg.n_units,) + m.shape) if path[0] == "units"
+        else None, meta.model_defs(cfg, 1, 1, "hier"))
+    collectives_bench(dev, g, sweep_elems=suites.QUICK_ELEMS, elems=2 ** 20,
+                      big=2 ** 22, mm=4096, tree=tree,
+                      table_path=str(tuning.default_table_path()))
+    if kmatmul.launches <= 0:
+        raise AssertionError("the bench phase never launched the panel "
+                             "kernel")
+    launches["matmul"] += kmatmul.launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase] collectives bench {time.perf_counter() - t_phase:.1f} s")
+
     # -- 8. serve qwen3-0.6b at full width --------------------------------------
     t_phase = time.perf_counter()
     cfg = get_config("qwen3-0.6b")
@@ -1007,8 +1232,10 @@ def main() -> int:
                for i in range(N_REQ)]
     mem0 = torch.cuda.memory_allocated(dev)
     rec = StreamRecorder(model)
+    tuner = LiveTuner(min_count=1)
     sched = ContinuousBatchingScheduler(model, params, slots=SLOTS,
-                                        s_max=S_MAX, decode_fn=rec.decode_fn)
+                                        s_max=S_MAX, decode_fn=rec.decode_fn,
+                                        tuner=tuner)
     rec.sched = sched
     page_bytes = torch.cuda.memory_allocated(dev) - mem0
     c1 = sched.pages.assert_c1()
@@ -1023,6 +1250,12 @@ def main() -> int:
     by_bucket = report_serving(sched, prompts, lengths, elapsed, done_at,
                                cfg, slots=SLOTS, s_max=S_MAX,
                                max_new=MAX_NEW)
+    key = sched._tuner_key
+    ewma = tuner.estimate("serving", tuning.topo_signature(1, 1), "float32",
+                          key["nbytes"], key["scheme"])
+    print(f"[serve] live tuner: serving/{key['scheme']} EWMA {ewma:.0f} us "
+          f"over {len(sched.stats)} decode steps; overlay has "
+          f"{len(tuner.overlay().entries)} entries")
     print(f"[serve] flash_attention launches in the serving run: "
           f"{flash_launches['qwen3-0.6b']} "
           f"({sum(len(v_) for v_ in by_bucket.values())} prefills x "
@@ -1179,7 +1412,7 @@ def main() -> int:
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash))}
-    print(f"[nonfinite] tiles recomputed over phases 3-9: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-10: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")

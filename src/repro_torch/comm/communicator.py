@@ -87,6 +87,10 @@ class Communicator:
 
     # -- structure -----------------------------------------------------------
     @property
+    def slow(self) -> Optional[Axis]:
+        return self.slow_axis
+
+    @property
     def axes(self) -> tuple[str, ...]:
         """Every mesh axis this communicator spans, slow tier first."""
         return p._world(self.fast_axis, self.slow_axis)
@@ -179,6 +183,7 @@ class Communicator:
         res = tuning.resolve_for(self, family,
                                  elems=self._auto_elems(family, x),
                                  elem_bytes=x.element_size(),
+                                 dtype=tuning.dtype_name(x.dtype),
                                  result_class=result, precision=precision,
                                  tol=tol)
         return res.scheme, {**res.opts, **opts}
@@ -281,6 +286,19 @@ class Communicator:
         _, out = self._call("alltoall", scheme, x, axis=axis, **opts)
         return out
 
+    # -- async (issue-early / resolve-late) -----------------------------------
+    def allgather_async(self, x, *, scheme: str = "auto", axis: int = 0,
+                        **opts):
+        """Issue the gather now, consume later: an ``AsyncCollectiveHandle``
+        whose ``resolve()`` gives the full node buffer ((local, pod) order,
+        as ``SharedWindow.read``).  The pick is constrained to the shared
+        result class — the window IS the async object; a store between
+        issue and resolve makes ``resolve()`` raise ``WindowEpochError``."""
+        from repro_torch.comm.handle import AsyncCollectiveHandle
+        win = self.allgather(x, scheme=scheme, axis=axis, result="shared",
+                             **opts)
+        return AsyncCollectiveHandle.issue("allgather", win)
+
     # -- fused collective-matmul (compute overlap) ----------------------------
     def ag_matmul(self, x, w_shard, *, n_chunks: int = 2,
                   use_kernel: bool = False, precision: str = "exact",
@@ -335,3 +353,18 @@ class Communicator:
         if self.slow_axis is None:
             return x
         return coll.psum(x, p._axes(self.slow_axis))
+
+    # -- step-graph optimizer -------------------------------------------------
+    def record(self, *, table=None):
+        """Open a step-graph recording against this communicator: record
+        collectives (``rec.allreduce`` / ``rec.gather``), get ``Deferred``
+        refs back, then ``rec.run()`` to bucket / dedup / reorder the whole
+        schedule and resolve the refs (``repro_torch.comm.stepgraph``)."""
+        from repro_torch.comm.stepgraph import GraphRecorder
+        return GraphRecorder(self, table=table)
+
+    def apply_schedule(self, schedule, values: dict) -> dict:
+        """Execute an already-optimized ``stepgraph.Schedule`` against this
+        communicator (``values``: nid -> operand; returns nid -> result)."""
+        from repro_torch.comm import stepgraph
+        return stepgraph.apply_schedule(self, schedule, values)

@@ -58,7 +58,10 @@ _EPS = 1e-30
 
 def _scale_of(amax: torch.Tensor, qmax: float) -> torch.Tensor:
     """``max(amax, eps) / qmax`` as the compiled reference computes it."""
-    recip = torch.tensor(1.0 / qmax, dtype=torch.float32, device=amax.device)
+    # a fill, not a host-to-device copy, so the body can be captured in a
+    # CUDA graph
+    recip = torch.full((), 1.0 / qmax, dtype=torch.float32,
+                       device=amax.device)
     return amax.clamp_min(_EPS) * recip
 
 

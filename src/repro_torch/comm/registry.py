@@ -174,6 +174,16 @@ class CollectiveScheme:
         """Divisor ``elems`` must tile by for this scheme (1 = any)."""
         return 1
 
+    def bucketable(self, family: str) -> bool:
+        """True when packing several same-axes / same-dtype operands into
+        one flat buffer and running this scheme once over it equals running
+        it once per operand — the contract the step-graph optimizer's
+        bucketing pass rewrites under.  Holds for a replicated exact
+        ``psum``; a shared result is a window over the *packed* layout, and
+        packing moves a lossy scheme's block boundaries."""
+        return family == "psum" and self.result_class == "replicated" \
+            and self.supports(family) and self.precision == "exact"
+
     # -- error model (lossy schemes only) ------------------------------------
     def error_bound_rel(self, family: str, *, pods: int) -> float:
         """Worst-case quantization error relative to the payload's per-block

@@ -15,8 +15,9 @@ end-to-end request latency percentiles.
 The model is the arch's ``reduced()`` config, as in the reference's
 launcher; weights are random, drawn on the device from ``--seed``.
 ``--rate 0`` (the default)
-submits everything up front — a closed batch.  ``--live-tuning`` is refused
-until ``serving/live_tuning.py`` is ported (ROADMAP Queue 1 item 15).
+submits everything up front — a closed batch.  ``--live-tuning`` feeds each
+decode step's latency to a ``LiveTuner`` and prints its EWMA and the size
+of the overlay table it would install.
 """
 
 from __future__ import annotations
@@ -55,12 +56,9 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--live-tuning", action="store_true",
-                    help="not ported yet (refused)")
+                    help="feed decode-step latencies to a LiveTuner")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.live_tuning:
-        ap.error("--live-tuning needs serving/live_tuning.py, not ported "
-                 "yet (ROADMAP Queue 1 item 15)")
     dev = torch.device(args.device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -83,9 +81,14 @@ def main(argv=None):
     arrivals = (np.zeros(args.requests) if args.rate <= 0 else
                 rng.exponential(1.0 / args.rate, args.requests).cumsum())
 
+    tuner = None
+    if args.live_tuning:
+        from repro_torch.serving.live_tuning import LiveTuner
+        tuner = LiveTuner(min_count=1)
+
     sched = ContinuousBatchingScheduler(
         model, params, slots=args.slots, s_max=s_max,
-        temperature=args.temperature, seed=args.seed)
+        temperature=args.temperature, seed=args.seed, tuner=tuner)
 
     done_at: dict[int, float] = {}
     rid_arrival: dict[int, float] = {}
@@ -123,6 +126,14 @@ def main(argv=None):
           f"p99 {_pct(e2e_ms, 0.99):8.1f}")
     print(f"  steps: {len(sched.stats)}  mean batch: "
           f"{np.mean([s.active for s in sched.stats if s.active]):.2f}")
+    if tuner is not None:
+        k = sched._tuner_key
+        from repro_torch.comm.tuning import topo_signature
+        est = tuner.estimate("serving", topo_signature(k["pods"], k["chips"]),
+                             "float32", k["nbytes"], k["scheme"])
+        print(f"  live tuner: serving/{k['scheme']} EWMA {est:.0f} us "
+              f"({len(sched.stats)} observations) — overlay has "
+              f"{len(tuner.overlay().entries)} entries")
     return 0
 
 

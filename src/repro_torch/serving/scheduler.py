@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.engine import GenResult, materialize_params
-from repro_torch.serving.kv_cache import KVCachePages
+from repro_torch.serving.kv_cache import KVCachePages, _leaves
 from repro_torch.serving.queue import Request, RequestQueue, bucket_len
 
 DecodeFn = Callable[..., tuple]
@@ -68,9 +68,9 @@ class ContinuousBatchingScheduler:
     """Fixed-slot continuous batching engine (single-device decode).
 
     ``decode_fn`` defaults to ``model.decode_fn``; any callable with its
-    signature may stand in.  ``tuner`` (the reference's ``LiveTuner``)
-    waits for ``serving/live_tuning.py`` to be ported (ROADMAP Queue 1
-    item 15) and is refused."""
+    signature may stand in.  ``tuner`` (a
+    :class:`repro_torch.serving.live_tuning.LiveTuner`) receives each
+    decode step's latency keyed by the decode batch signature."""
 
     def __init__(self, model, params, *, slots: int, s_max: int,
                  temperature: float = 0.0, seed: int = 0,
@@ -79,10 +79,6 @@ class ContinuousBatchingScheduler:
                  tuner=None):
         if slots < 1:
             raise ValueError("need at least one slot")
-        if tuner is not None:
-            raise NotImplementedError(
-                "live tuning (serving/live_tuning.py) is not ported yet: "
-                "ROADMAP Queue 1 item 15")
         self.model = model
         self.params = materialize_params(params)
         self.slots = slots
@@ -90,10 +86,20 @@ class ContinuousBatchingScheduler:
         self.temperature = temperature
         self.seed = seed
         self.queue = queue if queue is not None else RequestQueue()
+        self.tuner = tuner
         self.bucket_mode = _bucket_mode(model.cfg)
         self.pages = KVCachePages.for_model(model, slots, s_max)
         self._decode = decode_fn if decode_fn is not None \
             else model.decode_fn
+        # live-tuning feed: decode-step latencies land in the same
+        # (family="serving", topo, dtype, size-bucket) cells the reference's
+        # bench keys — nbytes is the model's parameter byte count in f32,
+        # the scheme label the decode path this engine runs (one card: a
+        # single-rank topology)
+        self._tuner_key = dict(
+            pods=1, chips=1,
+            nbytes=4 * sum(t.numel() for t in _leaves(self.params)),
+            scheme="sync")
 
         # host-side slot map
         self.active = np.zeros(slots, bool)
@@ -171,6 +177,8 @@ class ContinuousBatchingScheduler:
         new_cache, logits = self._decode(self.params, cache, tok, posv)
         lp = torch.log_softmax(logits[:, -1].float(), dim=-1).cpu().numpy()
         decode_us = (time.perf_counter() - t0) * 1e6
+        if self.tuner is not None:
+            self.tuner.observe("serving", us=decode_us, **self._tuner_key)
         self.pages = self.pages.commit(new_cache).fence()
 
         finished = 0

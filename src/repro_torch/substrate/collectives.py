@@ -113,12 +113,26 @@ def all_gather(x: torch.Tensor, axes: Axis, *, axis: int = 0,
     return out
 
 
+def _group_sum(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(G, n, *local) -> (G, *local): the members added left to right, in
+    ``dtype`` (half-width floats accumulate in f32 and round once, as
+    ``torch.sum`` does).  A fixed order for every shape: ``sum(dim=1)``
+    picks its order by shape, so a packed buffer would not reduce bit for
+    bit like its leaves."""
+    acc_dtype = torch.float32 if dtype in (torch.float16, torch.bfloat16) \
+        else dtype
+    acc = g[:, 0].to(acc_dtype, copy=True)
+    for i in range(1, g.shape[1]):
+        acc.add_(g[:, i])
+    return acc.to(dtype)
+
+
 def psum(x: torch.Tensor, axes: Axis) -> torch.Tensor:
     """Every member gets the group sum, in ``x``'s dtype (an int16 payload
     stays int16 on the wire, as ``lax.psum`` keeps it)."""
     mesh = active_mesh()
     g = mesh.to_groups(x, axes)
-    out = _replicate(mesh, g.sum(dim=1, dtype=x.dtype), g.shape[1], axes)
+    out = _replicate(mesh, _group_sum(g, x.dtype), g.shape[1], axes)
     _note("all-reduce", axes, out)
     return out
 
@@ -144,7 +158,7 @@ def psum_scatter(x: torch.Tensor, axes: Axis, *,
     if local[ax] % n:
         raise ValueError(f"scatter dim {local[ax]} does not tile over "
                          f"{n} ranks")
-    s = g.sum(dim=1, dtype=x.dtype)
+    s = _group_sum(g, x.dtype)
     pieces = s.reshape([G] + local[:ax] + [n, local[ax] // n]
                        + local[ax + 1:]).movedim(ax + 1, 1)
     out = mesh.from_groups(pieces, axes).contiguous()

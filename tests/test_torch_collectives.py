@@ -296,10 +296,23 @@ def test_registry_closed_forms_match_reference(label):
 
 @pytest.mark.parametrize("label", LABELS)
 def test_auto_resolution_matches_reference_model(label):
-    """The port resolves ``auto`` by the closed forms; the reference's
-    modeled pick (its measured table aside) must be the same scheme."""
+    """With no measured table (``use_table(None)``) the port resolves
+    ``auto`` by the closed forms; the reference's modeled pick (its measured
+    table aside) must be the same scheme.  The measured path's parity is
+    ``test_auto_resolution_matches_reference_measured`` and
+    ``tests/test_torch_tuning.py``."""
     _, vc = PAIRS[label]
     comm = Communicator.from_cluster(vc)
+    with tuning.use_table(None):
+        _modeled_picks_match(comm, vc)
+    bare = Communicator(fast_axis="data")
+    for family, name in tuning.FALLBACK[None].items():
+        assert tuning.resolve_for(bare, family, elems=8).scheme == name
+        assert jtuning.resolve(family, pods=None, chips=None,
+                               elems=8).scheme == name
+
+
+def _modeled_picks_match(comm, vc):
     for family in traffic.FAMILIES:
         for elems in (64, 1 << 16):
             for result in (None, "replicated", "shared"):
@@ -312,11 +325,43 @@ def test_auto_resolution_matches_reference_model(label):
                     result_class=result, precision="exact")
                 assert (got.scheme, got.opts, got.source) == \
                     (want[0], want[1], "modeled")
-    bare = Communicator(fast_axis="data")
-    for family, name in tuning.FALLBACK[None].items():
-        assert tuning.resolve_for(bare, family, elems=8).scheme == name
-        assert jtuning.resolve(family, pods=None, chips=None,
-                               elems=8).scheme == name
+
+
+@pytest.mark.parametrize("label", LABELS)
+def test_auto_resolution_matches_reference_measured(label):
+    """Given the same measured table (the reference's committed one, its
+    schema string mapped), ``auto`` dispatches through both packages'
+    ``Communicator`` to the same scheme and the same values."""
+    import json
+    import pathlib
+    jvc, vc = PAIRS[label]
+    with open(pathlib.Path(__file__).resolve().parent.parent
+              / "TUNING_default.json") as f:
+        d = json.load(f)
+    jtable = jtuning.TuningTable.from_dict(d)
+    table = tuning.TuningTable.from_dict(dict(d,
+                                              schema=tuning.SCHEMA_VERSION))
+    comm = Communicator.from_cluster(vc)
+    for family in traffic.FAMILIES:
+        for elems in (256, 1024, 1 << 16):
+            got = tuning.resolve_for(comm, family, elems=elems, table=table)
+            want = jtuning.resolve(family, pods=vc.pods, chips=vc.chips,
+                                   elems=elems,
+                                   n_fast_axes=len(vc.fast_names),
+                                   table=jtable)
+            assert (got.scheme, got.opts, got.source) == \
+                (want.scheme, want.opts, "measured")
+    x = np.random.default_rng(0).normal(
+        size=(vc.num_devices * 2, 3)).astype(np.float32)
+    with tuning.use_table(table), jtuning.use_table(jtable):
+        got = vc.run(lambda v: _raw(comm.allgather(v)), torch.from_numpy(x))
+        jcomm = JComm.from_cluster(jvc)
+        want = _jrun(jvc, lambda v: _raw(jcomm.allgather(v)), x)
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def _raw(out):
+    return out.shard if hasattr(out, "shard") else out
 
 
 def test_concrete_scheme_checked_against_result_constraint():

@@ -312,12 +312,12 @@ def test_lossy_opt_in_is_required_in_both_packages():
 @pytest.mark.parametrize("label", LABELS)
 def test_lossy_auto_pick_matches_reference_model(label):
     """Under ``precision="lossy"`` (tol None / 1e-3 / 1e-2) the port's
-    ``auto`` pick is the reference's modeled pick (its table emptied), or
+    ``auto`` pick is the reference's modeled pick (both tables emptied), or
     both refuse the cell."""
     _, vc = PAIRS[label]
     comm = Communicator.from_cluster(vc)
     n_fast = len(vc.fast_names)
-    with jtuning.use_table(None):
+    with jtuning.use_table(None), tuning.use_table(None):
         for family in traffic.FAMILIES:
             for elems in (64, 1 << 16):
                 for result in (None, "replicated", "shared"):

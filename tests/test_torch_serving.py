@@ -209,14 +209,36 @@ def test_temperature_sampling_is_slot_independent(qwen):
     np.testing.assert_array_equal(g0.tokens, g1.tokens)
 
 
-def test_scheduler_refuses_the_live_tuner_and_uses_pow2_buckets(qwen):
-    tm, tp = qwen[2], qwen[3]
+def test_scheduler_refuses_the_live_tuner_and_uses_pow2_buckets(qwen,
+                                                                  capsys):
+    """Since the live tuner was ported the scheduler no longer refuses it:
+    it feeds it one observation per decode step, keyed as the reference's
+    scheduler keys it, and ``--live-tuning`` prints the tuner's EWMA."""
+    from repro.serving.live_tuning import LiveTuner as JLiveTuner
+    from repro.serving.scheduler import \
+        ContinuousBatchingScheduler as JScheduler
+    from repro_torch.core.plans import size_bucket
+    from repro_torch.serving.live_tuning import LiveTuner
+
+    jm, jp, tm, tp = qwen
     assert _bucket_mode(tm.cfg) == "pow2"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ContinuousBatchingScheduler(tm, tp, slots=2, s_max=8,
-                                    tuner=object())
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--live-tuning"])
+    tuner = LiveTuner(min_count=1)
+    sched = ContinuousBatchingScheduler(tm, tp, slots=2, s_max=16,
+                                        tuner=tuner)
+    assert sched._tuner_key == JScheduler(
+        jm, jp, slots=2, s_max=16, tuner=JLiveTuner())._tuner_key
+    for p in _prompts(tm.cfg.vocab, [4, 6, 5]):
+        sched.queue.submit(p, 3)
+    sched.run()
+    k = sched._tuner_key
+    cell = tuner._cells[("serving", "1x1", "float32",
+                         size_bucket(k["nbytes"]))]
+    assert cell.count == {"sync": len(sched.stats)}
+    assert tuner.estimate("serving", "1x1", "float32", k["nbytes"],
+                          "sync") > 0
+    serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
+                "--live-tuning"])
+    assert "live tuner: serving/sync EWMA" in capsys.readouterr().out
 
 
 def test_serve_launcher_runs_on_the_cpu():
