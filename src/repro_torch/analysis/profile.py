@@ -6,6 +6,8 @@
     PYTHONPATH=src python -m repro_torch.analysis.profile --ag-matmul
     PYTHONPATH=src python -m repro_torch.analysis.profile --serve
         [--model recurrentgemma-9b]
+    PYTHONPATH=src python -m repro_torch.analysis.profile --train
+        [--mode hier|naive] [--layers N] [--topology 2x4]
 
 SUMMA: for each scheme, one warm-up run, then one profiled run of the whole
 multiply (all rounds, ``use_kernel=True``).  ``--ag-matmul``: the same for
@@ -16,7 +18,12 @@ down-projection (K = d_ff = 14336, N = d_model = 5120, 2048 tokens per rank,
 ``recurrentgemma-9b``) at full width (f32, random weights): one prefill of
 8 slots x 2048 tokens (s_max 4096), then one decode step of the 8 slots at
 position 2048, each with the share of device time in the flash-attention
-and lru_scan kernels.  Prints each
+and lru_scan kernels.  ``--train``: ``qwen3-0.6b``'s cluster train step
+(``runtime.steps``) at full width — full depth unless ``--layers`` cuts
+it — in ``--mode`` on the stacked ``--topology``, global batch 8 x 2048
+tokens: one warm-up step, then one profiled step, with the shares of the
+flash forward and backward kernels and of the f32 matrix products.  Prints
+each
 run's wall time, the device busy time (the union of every kernel and copy
 interval on the card, so overlapping streams count once), the busy share of
 the wall time, and the kernels that took most device time.  Needs a CUDA
@@ -141,13 +148,47 @@ def profile_serve(dev: torch.device, name: str, top: int = 8) -> None:
     _print_share(r)
 
 
-#: The port's kernels by a part of their device names.
-KERNELS = {"flash_attention": "flash_fwd", "lru_scan": "lru_scan_kernel"}
+def profile_train(dev: torch.device, mode: str, topology: str,
+                  layers: int, top: int = 10) -> None:
+    """One step of ``qwen3-0.6b``'s cluster train step at full width."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.steps import make_cluster_train_step
+    cfg = get_config("qwen3-0.6b")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    pods, chips = (int(x) for x in topology.split("x"))
+    vc = VirtualCluster(pods=pods, chips=chips, device=dev)
+    bundle = make_cluster_train_step(cfg, vc, mode=mode, global_batch=8)
+    state = bundle.init_layout_state(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = bundle.layout_batch({"tokens": torch.randint(
+        0, cfg.vocab, (8, 2049), generator=g, device=dev,
+        dtype=torch.int32)})
+    print(f"{torch.cuda.get_device_name(0)}; {cfg.name} full width, "
+          f"{cfg.n_layers} layers, f32, {mode} on {vc.label}, train step "
+          f"of 8 x 2048 tokens")
+
+    def step():
+        bundle.step(state, batch)
+
+    r = profile_run(step, top)
+    _print("train", r)
+    _print_share(r)
+
+
+#: The port's kernels (and the library's f32 products) by parts of their
+#: device names.
+KERNELS = {"flash_attention": ("flash_fwd",),
+           "flash_attention_bwd": ("flash_bwd", "prep<"),
+           "lru_scan": ("lru_scan_kernel",),
+           "f32 matrix products (cuBLAS)": ("gemm", "gemv")}
 
 
 def _print_share(r: dict) -> None:
-    for kernel, part in KERNELS.items():
-        hits = [ms for name, ms in r["all"] if part in name]
+    for kernel, parts in KERNELS.items():
+        hits = [ms for name, ms in r["all"]
+                if any(part in name for part in parts)]
         print(f"[profile]    {kernel} kernel {sum(hits):.2f} ms = "
               f"{100 * sum(hits) / r['busy_ms']:.1f}% of device busy time"
               + ("" if hits else " (not launched)"))
@@ -163,6 +204,12 @@ def main(argv=None):
                     help="profile a full-width model's prefill and decode")
     ap.add_argument("--model", default="qwen3-0.6b",
                     help="the model --serve profiles")
+    ap.add_argument("--train", action="store_true",
+                    help="profile qwen3-0.6b's cluster train step")
+    ap.add_argument("--mode", default="hier", choices=["hier", "naive"])
+    ap.add_argument("--topology", default="2x4")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth for --train (0: all 28)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -173,6 +220,9 @@ def main(argv=None):
         return
     if args.serve:
         profile_serve(dev, args.model)
+        return
+    if args.train:
+        profile_train(dev, args.mode, args.topology, args.layers)
         return
     g = torch.Generator(device=dev).manual_seed(0)
     a = torch.randn((args.n, args.n), generator=g, device=dev)

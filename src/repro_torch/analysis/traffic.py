@@ -7,8 +7,9 @@ record with the same ring formulas and holds it against each registry
 entry's ``links()`` closed form.
 
 C1 (one result copy per node) is measured, not modeled: the bytes a
-collective's result holds on the device — ``torch.cuda.memory_allocated``
-on the card, the result's storage on the CPU — per node, for the naive and
+collective's result holds on the device — the allocator's live bytes on
+the card (``device_bytes``), the result's storage on the CPU — per node,
+for the naive and
 the shared scheme, must stand in the registry's ratio (``ranks_per_node``
 for the full-result families).
 
@@ -72,16 +73,25 @@ def _tensors(out) -> list[torch.Tensor]:
     return [t for o in out for t in _tensors(o)]
 
 
+def device_bytes(device: torch.device) -> int:
+    """The bytes live tensors hold on the card, as the caching allocator
+    reports them (``requested_bytes``: each tensor's own size).
+    ``memory_allocated`` counts allocator blocks instead, and a block less
+    than 1 MiB larger than a request is handed out, and counted, whole, so
+    its count depends on what the allocator cached before."""
+    return torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+
+
 def resident_bytes(make: Callable[[], object], device: torch.device
                    ) -> tuple[int, object]:
     """Device bytes held by the result of ``make()`` (which creates its own
     inputs, so that only what the result keeps is counted), and the result."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-        before = torch.cuda.memory_allocated(device)
+        before = device_bytes(device)
         out = make()
         torch.cuda.synchronize(device)
-        return torch.cuda.memory_allocated(device) - before, out
+        return device_bytes(device) - before, out
     out = make()
     seen, total = set(), 0
     for t in _tensors(out):

@@ -12,7 +12,7 @@ for every measured config; ANY mismatch fails the bench run
    missing collective, or a wrong group, shows up here.
 2. **Resident bytes** (``result/node``, ``model/result-node``) — the bytes
    the result holds on the device (``analysis.traffic.resident_bytes``:
-   ``torch.cuda.memory_allocated`` growth on the card), per node, must
+   the allocator's live bytes on the card), per node, must
    equal ``result_node()`` and the case's plans traffic model for the
    families whose results C1 compares
    (``analysis.traffic.C1_FAMILIES``; allgatherv's int32 counts sit below

@@ -185,7 +185,7 @@ class Communicator:
                                  elem_bytes=x.element_size(),
                                  dtype=tuning.dtype_name(x.dtype),
                                  result_class=result, precision=precision,
-                                 tol=tol)
+                                 tol=tol, payload_dims=x.dim() - 1)
         return res.scheme, {**res.opts, **opts}
 
     def _call(self, family: str, scheme: str, *args, **kw):

@@ -68,21 +68,24 @@ class AsyncCollectiveHandle:
     @classmethod
     def issue(cls, family: str, window: SharedWindow, *,
               stream: Optional[torch.cuda.Stream] = None,
-              event: bool = True) -> "AsyncCollectiveHandle":
+              event: bool = True, node: bool = False
+              ) -> "AsyncCollectiveHandle":
         """Start the collective: read the (clean) window on a side stream
         (``stream``, or the card's) and record an event after it.  Raises
         ``WindowEpochError`` if the window is dirty — an async gather may
         not overlap an open store epoch.  ``event=False`` leaves the event
         to the caller (``stepgraph.apply_schedule`` records one for the
-        whole schedule)."""
+        whole schedule).  ``node=True`` reads a one-node window as one
+        buffer (``SharedWindow.read_node``)."""
         window._check_clean()
         shard = window.shard
+        read = window.read_node if node else window.read
         side = stream if stream is not None else side_stream(shard.device)
         if side is None:
-            return cls(family=family, window=window, value=window.read(),
+            return cls(family=family, window=window, value=read(),
                        event=None, issue_epoch=window.epoch)
         with torch.cuda.stream(side):
-            value = window.read()
+            value = read()
             ev = side.record_event() if event else None
         shard.record_stream(side)
         return cls(family=family, window=window, value=value, event=ev,

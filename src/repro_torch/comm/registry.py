@@ -174,6 +174,11 @@ class CollectiveScheme:
         """Divisor ``elems`` must tile by for this scheme (1 = any)."""
         return 1
 
+    def min_payload_dims(self, family: str) -> int:
+        """Dims a rank's payload needs: 1, as the scheme splits or joins it
+        along ``axis``; 0 for one that also takes a per-rank scalar."""
+        return 1
+
     def bucketable(self, family: str) -> bool:
         """True when packing several same-axes / same-dtype operands into
         one flat buffer and running this scheme once over it equals running
@@ -272,6 +277,9 @@ class NaiveScheme(CollectiveScheme):
              p.naive_all_gather(valid, fast_axis=fast, slow_axis=slow,
                                 axis=axis)),
     })
+
+    def min_payload_dims(self, family):
+        return 0 if family == "psum" else 1     # the flat sum takes a scalar
 
     def tiling(self, family, *, pods, chips):
         return pods * chips if family == "reduce_scatter" else 1

@@ -336,13 +336,16 @@ class Resolution:
 
 def _usable(sch, family: str, result_class: Optional[str], pods: int,
             chips: int, elems: int, precision: str = "exact",
-            tol: Optional[float] = None):
+            tol: Optional[float] = None, payload_dims: int = 1):
     """The scheme's valid tunable grid for this cell, or ``None`` when the
-    caller's result-class / precision constraint or the cell's tiling rules
-    it out.  ``precision="exact"`` filters lossy schemes out entirely;
-    ``"lossy"`` admits them unless their ``error_bound_rel`` exceeds
-    ``tol``."""
+    caller's result-class / precision constraint, the cell's tiling or a
+    payload of fewer dims than the scheme splits (``payload_dims``, the
+    dims of one rank's payload) rules it out.  ``precision="exact"``
+    filters lossy schemes out entirely; ``"lossy"`` admits them unless
+    their ``error_bound_rel`` exceeds ``tol``."""
     if result_class is not None and sch.result_class != result_class:
+        return None
+    if payload_dims < sch.min_payload_dims(family):
         return None
     if sch.precision == "lossy":
         if precision != "lossy":
@@ -359,14 +362,15 @@ def best_scheme_predicted(family: str, *, pods: int, chips: int, elems: int,
                           result_class: Optional[str] = None,
                           precision: str = "exact",
                           tol: Optional[float] = None,
-                          populations: Optional[Sequence[int]] = None
+                          populations: Optional[Sequence[int]] = None,
+                          payload_dims: int = 1
                           ) -> Optional[tuple[str, dict, float]]:
     """Model-predicted (scheme, opts, time) for one cell; ties go to the
     first registered scheme."""
     best = None
     for sch in registry.schemes_for(family):
         if _usable(sch, family, result_class, pods, chips, elems,
-                   precision, tol) is None:
+                   precision, tol, payload_dims) is None:
             continue
         pred = sch.predicted_time(family, pods=pods, chips=chips,
                                   elems=elems, elem_bytes=elem_bytes,
@@ -391,10 +395,13 @@ def resolve(family: str, *, pods: Optional[int], chips: Optional[int],
             elems: int, elem_bytes: int = 4, dtype: str = "float32",
             n_fast_axes: int = 1, result_class: Optional[str] = None,
             precision: str = "exact", tol: Optional[float] = None,
-            table: Optional[TuningTable] = None) -> Resolution:
+            table: Optional[TuningTable] = None,
+            payload_dims: int = 1) -> Resolution:
     """Resolve one ``scheme="auto"`` dispatch (measured -> modeled ->
     fallback).  ``result_class`` constrains the pick to one result class;
-    ``precision`` / ``tol`` to exact schemes or admitted lossy ones."""
+    ``precision`` / ``tol`` to exact schemes or admitted lossy ones;
+    ``payload_dims`` (the dims of one rank's payload) to the schemes that
+    can take it, so a per-rank scalar skips the measured split schemes."""
     if result_class not in (None, "replicated", "shared"):
         raise ValueError(f"bad result constraint {result_class!r}")
     if precision not in ("exact", "lossy"):
@@ -412,7 +419,7 @@ def resolve(family: str, *, pods: Optional[int], chips: Optional[int],
                 except KeyError:
                     continue           # table from a build with more schemes
                 cands = _usable(sch, family, result_class, pods, chips,
-                                elems, precision, tol)
+                                elems, precision, tol, payload_dims)
                 if cands is None:
                     continue
                 opts = dict(choice.opts)
@@ -427,7 +434,8 @@ def resolve(family: str, *, pods: Optional[int], chips: Optional[int],
         best = best_scheme_predicted(family, pods=pods, chips=chips,
                                      elems=elems, elem_bytes=elem_bytes,
                                      result_class=result_class,
-                                     precision=precision, tol=tol)
+                                     precision=precision, tol=tol,
+                                     payload_dims=payload_dims)
         if best is not None:
             return Resolution(best[0], best[1], "modeled")
         raise ValueError(
@@ -455,14 +463,15 @@ def resolve(family: str, *, pods: Optional[int], chips: Optional[int],
 def resolve_for(comm, family: str, *, elems: int, elem_bytes: int = 4,
                 dtype: str = "float32", result_class: Optional[str] = None,
                 precision: str = "exact", tol: Optional[float] = None,
-                table: Optional[TuningTable] = None) -> Resolution:
+                table: Optional[TuningTable] = None,
+                payload_dims: int = 1) -> Resolution:
     """``resolve`` keyed by a ``Communicator``'s static structure."""
     from repro_torch.comm import primitives as p
     return resolve(family, pods=comm.pods, chips=comm.chips, elems=elems,
                    elem_bytes=elem_bytes, dtype=dtype,
                    n_fast_axes=len(p._axes(comm.fast_axis)),
                    result_class=result_class, precision=precision, tol=tol,
-                   table=table)
+                   table=table, payload_dims=payload_dims)
 
 
 # ---------------------------------------------------------------------------

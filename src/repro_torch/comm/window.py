@@ -11,6 +11,8 @@ device those shards are one allocation.  ``SharedWindow`` wraps the stacked
 shards ``(R, *shard)`` together with its communicator and an epoch counter:
 
 * ``read()``        — load the full node buffer (intra-pod gather at use);
+* ``read_node()``   — for a window over ONE node's members: the node's
+                      buffer once (the per-memory-domain model run);
 * ``store(x)``      — replace the local shards, opening a dirty epoch;
 * ``accumulate(x)`` — reduce-scatter partial contributions into the window;
 * ``fence()``       — close the epoch with a node barrier (``core.sync``);
@@ -96,6 +98,17 @@ class SharedWindow:
         return p.shared_read(self.shard, fast_axis=self.comm.fast_axis,
                              axis=self.axis)
 
+    def read_node(self) -> torch.Tensor:
+        """The node's buffer as ONE tensor, for a window whose ``shard`` is
+        a single node's members ``(n, *shard)`` — what a model run once per
+        memory domain reads (``models.parallel``): the members' shards
+        joined along ``axis`` in member order, one copy for the node.  Its
+        gradient splits the cotangent back into the members' shards, the
+        node's reduce-scatter store with the sum over the node's ranks
+        already taken by the batch the run folds together."""
+        self._check_clean()
+        return node_read(self.shard, self.axis)
+
     def read_rank_order(self) -> torch.Tensor:
         """Full buffer in SMP (pod, local_rank) rank order; needs the
         communicator's static shape."""
@@ -111,6 +124,14 @@ class SharedWindow:
 # ---------------------------------------------------------------------------
 # FSDP-style parameter access (the window applied along a weight dim).
 # ---------------------------------------------------------------------------
+
+def node_read(shards: torch.Tensor, axis: int) -> torch.Tensor:
+    """One node's members ``(n, *shard)`` joined along local ``axis``
+    (differentiable: the transpose is the split)."""
+    shape = list(shards.shape[1:])
+    shape[axis] *= shards.shape[0]
+    return shards.movedim(0, axis).reshape(shape)
+
 
 def window_gather(x: torch.Tensor, dim: Optional[int], fast_axis
                   ) -> torch.Tensor:

@@ -7,7 +7,10 @@ of every rank's local shard).  These helpers lay such an array out as the
 port's stacked ``(R, m, ...)`` tensor on a chosen device, and back.
 bfloat16 arrays cross as their 16-bit patterns; they come back as float32
 (numpy has no bfloat16 of its own).  ``params_from_reference`` puts the
-reference model's parameter tree onto a device as the port's.
+reference model's parameter tree onto a device as the port's;
+``train_state_from_reference`` / ``train_state_to_reference`` carry a
+cluster train step's state ``{"params", "m", "v", "step"}`` across, so both
+packages start the same step from the same state.
 """
 
 from __future__ import annotations
@@ -62,3 +65,26 @@ def window_to_shards(win: SharedWindow) -> tuple[np.ndarray, dict]:
     reference window's ``shard`` leaf and aux data)."""
     return from_stacked(win.shard), {"axis": win.axis, "epoch": win.epoch,
                                      "dirty": win.dirty}
+
+
+def train_state_from_reference(state, vc, specs) -> dict:
+    """The reference's train state as its ``smap`` returns it (global
+    arrays: a sharded leaf's shards joined, a replicated leaf once) -> the
+    port's state laid out on ``vc`` under ``specs`` (the bundle's
+    ``state_specs``): stacked ``(R, *local)`` tensors on its device."""
+    return vc.layout(params_from_reference(state, vc.device), specs)
+
+
+def train_state_to_reference(state, vc, specs) -> dict:
+    """Inverse of ``train_state_from_reference``: the global numpy arrays
+    the reference's step takes (member 0 of every replica)."""
+    def out(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    glob = vc.unlayout(state, specs)
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        return out(x)
+    return walk(glob)

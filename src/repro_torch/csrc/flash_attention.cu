@@ -61,9 +61,14 @@
 // pre-pass costs one read of V; the check, one isfinite per output and
 // one barrier per tile.
 //
+// For training the forward also writes each row's log-sum-exp of the
+// scaled scores, lse = m + log(l) in fp32 ((B, H, Tq), contiguous), which
+// the backward (flash_attention_bwd.cu) recomputes P from; with a null lse
+// pointer nothing else changes, and the output is the same bits either way.
+//
 // What it still gives up: wgmma and TMA with a producer warp (warp
-// specialisation), K / V split once per CTA instead of once per warp, a
-// 128-row q tile, and a backward kernel.
+// specialisation), K / V split once per CTA instead of once per warp, and
+// a 128-row q tile.
 //
 // Operands are (B, H, T, hd) views with element strides for b, h and t and
 // a unit stride along hd, so the model's (B, T, H, hd) tensors run without
@@ -106,6 +111,7 @@ struct Params {
   long long qs[3], ks[3], vs[3], os[3];            // strides of b, h, t
   const int* v_bad;  // set by v_nonfinite: V holds a non-finite element
   int* recomputes;   // tiles recomputed under the non-finite rule
+  float* lse;        // (B, H, Tq) row log-sum-exp, or null
 };
 
 // *flag = 1 if an element of V is not finite.  Grid (x, B * KV); hd is
@@ -142,7 +148,8 @@ __global__ void __launch_bounds__(256)
 // make the row NaN, and a weight of 0 times an infinite V element is NaN.
 template <typename T, int HD, int THREADS>
 __device__ void exact_tile(const T* q, const T* k, const T* v, T* o,
-                           const Params& p, int q0, int warp, int lane) {
+                           float* lse, const Params& p, int q0, int warp,
+                           int lane) {
   constexpr int DL = (HD + 31) / 32;  // hd columns per lane
   for (int r = warp; r < BQ && q0 + r < p.Tq; r += THREADS / 32) {
     const int row = q0 + r;
@@ -189,6 +196,7 @@ __device__ void exact_tile(const T* q, const T* k, const T* v, T* o,
       if (lane + 32 * i < HD)
         o[(long long)row * p.os[2] + lane + 32 * i] =
             narrow<T>(nan || m == -INFINITY ? NAN : ov[i] / den);
+    if (lse != nullptr && lane == 0) lse[row] = m + logf(l);
   }
 }
 
@@ -222,6 +230,8 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
   const T* k = K + b * p.ks[0] + kvh * p.ks[1];
   const T* v = V + b * p.vs[0] + kvh * p.vs[1];
   T* o_ptr = O + b * p.os[0] + h * p.os[1];
+  float* lse = p.lse == nullptr ? nullptr
+                                : p.lse + ((long long)b * p.H + h) * p.Tq;
 
   // kv tile `tile` into ring slot s: rows of 4-element chunks, consecutive
   // threads along a row (coalesced); rows past Tkv zero-filled
@@ -432,7 +442,7 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
   }
   if (__syncthreads_or(bad)) {
     if (tid == 0) atomicAdd(p.recomputes, 1);
-    exact_tile<T, HD, THREADS>(q, k, v, o_ptr, p, q0, warp, lane);
+    exact_tile<T, HD, THREADS>(q, k, v, o_ptr, lse, p, q0, warp, lane);
     return;
   }
 #pragma unroll
@@ -444,6 +454,8 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       store2(op + 8 * n, o[n][2 * r] / den, o[n][2 * r + 1] / den);
+    // a quad's 4 lanes hold the same m and l (both warps of a pair too)
+    if (lse != nullptr && t == 0 && warp < 4) lse[row] = m[r] + logf(l[r]);
   }
 }
 
@@ -464,11 +476,12 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
 
 // dims: B, H, Tq, Tkv, hd, group, causal, window (0 = none), q_offset, then
 // the b, h, t element strides of q, k, v and o (12 values).  flag: one
-// device int of scratch (the pre-pass's); recomputes: the device counter.
+// device int of scratch (the pre-pass's); recomputes: the device counter;
+// lse: (B, H, Tq) fp32 for the row log-sum-exp, or null.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long* dims, float scale, void* flag, void* recomputes,
-           void* stream) {
+           void* lse, void* stream) {
   Params p;
   const int B = (int)dims[0];
   p.H = (int)dims[1];
@@ -488,6 +501,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   }
   p.v_bad = static_cast<const int*>(flag);
   p.recomputes = static_cast<int*>(recomputes);
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -517,15 +531,16 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* o,
                                          const long long* dims, float scale,
                                          void* flag, void* recomputes,
-                                         void* stream) {
-  return launch<float>(q, k, v, o, dims, scale, flag, recomputes, stream);
+                                         void* lse, void* stream) {
+  return launch<float>(q, k, v, o, dims, scale, flag, recomputes, lse,
+                       stream);
 }
 
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o,
                                           const long long* dims, float scale,
                                           void* flag, void* recomputes,
-                                          void* stream) {
+                                          void* lse, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, dims, scale, flag, recomputes,
-                               stream);
+                               lse, stream);
 }

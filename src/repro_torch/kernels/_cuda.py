@@ -30,7 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("matmul.cu", "q4_matmul.cu", "flash_attention.cu", "lru_scan.cu")
+SOURCES = ("matmul.cu", "q4_matmul.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu", "lru_scan.cu")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,7 +18,10 @@ transpose copy); hd is one of ``HEAD_DIMS``; f32 or bf16.
 
 ``flash_attention_cuda`` checks device, dtype, shape and strides, raises on
 anything else, launches on the current stream and counts the launch in
-``launches``.  ``recomputes`` counts, on the card, the q tiles that the
+``launches``; with ``return_lse=True`` it also returns each row's fp32
+log-sum-exp of the scaled scores (B, H, Tq), which the backward kernel
+(``kernels.flash_attention_bwd``) recomputes P from — the output is the
+same bits either way.  ``recomputes`` counts, on the card, the q tiles that the
 non-finite rule sent to the kernel's exact loop (``csrc/tf32x3.cuh``): 0
 wherever q, k, v and the output are finite.  ``flash_attention_plain``
 is the same function in plain PyTorch (exact softmax over the whole key
@@ -61,7 +64,7 @@ def library() -> _cuda.Library:
     for name in _ENTRY.values():
         fn = getattr(lib.cdll, name)
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
-                       + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return lib
 
@@ -138,9 +141,9 @@ def kernel_ready(x: torch.Tensor) -> bool:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None, q_offset: int = 0,
-                         layout: str = "bhtd") -> torch.Tensor:
+                         layout: str = "bhtd", return_lse: bool = False):
     """Launch the Hopper kernel (CUDA operands on one device that
-    ``kernel_ready`` accepts)."""
+    ``kernel_ready`` accepts); ``return_lse`` gives ``(out, lse)``."""
     global launches
     _check(q, k, v, window, layout)
     if q.device.type != "cuda" or k.device != q.device \
@@ -161,8 +164,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_cuda grid limit exceeded by q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     out = torch.empty(tuple(q.shape), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     o4 = _bhtd(out, layout)
     dims = (ctypes.c_longlong * _N_DIMS)(
         B, H, Tq, Tkv, hd, H // KV, int(causal), window or 0, q_offset,
@@ -174,10 +179,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
                  dims, 1.0 / math.sqrt(hd), flag.data_ptr(),
-                 recomputes.buffer(q.device).data_ptr(), stream)
+                 recomputes.buffer(q.device).data_ptr(),
+                 lse.data_ptr() if return_lse else None, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {err} for q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)} ({layout})")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

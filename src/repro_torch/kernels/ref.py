@@ -171,3 +171,131 @@ def attention_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor,
     o = exact() if not torch.isfinite(v).all() else _recompute_tiles(
         attend(_tf32x3), exact, 64, hd)
     return o.reshape(B, H, Tq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The flash backward kernel's algorithm (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _visible(Tq: int, Tkv: int, causal: bool, window: Optional[int],
+             q_offset: int, device) -> torch.Tensor:
+    """(Tq, Tkv) bool: the keys each row sees under the forward's mask."""
+    qpos = q_offset + torch.arange(Tq, device=device)
+    kpos = torch.arange(Tkv, device=device)
+    vis = torch.ones((Tq, Tkv), dtype=torch.bool, device=device)
+    if causal:
+        vis &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        vis &= (qpos[:, None] - kpos[None, :]) < window
+    return vis
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """The forward kernel's ``lse`` output, (B, H, Tq) fp32: the log-sum-exp
+    of each row's visible scaled scores (-inf for a row with none)."""
+    B, H, Tq, hd = q.shape
+    KV, Tkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, Tq, hd) * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bkgqd,bktd->bkgqt", qf, k.float())
+    vis = _visible(Tq, Tkv, causal, window, q_offset, q.device)
+    s = torch.where(vis, s, torch.full((), -math.inf, device=q.device))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Tq)
+
+
+def flash_attention_bwd_emulated(q, k, v, o, do, lse, *, causal: bool = True,
+                                 window: Optional[int] = None,
+                                 q_offset: int = 0, bq: int = 64,
+                                 bk: int = 32) -> tuple[torch.Tensor, ...]:
+    """The backward kernel's arithmetic on the CPU (bhtd layout): D =
+    rowsum(do o o); per (q tile, key tile) P = exp(scale q.k - lse) on the
+    visible keys (0 elsewhere and on rows with no visible key), dP = do.v,
+    dS = P (dP - D), dq += dS k, dk += dS^T q, dv += P^T do, all in fp32;
+    then each row with no visible key adds do / Tkv to every key's dv.
+    When q, k, v or do holds a non-finite or large (|x| > 1e15) element, or
+    D or a visible row's lse is not finite, the kernel's exact path is
+    taken instead: the plain version's autograd formulas written out
+    (``_bwd_exact``).  Returns (dq, dk, dv) in the operands' dtype."""
+    B, H, Tq, hd = q.shape
+    KV, Tkv = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    vis = _visible(Tq, Tkv, causal, window, q_offset, q.device)
+    has_key = vis.any(dim=1)
+    D = (do.float() * o.float()).sum(-1)
+    large = [x.float() for x in (q, k, v, do)]
+    bad = any((~torch.isfinite(x) | (x.abs() > 1e15)).any() for x in large)
+    bad = bad or not torch.isfinite(D).all() \
+        or not torch.isfinite(lse[..., has_key]).all()
+    if bad:
+        return _bwd_exact(q, k, v, do, vis)
+    qs = q.float().reshape(B, KV, G, Tq, hd) * scale
+    kf, vf = k.float(), v.float()
+    g = do.float().reshape(B, KV, G, Tq, hd)
+    L = lse.float().reshape(B, KV, G, Tq)
+    Dg = D.reshape(B, KV, G, Tq)
+    dq = torch.zeros_like(qs)
+    dk = torch.zeros(B, KV, Tkv, hd)
+    dv = torch.zeros(B, KV, Tkv, hd)
+    for i0 in range(0, Tq, bq):
+        i1 = min(i0 + bq, Tq)
+        for j0 in range(0, Tkv, bk):
+            j1 = min(j0 + bk, Tkv)
+            s = torch.einsum("bkgqd,bktd->bkgqt", qs[..., i0:i1, :],
+                             kf[:, :, j0:j1])
+            m = vis[i0:i1, j0:j1] & has_key[i0:i1, None]
+            p = torch.where(m, torch.exp(s - L[..., i0:i1, None]),
+                            torch.zeros(()))
+            dp = torch.einsum("bkgqd,bktd->bkgqt", g[..., i0:i1, :],
+                              vf[:, :, j0:j1])
+            ds = p * (dp - Dg[..., i0:i1, None])
+            dq[..., i0:i1, :] += torch.einsum("bkgqt,bktd->bkgqd", ds,
+                                              kf[:, :, j0:j1])
+            dk[:, :, j0:j1] += torch.einsum("bkgqt,bkgqd->bktd", ds,
+                                            qs[..., i0:i1, :])
+            dv[:, :, j0:j1] += torch.einsum("bkgqt,bkgqd->bktd", p,
+                                            g[..., i0:i1, :])
+    spread = g[..., ~has_key, :].sum(dim=(2, 3)) / Tkv      # (B, KV, hd)
+    dv += spread[:, :, None, :]
+    return ((dq * scale).reshape(B, H, Tq, hd).to(q.dtype),
+            dk.to(k.dtype), dv.to(v.dtype))
+
+
+def _bwd_exact(q, k, v, do, vis):
+    """The exact path: the plain version's forward and the autograd formulas
+    of each of its steps, written out in fp32 — the NaN-propagating max and
+    its ties, exp(s - max), the sum clamped at 1e-30 (whose gradient is 0
+    where the sum is below it or NaN), the division's two gradients, the
+    max's gradient divided over the ties and times the tie mask, the mask's
+    zero."""
+    B, H, Tq, hd = q.shape
+    KV, Tkv = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, KV, G, Tq, hd) * scale
+    kf, vf = k.float(), v.float()
+    g = do.float().reshape(B, KV, G, Tq, hd)
+    s = torch.where(vis, torch.einsum("bkgqd,bktd->bkgqt", qf, kf),
+                    torch.full((), -1e30))
+    nan = torch.isnan(s)
+    mx = torch.where(nan.any(dim=-1, keepdim=True), torch.full((), math.nan),
+                     s.masked_fill(nan, -math.inf).amax(-1, True))
+    tie = (s == mx).float()
+    ties = tie.sum(-1, keepdim=True)
+    e = torch.exp(s - mx)
+    total = e.sum(-1, keepdim=True)
+    ou = torch.einsum("bkgqt,bktd->bkgqd", e, vf)
+    den = torch.where(torch.isnan(total), total, total.clamp_min(1e-30))
+    dou = g / den
+    dden = (-g * ((ou / den) / den)).sum(-1, keepdim=True)
+    dsum = torch.where(total >= 1e-30, dden, torch.zeros(()))
+    de = dsum + torch.einsum("bkgqd,bktd->bkgqt", dou, vf)
+    dsm = de * e
+    dmx = (-dsm).sum(-1, keepdim=True)
+    ds = torch.where(vis, dsm + (dmx / ties) * tie, torch.zeros(()))
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qf)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", e, dou)
+    return (dq.reshape(B, H, Tq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -1,0 +1,120 @@
+"""Training launcher: the cluster train step over a synthetic token stream.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        [--reduced] --topology 2x4 --mode hier|naive --steps N --batch B \\
+        --seq T [--device cuda|cpu] [--opts prefetch,stepgraph]
+
+Builds ``runtime.steps.make_cluster_train_step`` on a stacked
+``VirtualCluster`` of ``pods x chips`` ranks (``--topology``) on one device,
+draws the parameters from ``--seed`` on that device, lays the state out
+(hier: one copy per node, sharded over its ranks; naive: a replica per
+rank) and drives ``--steps`` steps over ``data/synthetic.py``'s stream.  It
+prints one line per step — loss, gnorm, the step's milliseconds (host clock
+around work that ends in a synchronize) and tokens/s — then the training
+state's device bytes by group (params / m / v / grads) and, on the card,
+the flash-attention kernel's forward and backward launch counts.
+``--reduced`` is the arch's ``reduced()`` config (``--n-layers``,
+``--d-model``).  ``--ckpt`` (the checkpointer and the train loop) is ROADMAP
+Queue 1 item 14 and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import tree as T
+from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import flash_attention_bwd as kflash_bwd
+from repro_torch.models.meta import not_ported
+from repro_torch.runtime.steps import make_cluster_train_step
+from repro_torch.substrate import VirtualCluster
+
+
+def state_bytes(state: dict, grad_bytes: int) -> dict:
+    """Device bytes of the laid-out training state by group."""
+    out = {g: sum(t.numel() * t.element_size() for t in T.leaves(state[g]))
+           for g in ("params", "m", "v")}
+    out["grads"] = grad_bytes
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="cluster train step driver "
+                                             "(synthetic tokens)")
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--d-model", type=int, default=64)
+    ap.add_argument("--n-layers", type=int, default=2)
+    ap.add_argument("--topology", default="2x4",
+                    help="PODSxCHIPS stacked on the one device")
+    ap.add_argument("--mode", default="hier", choices=["hier", "naive"])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--clip", type=float, default=1.0)
+    ap.add_argument("--opts", default="",
+                    help="comma-separated ctx opts (prefetch, stepgraph, "
+                         "overlap)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt", default=None)
+    args = ap.parse_args(argv)
+    if args.ckpt:
+        raise not_ported("checkpointing and the train loop "
+                         "(checkpoint/checkpointer.py, runtime/train_loop.py)",
+                         14)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced(n_layers=args.n_layers, d_model=args.d_model)
+    pods, chips = (int(x) for x in args.topology.lower().split("x"))
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but no CUDA device is visible "
+                         "(pass --device cpu)")
+    vc = VirtualCluster(pods=pods, chips=chips, device=dev)
+    opts = tuple(o for o in args.opts.split(",") if o)
+    bundle = make_cluster_train_step(cfg, vc, mode=args.mode, lr=args.lr,
+                                     clip=args.clip,
+                                     global_batch=args.batch, opts=opts)
+    state = bundle.init_layout_state(args.seed)
+    stream = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch, seed=args.seed))
+    print(f"[train] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}) "
+          f"{args.mode} on {vc.label} ({args.device}), global batch "
+          f"{args.batch} x {args.seq} tokens, lr {args.lr}, opts "
+          f"{list(opts)}")
+    kflash.launches = kflash_bwd.launches = 0
+    for i in range(args.steps):
+        batch = bundle.layout_batch(stream.next_batch())
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (
+            lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = bundle.step(state, batch)
+        loss = float(metrics["loss"][0])
+        gnorm = float(metrics["gnorm"][0])
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        tokens = args.batch * args.seq
+        print(f"[train] step {i + 1} loss {loss:.6f} gnorm {gnorm:.6f} "
+              f"step {ms:.1f} ms {tokens / ms * 1e3:.1f} tokens/s")
+    sizes = state_bytes(state, bundle.stats.get("grad_bytes", 0))
+    copies = (f"{vc.pods} node copies" if args.mode == "hier"
+              else f"{vc.num_devices} replicas")
+    print("[train] state bytes: "
+          + " ".join(f"{k} {v}" for k, v in sizes.items())
+          + f" total {sum(sizes.values())} ({copies})")
+    if dev.type == "cuda":
+        print(f"[train] flash_attention launches: forward "
+              f"{kflash.launches} backward {kflash_bwd.launches}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

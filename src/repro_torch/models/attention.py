@@ -8,8 +8,11 @@ tensors — there is no third route.  Decode attention is a one-query
 product over the cache, outside any kernel in the reference too, and stays
 plain PyTorch.
 
-The sharded modes (``head_tp`` at tp > 1, ``cp``, split-K decode) need mesh
-axes and wait for the sharded model (ROADMAP Queue 1 item 13).
+Training runs through the same ``attn_block``: on CUDA tensors that carry
+gradients ``ops.flash_attention`` takes the kernel with its backward kernel
+(``ops.FlashAttention``).  The tensor-parallel modes (``head_tp`` at
+tp > 1, ``cp``, split-K decode) are the tp half of ROADMAP Queue 1 item 13
+and raise.
 """
 
 from __future__ import annotations
@@ -45,8 +48,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tp = 1 they are the local ones (a head-parallel shard raises)."""
     nq, kv = q.shape[2], k.shape[2]
     if (H or nq) != nq or (kv_total or kv) != kv:
-        raise NotImplementedError("head-parallel attention shards need the "
-                                  "sharded model: ROADMAP Queue 1 item 13")
+        raise NotImplementedError("head-parallel attention shards are the "
+                                  "tp half of ROADMAP Queue 1 item 13, not "
+                                  "ported yet")
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                q_offset=int(q_offset), layout="bthd")
 
@@ -74,8 +78,9 @@ def attn_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
     """x_sp: (B, T, d).  Returns the new x (and this layer's (k, v) when
     ``return_kv`` — used by prefill to build the cache)."""
     if mode != "head_tp":
-        raise NotImplementedError("context-parallel attention needs the "
-                                  "sharded model: ROADMAP Queue 1 item 13")
+        raise NotImplementedError("context-parallel attention is the tp half "
+                                  "of ROADMAP Queue 1 item 13, not ported "
+                                  "yet")
     H, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     eps = cfg.norm_eps
     B, T, d = x_sp.shape

@@ -1,9 +1,10 @@
 """Shared layer math: norms, positions, embeddings, FFN, decode logits.
 
-The reference's ``repro/models/layers.py`` in PyTorch, for the single-device
-ctx: pure functions of (params, inputs, ctx); the residual stream is
-(B, T, d).  The streamed training loss (``unembed_xent``) waits for the
-training slice (ROADMAP Queue 1 item 13).
+The reference's ``repro/models/layers.py`` in PyTorch, for a ctx without
+a tensor-parallel axis: pure functions of (params, inputs, ctx); the
+residual stream is (B, T, d).  ``unembed_xent`` is the streamed training
+loss: logits exist one chunk of ``chunk`` tokens at a time, and each chunk
+is recomputed in the backward (``torch.utils.checkpoint``) instead of kept.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.parallel import ParallelCtx
 
@@ -96,6 +98,65 @@ def embed(ids: torch.Tensor, emb: torch.Tensor, ctx: ParallelCtx
     valid = (ids >= 0) & (ids < v)
     out = emb[ids.clamp(0, v - 1)] * valid[..., None]
     return out.to(ctx.compute_dtype)
+
+
+def _chunk_nll(xc, lc, mc, unemb, softcap, ldt):
+    """One chunk's per-row (nll sum, count): (B, chunk) rows of logits in
+    ``ldt``, the max a stabilizer only (the gradient flows through the
+    sum of exponentials), fp32 reductions."""
+    logits = xc.to(ldt) @ unemb.to(ldt)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    mx = logits.amax(dim=-1).float().detach()
+    p = torch.exp(logits - mx[..., None].to(ldt))
+    se = torch.sum(p, dim=-1, dtype=torch.float32)
+    lse = mx + torch.log(se)
+    v = unemb.shape[1]
+    ok = (lc >= 0) & (lc < v)
+    corr = (torch.gather(logits, -1, lc.clamp(0, v - 1)[..., None].long())
+            [..., 0] * ok).float()
+    nll = (lse - corr) * mc
+    return nll.sum(dim=-1), mc.sum(dim=-1)
+
+
+def unembed_xent_rows(x: torch.Tensor, labels: torch.Tensor,
+                      mask: torch.Tensor, unemb: torch.Tensor,
+                      ctx: ParallelCtx, *, chunk: int = 512,
+                      softcap: Optional[float] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``unembed_xent`` per batch row: ((B,) nll sums, (B,) token counts),
+    each row summed over its chunks in order.  A cluster step that folds
+    several ranks' rows into one run splits these back into the ranks'
+    partials."""
+    B, T, d = x.shape
+    chunk = min(chunk, T)
+    ldt = ctx.compute_dtype if ctx.has("bf16_xent") else torch.float32
+    total = torch.zeros(B, dtype=torch.float32, device=x.device)
+    count = torch.zeros(B, dtype=torch.float32, device=x.device)
+    for t0 in range(0, T, chunk):
+        args = (x[:, t0:t0 + chunk], labels[:, t0:t0 + chunk],
+                mask[:, t0:t0 + chunk], unemb, softcap, ldt)
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or unemb.requires_grad):
+            s, c = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            s, c = _chunk_nll(*args)
+        total, count = total + s, count + c
+    return total, count
+
+
+def unembed_xent(x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                 unemb: torch.Tensor, ctx: ParallelCtx, *, chunk: int = 512,
+                 softcap: Optional[float] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streamed cross-entropy: x (B, T, d), labels / mask (B, T), unemb
+    (d, V).  Returns the (nll sum, token count) partials — the caller
+    reduces them.  Logits never exceed (B, chunk, V); the max is a
+    stabilizer only.  ``bf16_xent`` keeps the logits in the compute
+    dtype."""
+    total, count = unembed_xent_rows(x, labels, mask, unemb, ctx,
+                                     chunk=chunk, softcap=softcap)
+    return total.sum(), count.sum()
 
 
 def decode_logits(x: torch.Tensor, unemb: torch.Tensor, ctx: ParallelCtx, *,

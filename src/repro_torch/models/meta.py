@@ -7,10 +7,13 @@ reference's ``init_params`` made maps leaf for leaf onto the port's
 tree on a device from an explicit ``torch.Generator`` with the reference's
 init rules; it cannot reproduce ``jax.random``'s draws.
 
-The port builds the single-device tree (tp = 1, no FSDP axes: every
-``fsdp_dim`` resolves to ``None``).  The PartitionSpec / abstract-shape
-functions of the reference are JAX sharding and wait for the sharded model
-(ROADMAP Queue 1 item 13); the ``mlstm`` / ``slstm`` blocks and the MoE
+Sharding policy, as the reference's: ``tp_dim`` is the dim a tensor-
+parallel axis would shard (tp > 1 is the tp half of ROADMAP Queue 1 item 13
+and raises here); ``fsdp_dim`` (hier mode, ``data`` > 1) is the dim sharded
+over the node's ranks — the node's shared window — picked by
+``_resolve_fsdp``; ``param_specs`` gives the port's ``P`` tree the cluster
+step lays the state out with, and ``abstract_params`` the shapes on the
+``meta`` device (no memory).  The ``mlstm`` / ``slstm`` blocks and the MoE
 channel mix wait for Queue 1 item 16.
 """
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.substrate.cluster import P
 
 
 @dataclasses.dataclass
@@ -41,6 +45,27 @@ def not_ported(what: str, item: int) -> NotImplementedError:
                                f"item {item}")
 
 
+def _resolve_fsdp(meta: PMeta, data: int, mode: str, serve: bool,
+                  force: bool = False) -> PMeta:
+    """Pick the FSDP dim: the largest dim divisible by the data size,
+    excluding tp / data dims.  Serve: only when requested upstream (the
+    ``fsdp_dim == -2`` sentinel, or ``force``)."""
+    if mode != "hier" or data <= 1:
+        meta.fsdp_dim = None
+        return meta
+    if serve and not force and meta.fsdp_dim != -2:
+        meta.fsdp_dim = None
+        return meta
+    best, best_size = None, 0
+    for dim, s in enumerate(meta.shape):
+        if dim == meta.tp_dim or dim == meta.data_dim:
+            continue
+        if s % data == 0 and s // data >= 1 and s > best_size:
+            best, best_size = dim, s
+    meta.fsdp_dim = best
+    return meta
+
+
 def attn_mode_for(cfg: ModelConfig, tp: int) -> str:
     return "head_tp" if cfg.n_heads % tp == 0 else "cp"
 
@@ -52,18 +77,34 @@ def attn_mode_for(cfg: ModelConfig, tp: int) -> str:
 def attn_defs(cfg: ModelConfig, tp: int, serve: bool,
               opts=frozenset()) -> dict[str, PMeta]:
     if tp != 1:
-        raise not_ported("tensor-parallel attention weights", 13)
+        raise not_ported("tensor-parallel attention weights (the tp half)",
+                         13)
     d, H, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    # the training layout marks the head dims tensor parallelism would
+    # shard (head_tp at tp = 1), so the FSDP dim avoids them as in the
+    # reference
+    q_tp, kv_tp, o_tp = (None, None, None) if serve else (1, 2, 0)
     out = {
         "ln": PMeta((d,), init="zeros"),
-        "wq": PMeta((d, H * hd)),
-        "wkv": PMeta((d, 2, kv * hd)),
-        "wo": PMeta((H * hd, d), init="out"),
+        "wq": PMeta((d, H * hd), tp_dim=q_tp),
+        "wkv": PMeta((d, 2, kv * hd), tp_dim=kv_tp),
+        "wo": PMeta((H * hd, d), tp_dim=o_tp, init="out"),
     }
     if cfg.qk_norm:
         out["q_norm"] = PMeta((hd,), init="zeros")
         out["k_norm"] = PMeta((hd,), init="zeros")
+    if serve and _attn_bytes(cfg) > 4e9:
+        # big-attn serve: keep the one-copy-per-node store
+        for k in ("wq", "wkv", "wo"):
+            out[k].fsdp_dim = -2  # sentinel: resolve even in serve mode
     return out
+
+
+def _attn_bytes(cfg: ModelConfig) -> float:
+    d, H, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    per = d * (H + 2 * kv) * hd + H * hd * d
+    n_attn = sum(1 for k in cfg.block_kinds if k in ("attn", "local"))
+    return 2.0 * per * n_attn
 
 
 def ffn_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
@@ -107,8 +148,9 @@ def model_defs(cfg: ModelConfig, tp: int, data: int, mode: str,
                serve: bool = False, opts=frozenset()) -> dict:
     """Full meta tree.  'units' metas describe PER-LAYER shapes (they get a
     stacked leading dim at materialization)."""
-    if tp != 1 or data != 1:
-        raise not_ported("the sharded parameter tree", 13)
+    if tp != 1:
+        raise not_ported("the tensor-parallel parameter tree (the tp half)",
+                         13)
     d = cfg.d_model
     defs: dict = {
         "embed": PMeta((cfg.vocab_padded, d), tp_dim=0),
@@ -123,12 +165,18 @@ def model_defs(cfg: ModelConfig, tp: int, data: int, mode: str,
     if cfg.remainder_kinds:
         defs["rem"] = {f"r{i}": block_defs(k, cfg, tp, serve, opts)
                        for i, k in enumerate(cfg.remainder_kinds)}
-    return defs
+    force = serve and "serve_fsdp" in opts
+    return map_defs(lambda _p, m: _resolve_fsdp(m, data, mode, serve, force),
+                    defs)
 
 
 # ---------------------------------------------------------------------------
 # Materialization
 # ---------------------------------------------------------------------------
+
+def _stacked_shape(meta: PMeta, stacked: Optional[int]) -> tuple[int, ...]:
+    return ((stacked,) + meta.shape) if stacked else meta.shape
+
 
 def map_defs(fn, defs: dict, path: tuple = ()) -> dict:
     """``fn(path, meta)`` over every ``PMeta`` leaf; same nesting."""
@@ -139,7 +187,7 @@ def map_defs(fn, defs: dict, path: tuple = ()) -> dict:
 
 def init_leaf(meta: PMeta, n_layers: int, stacked: Optional[int], *,
               generator: torch.Generator, device) -> torch.Tensor:
-    shape = ((stacked,) + meta.shape) if stacked else meta.shape
+    shape = _stacked_shape(meta, stacked)
     if meta.init == "zeros":
         return torch.zeros(shape, dtype=meta.dtype, device=device)
     if meta.init == "ones":
@@ -170,3 +218,37 @@ def init_params(defs: dict, cfg: ModelConfig, generator: torch.Generator,
         return init_leaf(meta, cfg.n_layers, stacked, generator=generator,
                          device=device)
     return map_defs(leaf, defs)
+
+
+def abstract_params(defs: dict, cfg: ModelConfig, specs: dict) -> dict:
+    """The parameter tree's global shapes and dtypes as tensors on the
+    ``meta`` device (no memory), with each leaf's ``P`` spec attached as
+    ``.spec`` — the reference's ``ShapeDtypeStruct``s with shardings."""
+    def mk(path, meta):
+        stacked = cfg.n_units if path and path[0] == "units" else None
+        t = torch.empty(_stacked_shape(meta, stacked), dtype=meta.dtype,
+                        device="meta")
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        t.spec = spec
+        return t
+    return map_defs(mk, defs)
+
+
+def param_specs(defs: dict, cfg: ModelConfig, *, tp_axis: Optional[str],
+                fsdp_axis: Optional[str]) -> dict:
+    """The ``P`` tree of the parameters (stacked unit dims accounted
+    for)."""
+    if tp_axis:
+        raise not_ported("tensor-parallel parameter specs (the tp half)", 13)
+
+    def mk(path, meta: PMeta):
+        off = 1 if path and path[0] == "units" else 0
+        spec = [None] * (len(meta.shape) + off)
+        if meta.fsdp_dim is not None and fsdp_axis:
+            spec[meta.fsdp_dim + off] = fsdp_axis
+        if meta.data_dim is not None and fsdp_axis:
+            spec[meta.data_dim + off] = fsdp_axis
+        return P(*spec)
+    return map_defs(mk, defs)

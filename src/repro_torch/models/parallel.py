@@ -1,13 +1,36 @@
-"""ParallelCtx: how model math maps onto the mesh — the single-device form.
+"""ParallelCtx: how model math maps onto the mesh, in both collective modes.
 
-The reference's models are written as *local* shard_map bodies against a
-``ParallelCtx``; with ``ParallelCtx.single()`` every collective helper is an
-identity, so the same model code runs on one device.  The port has that
-single-device form: the helpers below are the identities they are at
-tp = 1 with no FSDP axes, and a ctx that names a tensor-parallel or FSDP
-axis raises ``NotImplementedError`` — the sharded model (``reduce_grads``,
-``ParamGroup``, ``prefetch_walk`` and the tp collectives) is ROADMAP Queue 1
-item 13, the training slice, where the stacked substrate carries it.
+The reference's ``repro/models/parallel.py`` over the port's stacked
+cluster, without the tensor-parallel axis.  Axis roles:
+
+* ``fsdp_axes`` — where parameters are *stored*: in **hier** mode (the
+  paper's MPI+MPI scheme) weights live once per node, sharded over the
+  node's ranks (the MPI-3 shared window); in **naive** mode (the pure-MPI
+  analogue) every rank holds a private replica;
+* ``dp_axes``   — batch sharding (``(pod, data)`` or ``(data,)``);
+* ``pod_axis``  — the bridge (slow tier): gradient reductions cross it once
+  per shard.
+
+With ``ParallelCtx.single()`` every helper is a no-op and the model code
+runs on one device.  At the top of a cluster step the ctx works on stacked
+``(R, ...)`` tensors under the bound mesh, as the reference's does per rank
+inside ``shard_map``: ``reduce_grads`` runs the bridge, ``comm`` is the
+data-tier communicator.
+
+**One model run per memory domain.**  The port's model code is written for
+one device, so a cluster step (``runtime.steps``) runs it once per domain:
+in hier once per node, on the node's window, with the node's ranks' batch
+rows folded into one batch; in naive once per rank on its private replica.
+So a weight with an FSDP dim reaches the model code as its node's
+stacked shards ``(n, *shard)``, and ``gather_w`` reads the window as ONE
+buffer (``SharedWindow.read_node``) — the weight exists once per node on
+the card, which is the C1 the paper claims — and its gradient is the split
+into the members' shards, the node's reduce-scatter with the sum over the
+node's ranks taken by the folded batch.
+
+The tensor-parallel half (a ``model`` axis, head-parallel and
+context-parallel attention, ``ag_tokens`` / ``rs_tokens`` / ``group_*``)
+is ROADMAP Queue 1 item 13's second half: a ctx with a tp axis raises.
 """
 
 from __future__ import annotations
@@ -17,30 +40,38 @@ from typing import Optional
 
 import torch
 
-_SHARDED = ("the sharded model (tp / FSDP axes, gradient reduction, the "
-            "parameter prefetcher) is not ported yet: ROADMAP Queue 1 "
-            "item 13")
+from repro_torch.comm import Communicator
+from repro_torch.comm.handle import AsyncCollectiveHandle, side_stream
+from repro_torch.comm.window import SharedWindow, WindowEpochError
+from repro_torch.core import tree as T
+
+_TP = ("tensor parallelism (a model axis, head- and context-parallel "
+       "attention, ag_tokens / rs_tokens) is the tp half of ROADMAP Queue 1 "
+       "item 13, not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     tp_axis: Optional[str] = None
-    fsdp_axes: tuple[str, ...] = ()
-    dp_axes: tuple[str, ...] = ()
-    pod_axis: Optional[str] = None
+    fsdp_axes: tuple[str, ...] = ()        # the node's axes in hier mode
+    dp_axes: tuple[str, ...] = ()          # (pod, data) / (data,)
+    pod_axis: Optional[str] = None         # the bridge
     tp: int = 1
     mode: str = "hier"                     # hier | naive
     compute_dtype: torch.dtype = torch.bfloat16
-    # the reference's perf options; in f32 at tp = 1 those on the serving
-    # path are no-ops (bf16_rope rotates in the compute dtype, bf16_probs is
-    # not read) and the rest need mesh axes
+    # the reference's perf options: overlap (the window read streamed behind
+    # the down-projection), prefetch[=N] (layer k+1's window read issued
+    # while layer k computes, <= N groups in flight), stepgraph (the step's
+    # collectives recorded and run as one optimized schedule); in f32 at
+    # tp = 1 the serving options (bf16_rope, bf16_probs) are no-ops
     opts: frozenset = frozenset()
     overlap_chunks: int = 2
 
     def __post_init__(self):
-        if self.tp_axis or self.fsdp_axes or self.dp_axes or self.pod_axis \
-                or self.tp != 1:
-            raise NotImplementedError(_SHARDED)
+        if self.tp_axis or self.tp != 1:
+            raise NotImplementedError(_TP)
+        if self.mode not in ("hier", "naive"):
+            raise ValueError(f"mode must be hier or naive, got {self.mode!r}")
 
     @staticmethod
     def single(mode: str = "hier", opts=frozenset()) -> "ParallelCtx":
@@ -50,33 +81,199 @@ class ParallelCtx:
     def has(self, opt: str) -> bool:
         return opt in self.opts
 
-    # ---- indices / communicator ---------------------------------------------
+    @property
+    def prefetch(self) -> int:
+        """In-flight budget of the layer-parameter prefetcher (0 = off):
+        ``"prefetch"`` means 2, ``"prefetch=N"`` sets it.  Only where
+        weights live in the node store (hier with fsdp axes)."""
+        if self.mode != "hier" or not self.fsdp_axes:
+            return 0
+        for o in self.opts:
+            if o == "prefetch":
+                return 2
+            if o.startswith("prefetch="):
+                return max(0, int(o[len("prefetch="):]))
+        return 0
+
+    @property
+    def stepgraph(self) -> bool:
+        """The train step records its collectives into a step graph and runs
+        the optimized schedule (bit-identical outputs)."""
+        return "stepgraph" in self.opts
+
     @property
     def tp_rank(self) -> int:
         return 0
 
+    # ---- the data-tier communicator -----------------------------------------
     @property
-    def comm(self):
-        """The data-tier communicator: ``None`` for a single-device ctx."""
-        return None
+    def comm(self) -> Optional[Communicator]:
+        """Fast tier = where parameters are stored (fsdp in hier, the
+        non-pod dp axes in naive), slow tier = the bridge; ``None`` for a
+        single-device ctx."""
+        fast = self.fsdp_axes or tuple(a for a in self.dp_axes
+                                       if a != self.pod_axis)
+        if not fast:
+            return None
+        return Communicator(fast_axis=fast, slow_axis=self.pod_axis)
 
-    # ---- weight access (identity without FSDP axes) -------------------------
+    def _stored(self, fsdp_dim: Optional[int]) -> bool:
+        return self.mode == "hier" and bool(self.fsdp_axes) \
+            and fsdp_dim is not None
+
+    def _window(self, w: torch.Tensor, dim: int) -> SharedWindow:
+        return SharedWindow(self.comm, w, axis=dim, epoch=1)
+
+    # ---- weight load (the shared-memory window) -----------------------------
     def gather_w(self, w: torch.Tensor, fsdp_dim: Optional[int]
                  ) -> torch.Tensor:
-        return w.to(self.compute_dtype)
+        """Load a weight from the node store (cast first, so the compute
+        dtype moves).  hier: the node's stacked shards ``(n, *shard)`` read
+        through its ``SharedWindow`` as one buffer; autograd transposes the
+        read into the reduce-scatter store.  naive / no FSDP dim: the local
+        copy."""
+        w = w.to(self.compute_dtype)
+        if not self._stored(fsdp_dim):
+            return w
+        return self._window(w, fsdp_dim).read_node()
 
     def ag_matmul(self, x: torch.Tensor, w: torch.Tensor,
                   fsdp_dim: Optional[int]) -> torch.Tensor:
+        """``x @ gather_w(w, fsdp_dim)``; with the ``overlap`` opt (a 2-d
+        weight stored along its contraction dim, the node's ``(c, K/c,
+        N)``) the window read streams panel by panel behind the matmuls —
+        per rank the reference's ``comm.ag_matmul`` with
+        ``use_kernel=False``."""
+        if self.has("overlap") and self._stored(fsdp_dim) and fsdp_dim == 0 \
+                and w.dim() == 3:
+            shard = w.to(self.compute_dtype)
+            nc = _clamp_chunks(self.overlap_chunks, shard.shape[1])
+            return _node_ag_matmul(x, shard, nc)
         return x @ self.gather_w(w, fsdp_dim)
 
     def matmul_rs(self, x: torch.Tensor, w: torch.Tensor, dim: int = 1
                   ) -> torch.Tensor:
         return x @ w
 
-    def reduce_grads(self, grads, *args, **kwargs):
-        raise NotImplementedError(_SHARDED)
+    # ---- gradient reduction (the bridge) -------------------------------------
+    def grad_reduce_axes(self, meta) -> tuple[str, ...]:
+        """Axes a gradient leaf still needs to be summed over: the bridge in
+        hier mode (plus the fsdp axes for leaves not stored sharded), the
+        whole dp tier in naive mode.  Bridge axes come first."""
+        axes: tuple[str, ...] = ()
+        if self.mode == "hier":
+            if self.pod_axis:
+                axes += (self.pod_axis,)
+            if meta.fsdp_dim is None and self.fsdp_axes:
+                axes += tuple(self.fsdp_axes)
+        else:
+            axes += tuple(self.dp_axes)
+        return axes
 
-    # ---- tp collectives (identities at tp = 1) ----------------------------
+    def _axes_comm(self, axes: tuple[str, ...]) -> Communicator:
+        """The two-tier communicator that reduces over exactly ``axes``."""
+        fast = tuple(a for a in axes if a != self.pod_axis)
+        slow = self.pod_axis if (self.pod_axis in axes and fast) else None
+        return Communicator(fast_axis=fast or axes, slow_axis=slow)
+
+    def reduce_grads(self, grads, metas=None, *, compress=None,
+                     recorder=None, precision: str = "exact",
+                     tol: Optional[float] = None, error_state=None):
+        """Bridge gradient reduction over stacked gradients.  They already
+        match the parameter layout (the window reads transposed into the
+        node's reduce-scatter); what remains is the cross-pod psum in hier
+        mode, or the flat dp allreduce in naive mode.
+
+        With ``metas`` (``PMeta`` leaves in ``core.tree.leaves`` order) the
+        reduction is per leaf over ``grad_reduce_axes(meta)``:
+        ``precision="lossy"`` routes bridge-crossing leaves (hier) through
+        the quantized wire formats, ``error_state`` (a grads-shaped tree of
+        residuals, 0-d zeros to start) threads error feedback and the call
+        returns ``(grads, new_error_state)``; ``compress`` is the legacy
+        explicit hook; ``recorder`` (``Communicator.record()``) defers every
+        exact reduction into the step graph and returns ``Deferred``
+        leaves.  Without ``metas``: the legacy whole-tree reduction."""
+        lossy = precision == "lossy"
+        if error_state is not None and not lossy:
+            raise ValueError("error_state requires precision='lossy'")
+        errs = T.leaves(error_state) if error_state is not None else None
+        if metas is not None:
+            leaves = T.leaves(grads)
+            zero = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device) if leaves else None
+            new_errs = [zero for _ in leaves]
+            reduced, comms, lossy_comms = [], {}, {}
+            for i, (g, meta) in enumerate(zip(leaves, metas)):
+                axes = self.grad_reduce_axes(meta)
+                if not axes:
+                    reduced.append(g)
+                    continue
+                bridge = (self.pod_axis in axes) if self.pod_axis else True
+                if compress is not None and self.mode == "hier" and bridge:
+                    reduced.append(compress(g, axes))
+                    continue
+                if lossy and self.mode == "hier" and bridge:
+                    comm = lossy_comms.get(axes)
+                    if comm is None:
+                        comm = lossy_comms[axes] = \
+                            Communicator(fast_axis=axes)
+                    if errs is not None:
+                        out, new_errs[i] = comm.allreduce(
+                            g, precision="lossy", tol=tol,
+                            result="replicated", error_feedback=errs[i])
+                    else:
+                        out = comm.allreduce(g, precision="lossy", tol=tol,
+                                             result="replicated")
+                    reduced.append(out)
+                    continue
+                if recorder is not None:
+                    reduced.append(recorder.allreduce(
+                        g, axes=axes, scheme="naive", key=("grad", i)))
+                    continue
+                comm = comms.get(axes)
+                if comm is None:
+                    comm = comms[axes] = self._axes_comm(axes)
+                reduced.append(comm.allreduce(g, scheme="naive",
+                                              result="replicated"))
+            out = T.unflatten(grads, reduced)
+            if error_state is not None:
+                return out, T.unflatten(grads, new_errs)
+            return out
+        if self.mode == "hier":
+            if self.pod_axis is None:
+                return (grads, error_state) if error_state is not None \
+                    else grads
+            if lossy:
+                bcomm = Communicator(fast_axis=self.pod_axis)
+                if errs is not None:
+                    pairs = [bcomm.allreduce(g, precision="lossy", tol=tol,
+                                             result="replicated",
+                                             error_feedback=e)
+                             for g, e in zip(T.leaves(grads), errs)]
+                    return (T.unflatten(grads, [o for o, _ in pairs]),
+                            T.unflatten(grads, [e for _, e in pairs]))
+                return T.tree_map(
+                    lambda g: bcomm.allreduce(g, precision="lossy", tol=tol,
+                                              result="replicated"), grads)
+            comm = self.comm
+            if comm is None:     # no node tier: the bridge is the whole comm
+                comm = Communicator(fast_axis=self.pod_axis)
+                return T.tree_map(
+                    lambda g: comm.allreduce(g, result="replicated"), grads)
+            return T.tree_map(comm.bridge_psum, grads)
+        axes = self.dp_axes
+        if not axes:
+            return grads
+        if error_state is not None:
+            raise ValueError("error_state needs the hier bridge path "
+                             "(metas, or hier mode)")
+        dp_comm = self._axes_comm(tuple(axes))
+        return T.tree_map(
+            lambda g: dp_comm.allreduce(g, result="replicated",
+                                        precision=precision, tol=tol),
+            grads)
+
+    # ---- tp collectives (identities without a tp axis) -----------------------
     def ag_tokens(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         return x
 
@@ -89,13 +286,148 @@ class ParallelCtx:
     def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def shard(self, n: int) -> int:
+        if n % self.tp:
+            raise ValueError(f"{n} not divisible by tp={self.tp}")
+        return n // self.tp
 
+
+def _node_ag_matmul(x: torch.Tensor, shards: torch.Tensor, n_chunks: int
+                    ) -> torch.Tensor:
+    """``x @ read_node(shards)`` streamed panel by panel: one node's members
+    ``(c, K/c, N)`` of a weight stored along its contraction dim; panel *j*
+    is the members' *j*-th row pieces joined in member order, and the
+    partial products add in fp32 in panel order — per rank the reference's
+    ``comm.pipeline.ag_matmul`` arithmetic."""
+    c, s, n_out = shards.shape
+    piece = s // n_chunks
+    lead = tuple(x.shape[:-1])
+    xr = x.reshape(lead + (c, n_chunks, piece))
+    acc = torch.zeros(lead + (n_out,), dtype=torch.float32, device=x.device)
+    for j in range(n_chunks):
+        panel = SharedWindow(None, shards[:, j * piece:(j + 1) * piece],
+                             axis=0).read_node()
+        xj = xr[..., :, j, :].reshape(lead + (c * piece,))
+        acc = acc + (xj @ panel).float()
+    return acc.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Async parameter prefetch (FSDP2-style sharded <-> unsharded lifecycle)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
 class ParamGroup:
-    """The reference's FSDP2-style unshard/reshard unit (training slice)."""
+    """One layer's parameters as an unshard / reshard unit (torch FSDP2's
+    param group): the weights live sharded in the node store;
+    ``unshard()`` issues every FSDP-dim window read as an
+    ``AsyncCollectiveHandle`` on the card's side stream with ONE event for
+    the group, ``wait()`` resolves them into the full per-layer tree,
+    ``reshard()`` drops the full copy so at most ``budget`` groups are ever
+    unsharded.  Each read is ``ParallelCtx.gather_w``'s (cast first, then
+    the window read), so prefetched and eager runs compute the same bits."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SHARDED)
+    ctx: ParallelCtx
+    params: object                 # this layer's (sharded) param tree
+    metas: object                  # matching tree with PMeta leaves
+    _handles: object = None        # issued but unresolved (in flight)
+    _full: object = None           # resolved full copy (unsharded)
+
+    @property
+    def state(self) -> str:
+        if self._full is not None:
+            return "unsharded"
+        return "in_flight" if self._handles is not None else "sharded"
+
+    def unshard(self) -> "ParamGroup":
+        """Issue the group's reads (idempotent while in flight)."""
+        if self._handles is not None or self._full is not None:
+            return self
+        ctx = self.ctx
+        ws = [w.to(ctx.compute_dtype) for w in T.leaves(self.params)]
+        dims = [getattr(m, "fsdp_dim", None) for m in T.leaves(self.metas)]
+        stored = [ctx._stored(d) for d in dims]
+        side = side_stream(ws[0].device) if any(stored) else None
+        vals = []
+        for w, d, s in zip(ws, dims, stored):
+            if not s:
+                vals.append(w)
+                continue
+            vals.append(AsyncCollectiveHandle.issue(
+                "allgather", ctx._window(w, d), stream=side, event=False,
+                node=True))
+        if side is not None:
+            event = side.record_event()
+            vals = [dataclasses.replace(v, event=event)
+                    if isinstance(v, AsyncCollectiveHandle) else v
+                    for v in vals]
+        self._handles = T.unflatten(self.params, vals)
+        return self
+
+    def wait(self):
+        """Resolve the in-flight reads; returns the full parameter tree.
+        Each handle's epoch is checked, so a store tearing one window fails
+        the wait."""
+        if self._full is None:
+            if self._handles is None:
+                raise RuntimeError("ParamGroup.wait() before unshard()")
+            vals = T.leaves(self._handles)
+            for h in vals:
+                if isinstance(h, AsyncCollectiveHandle) and not h.done:
+                    raise WindowEpochError(
+                        f"wait on a torn {h.family} handle: the window was "
+                        f"stored to or fenced past epoch {h.issue_epoch} "
+                        f"(now epoch {h.window.epoch}, "
+                        f"dirty={h.window.dirty}) — re-issue after the "
+                        "fence")
+            self._full = T.unflatten(self._handles, [
+                h.resolve() if isinstance(h, AsyncCollectiveHandle) else h
+                for h in vals])
+            self._handles = None
+        return self._full
+
+    def reshard(self) -> "ParamGroup":
+        """Free the unsharded copy (back to the sharded store)."""
+        self._full = None
+        self._handles = None
+        return self
+
+
+def prefetch_schedule(n: int, budget: int) -> list[tuple[str, int]]:
+    """The prefetcher's event order for ``n`` groups with at most
+    ``budget`` in flight: prime ``budget`` unshards, then per group —
+    wait, compute, reshard, and backfill the next unshard."""
+    budget = max(1, budget)
+    events = [("unshard", k) for k in range(min(budget, n))]
+    for k in range(n):
+        events.append(("wait", k))
+        events.append(("compute", k))
+        events.append(("reshard", k))
+        if k + budget < n:
+            events.append(("unshard", k + budget))
+    return events
 
 
 def prefetch_walk(groups, fn, x, budget: int):
-    raise NotImplementedError(_SHARDED)
+    """Drive ``x = fn(x, k, full_params_k)`` over ``groups`` with the
+    bounded-prefetch schedule: the reads issued on the side stream overlap
+    the preceding groups' compute on the current stream."""
+    groups = list(groups)
+    for ev, k in prefetch_schedule(len(groups), budget):
+        if ev == "unshard":
+            groups[k].unshard()
+        elif ev == "wait":
+            groups[k].wait()
+        elif ev == "compute":
+            x = fn(x, k, groups[k].wait())
+        else:
+            groups[k].reshard()
+    return x
+
+
+def _clamp_chunks(n_chunks: int, extent: int) -> int:
+    """Largest chunk count <= ``n_chunks`` that tiles ``extent``."""
+    nc = max(1, min(n_chunks, extent if extent > 0 else 1))
+    while extent % nc:
+        nc -= 1
+    return nc

@@ -9,11 +9,16 @@ Python loop over units takes the place of ``lax.scan``.
 Ported: the ``attn`` / ``local`` blocks (prefill and the 1D decode path),
 the ``rglru`` block (``models/rglru.py``: prefill through the lru_scan
 kernel, a one-step decode), the token frontend, prefill with the cache
-re-layout (ring slots for a window; recurrent state passed through), and
-decode with per-slot positions.  What raises ``NotImplementedError``: the
+re-layout (ring slots for a window; recurrent state passed through),
+decode with per-slot positions, and the training loss (``_loss``): the
+unit walk with a per-unit remat (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``), the bounded prefetch of the units' window
+reads (kept outside the remat region, as the reference keeps them) and the
+streamed cross-entropy.  What raises ``NotImplementedError``: the
 ``mlstm`` / ``slstm`` blocks, the MoE channel mix and the ``vit`` /
-``encodec`` frontends (ROADMAP Queue 1 item 16), and the training loss
-(item 13).
+``encodec`` frontends (ROADMAP Queue 1 item 16).  Training through the
+``rglru`` block is not offered on the card: the lru_scan kernel has no
+backward yet and refuses a grad-carrying call.
 
 Decode updates the cache in place and returns the same cache tree:
 attention blocks write each slot's new position
@@ -25,16 +30,23 @@ from __future__ import annotations
 
 from typing import Any
 
+import dataclasses
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import meta as M
 from repro_torch.models.attention import (attn_block, cache_write,
                                           decode_attention)
 from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
-                                       rms_norm, rope_decode, sinusoidal_pe)
+                                       rms_norm, rope_decode, sinusoidal_pe,
+                                       unembed_xent, unembed_xent_rows)
 from repro_torch.models.meta import not_ported as _not_ported
-from repro_torch.models.parallel import ParallelCtx
+from repro_torch.models.parallel import (ParallelCtx, ParamGroup,
+                                         prefetch_walk)
+
+XENT_CHUNK = 512
 from repro_torch.models.rglru import rglru_block, rglru_state_init
 
 
@@ -60,9 +72,20 @@ class Model(torch.nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return M.init_params(self.defs, self.cfg, gen, self.device)
 
+    def param_specs(self, *, serve: bool = False, tp_axis=None,
+                    fsdp_axis="data") -> dict:
+        defs = self.serve_defs if serve else self.defs
+        return M.param_specs(defs, self.cfg, tp_axis=tp_axis,
+                             fsdp_axis=fsdp_axis)
+
+    def abstract_params(self, specs, *, serve: bool = False) -> dict:
+        defs = self.serve_defs if serve else self.defs
+        return M.abstract_params(defs, self.cfg, specs)
+
     # ---- entry points ------------------------------------------------------
     def loss_fn(self, params, batch):
-        raise _not_ported("the training loss (unembed_xent)", 13)
+        """(nll sum, token count) of ``batch["tokens"]`` (B, T+1)."""
+        return _loss(self.cfg, self.ctx, self.defs, params, batch)
 
     def prefill_fn(self, params, batch, s_max: int, *, unroll: int = 1):
         return _prefill(self.cfg, self.ctx, self.defs, params, batch, s_max)
@@ -188,6 +211,66 @@ def _unembed_weight(cfg, ctx, defs, params):
     if cfg.tie_embeddings:
         return ctx.gather_w(params["embed"], defs["embed"].fsdp_dim).T
     return ctx.gather_w(params["unembed"], defs["unembed"].fsdp_dim)
+
+
+# ---------------------------------------------------------------------------
+# Train loss
+# ---------------------------------------------------------------------------
+
+def _remat(fn):
+    """``fn`` rematerialised in the backward (the reference's
+    ``jax.checkpoint``) when gradients are being recorded."""
+    def run(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+    return run
+
+
+def _scan_units(cfg, ctx, defs, params, x):
+    """The unit stack for training: each unit rematerialised.  With the
+    ``prefetch`` opt the units' window reads go through ``ParamGroup``s
+    (unit k+1's issued while unit k computes, at most ``ctx.prefetch``
+    unsharded at once) and stay OUTSIDE the remat region, so the backward's
+    recompute reuses the read instead of reading again."""
+    kinds = cfg.pattern
+
+    def unit(c, pu, uctx):
+        for i, k in enumerate(kinds):
+            key = f"b{i}"
+            c = _block_train(k, c, pu[key], defs["units"][key], uctx, cfg)
+        return c
+
+    budget = ctx.prefetch
+    if budget > 0:
+        inner = dataclasses.replace(ctx, fsdp_axes=())
+        unit_f = _remat(lambda c, full: unit(c, full, inner))
+        groups = [ParamGroup(ctx, _unit(params["units"], u), defs["units"])
+                  for u in range(cfg.n_units)]
+        return prefetch_walk(groups, lambda c, _k, full: unit_f(c, full), x,
+                             budget)
+    unit_r = _remat(lambda c, pu: unit(c, pu, ctx))
+    for u in range(cfg.n_units):
+        x = unit_r(x, _unit(params["units"], u))
+    return x
+
+
+def _loss(cfg, ctx, defs, params, batch, *, rows: bool = False):
+    """(nll sum, token count) — local partials the caller reduces; with
+    ``rows`` the (B,) per-row partials."""
+    T = torch.as_tensor(batch["tokens"]).shape[1] - 1
+    x, labels, mask = _embed_sp(cfg, ctx, defs, params, batch, T=T)
+    x = _scan_units(cfg, ctx, defs, params, x)
+    for i, k in enumerate(cfg.remainder_kinds):
+        key = f"r{i}"
+        x = _block_train(k, x, params["rem"][key], defs["rem"][key], ctx,
+                         cfg)
+    x = rms_norm(x, ctx.gather_w(params["final_ln"],
+                                 defs["final_ln"].fsdp_dim), cfg.norm_eps)
+    w_un = _unembed_weight(cfg, ctx, defs, params)
+    xent = unembed_xent_rows if rows else unembed_xent
+    return xent(x, labels, mask, w_un, ctx, chunk=XENT_CHUNK,
+                softcap=cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------

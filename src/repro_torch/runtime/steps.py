@@ -1,0 +1,293 @@
+"""The cluster train step (forward, backward, gradient bridge, grad norm,
+AdamW) over the port's stacked ``VirtualCluster``.
+
+The reference's ``repro/runtime/steps.py`` for the paper's two training
+modes:
+
+* ``mode="hier"``  — parameters and AdamW state live ONCE per node, sharded
+  over the node's ranks (the MPI-3 shared window); layer weights are read
+  from the window at use; the gradient bridge is the read's transpose (the
+  node's reduce-scatter) and then ONE cross-pod psum per shard;
+* ``mode="naive"`` — every rank keeps a private replica, and each gradient
+  takes one flat (pod, data) psum.
+
+``make_cluster_train_step`` builds the step over a cluster's own axis
+names (``cluster_ctx``).  Its ``fn`` is the reference's ``shard_map``'d step
+(``VirtualCluster.smap``): global state and batch in, global state and
+metrics out.  Its ``step`` takes the state laid out on the cluster (stacked
+``(R, *local)`` tensors under ``state_specs``) and DONATES it, as the
+reference's train loop donates its state to ``jit``: AdamW's arithmetic is
+computed out of place slice by slice and stored over the old tensors
+(``optim.adamw.adamw_update_``), and the same dict comes back.  So a
+training loop keeps the paper's layout between steps, the card holds
+exactly one copy of the state per node in hier mode, and the update needs
+no second copy of it.  ``fn`` runs the same body on the fresh stacked copy
+that ``smap`` lays out, so the caller's global state is left as it was.
+
+**One model run per memory domain.**  The body is the reference's per-rank
+body over stacked tensors.  The forward and backward run the port's
+single-device model once per domain (``models.parallel``): in hier once per
+node — its window read as one buffer, the node's ranks' batch rows folded
+into one batch — and in naive once per rank on its private replica.  Each
+run's gradient goes back to its ranks' stacked slots: a window leaf's to
+the members' shards (the reduce-scatter store), a leaf the node keeps
+replicated (no FSDP dim) to member 0 with zeros for the other members, a
+naive rank's to itself.  Per-rank loss and token partials come from the
+per-row loss, so the world allreduce of the metrics and the bridge
+(``ParallelCtx.reduce_grads``) run over ``(R, ...)`` exactly as the
+reference's do, and the sums differ from the reference's only in the
+order in which a node's rows add up.
+
+``make_train_step`` / ``make_ctx`` need the production mesh (ROADMAP Queue
+1 item 17) and ``make_step_bench`` the step-time bench (item 14); they
+raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.analysis.traffic import device_bytes
+from repro_torch.comm import Communicator
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tree as T
+from repro_torch.models.meta import not_ported
+from repro_torch.models.parallel import ParallelCtx
+from repro_torch.models.transformer import Model, _loss, build
+from repro_torch.optim.adamw import adamw_init, adamw_update_, per_rank
+from repro_torch.substrate.cluster import P
+
+
+def make_ctx(*args, **kwargs):
+    raise not_ported("the production-mesh ctx (launch/mesh.py)", 17)
+
+
+def make_train_step(*args, **kwargs):
+    raise not_ported("the production-mesh train step (launch/mesh.py)", 17)
+
+
+def make_step_bench(*args, **kwargs):
+    raise not_ported("the step-time bench body (bench/step_time.py)", 14)
+
+
+def cluster_ctx(vc, *, mode: str = "hier", compute_dtype=torch.float32,
+                opts=()) -> ParallelCtx:
+    """A ``ParallelCtx`` over a ``VirtualCluster``'s own axis names: the
+    slow tier is the bridge, the fast tier is where parameters are stored.
+    A fast tier factored over several axes makes its last axis tensor-
+    parallel, as in the reference — the tp half, which raises."""
+    if len(vc.slow_names) > 1:
+        raise ValueError("cluster_ctx supports at most one slow (bridge) "
+                         f"axis, got {vc.slow_names}")
+    pod = vc.slow_names[0] if vc.slow_names else None
+    fast = vc.fast_names
+    tp_axis = fast[-1] if len(fast) > 1 else None
+    store = fast[:-1] if len(fast) > 1 else fast
+    store_size = math.prod(s for n, s in zip(vc.axis_names, vc.axis_shapes)
+                           if n in store)
+    if store_size == 1:
+        # a size-1 store shards nothing: no window read to issue early
+        opts = tuple(o for o in opts if not str(o).startswith("prefetch"))
+    return ParallelCtx(
+        tp_axis=tp_axis,
+        fsdp_axes=store if mode == "hier" else (),
+        dp_axes=((pod,) + store) if pod else store,
+        pod_axis=pod,
+        tp=vc.fast_shape[-1] if tp_axis else 1,
+        mode=mode, compute_dtype=compute_dtype, opts=frozenset(opts))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepBundle:
+    fn: Any            # global (state, batch) -> (state, metrics)
+    step: Any          # laid-out (state, batch) -> (state, metrics)
+    state_specs: Any
+    batch_spec: Any
+    model: Model
+    vc: Any
+    # grad_bytes: what the last step allocated for gradients
+    stats: dict = dataclasses.field(default_factory=dict)
+
+    def init_state(self, seed: int = 0) -> dict:
+        """Global state: the model's params drawn on the cluster's device
+        from ``seed``, zero moments, step 0."""
+        params = self.model.init_params(seed)
+        m, v = adamw_init(params)
+        return {"params": params, "m": m, "v": v,
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=self.vc.device)}
+
+    def init_layout_state(self, seed: int = 0) -> dict:
+        """``init_state`` laid out on the cluster, with the global copy
+        dropped before the moments are made (zeros in the layout), so the
+        card never holds more than one global parameter tree beside the
+        laid-out state."""
+        params = self.vc.layout(self.model.init_params(seed),
+                                self.state_specs["params"])
+        m, v = adamw_init(params)
+        step = self.vc.layout(torch.zeros((), dtype=torch.int32),
+                              self.state_specs["step"])
+        return {"params": params, "m": m, "v": v, "step": step}
+
+    def layout_state(self, state: dict) -> dict:
+        """Global state -> the stacked layout ``step`` takes."""
+        return self.vc.layout(state, self.state_specs)
+
+    def unlayout_state(self, state: dict) -> dict:
+        """Stacked state -> global (member 0 of each replica)."""
+        return self.vc.unlayout(state, self.state_specs)
+
+    def layout_batch(self, batch: dict) -> dict:
+        return self.vc.layout({"tokens": torch.as_tensor(batch["tokens"])},
+                              self.batch_spec)
+
+
+def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, chips: int,
+                  stats: dict):
+    """Forward + backward once per memory domain.  Returns the stacked
+    per-rank gradients (the parameters' layout), loss and token partials
+    (``(R,)`` each); ``stats["grad_bytes"]`` gets the gradients' device
+    bytes (``analysis.traffic.device_bytes`` on the card)."""
+    R = tokens.shape[0]
+    hier = ctx.mode == "hier" and bool(ctx.fsdp_axes)
+    n = chips if hier else 1
+    leaves = T.leaves(params)
+    metas = T.leaves(defs)
+    units = T.leaves(_units_flags(params))
+    window = [hier and m.fsdp_dim is not None for m in metas]
+    on_card = tokens.device.type == "cuda"
+    base = device_bytes(tokens.device) if on_card else 0
+    grads = [torch.zeros_like(w) for w in leaves]
+    stats["grad_bytes"] = (
+        device_bytes(tokens.device) - base if on_card
+        else sum(g.numel() * g.element_size() for g in grads))
+    loss = torch.zeros(R, dtype=torch.float32, device=tokens.device)
+    cnt = torch.zeros(R, dtype=torch.float32, device=tokens.device)
+    for a in range(0, R, n):
+        dom = []
+        for w, win, u in zip(leaves, window, units):
+            x = w[a:a + n] if win else w[a]
+            if win and u:               # (n_units, n, *shard)
+                x = x.movedim(0, 1)
+            dom.append(x.detach().requires_grad_(True))
+        rows = tokens[a:a + n].reshape((-1,) + tuple(tokens.shape[2:]))
+        with torch.enable_grad():
+            nll, count = _loss(cfg, ctx, defs, T.unflatten(params, dom),
+                               {"tokens": rows}, rows=True)
+            got = torch.autograd.grad(nll.sum(), dom, allow_unused=True)
+        for g, dst, win, u in zip(got, grads, window, units):
+            if g is None:
+                continue
+            if win:
+                dst[a:a + n].copy_(g.movedim(1, 0) if u else g)
+            else:
+                dst[a].copy_(g)
+        loss[a:a + n] = nll.detach().reshape(n, -1).sum(dim=1)
+        cnt[a:a + n] = count.reshape(n, -1).sum(dim=1)
+        del got, nll, dom
+    return T.unflatten(params, grads), loss, cnt
+
+
+def _units_flags(tree, under_units: bool = False):
+    """A tree of bools: whether each leaf is stacked on the unit dim."""
+    if isinstance(tree, dict):
+        return {k: _units_flags(v, under_units or k == "units")
+                for k, v in tree.items()}
+    return under_units
+
+
+def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
+                            lr: float = 3e-4, weight_decay: float = 0.1,
+                            clip: float = 1.0, unroll: int = 1,
+                            global_batch: int = 8, opts=(),
+                            compute_dtype=torch.float32) -> TrainStepBundle:
+    """The train step over a ``VirtualCluster``'s own mesh and axis names.
+
+    When ``global_batch`` does not divide the data-parallel rank count the
+    batch is REPLICATED instead of sharded — every rank computes the full
+    batch and the token count absorbs the overcount.  ``unroll`` is the
+    reference's scan unroll and does not change the port's Python loop."""
+    del unroll
+    if cfg.frontend not in (None, "", "tokens"):
+        raise ValueError(f"cluster train step only drives the token "
+                         f"frontend, not {cfg.frontend!r}")
+    ctx = cluster_ctx(vc, mode=mode, compute_dtype=compute_dtype, opts=opts)
+    sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+    data = math.prod(sizes[a] for a in (
+        ctx.fsdp_axes or tuple(a for a in ctx.dp_axes
+                               if a != ctx.pod_axis)))
+    model = build(cfg, ctx, data=data, device=vc.device)
+    defs = model.defs
+    pspecs = model.param_specs(fsdp_axis=ctx.fsdp_axes[0]
+                               if ctx.fsdp_axes else None)
+    state_specs = {"params": pspecs, "m": pspecs, "v": pspecs, "step": P()}
+    n_dp = math.prod(sizes[a] for a in ctx.dp_axes)
+    shard_batch = global_batch % n_dp == 0
+    bspec = {"tokens": P(ctx.dp_axes) if shard_batch else P()}
+    meta_leaves = T.leaves(defs)
+    world = Communicator.from_cluster(vc)
+    node = world.split_type_shared()
+    stats: dict = {}
+
+    def body(state, batch):
+        params = state["params"]
+        grads, loss_sum, cnt = _domain_grads(cfg, ctx, defs, params,
+                                             batch["tokens"], vc.chips, stats)
+        with torch.no_grad():
+            if ctx.stepgraph:
+                rec = world.record()
+                rl = rec.allreduce(loss_sum, axes=world.axes, scheme="auto",
+                                   result="replicated", bucketable=False,
+                                   key="loss")
+                rc = rec.allreduce(cnt, axes=world.axes, scheme="auto",
+                                   result="replicated", bucketable=False,
+                                   key="cnt")
+                grads = ctx.reduce_grads(grads, meta_leaves, recorder=rec)
+                res = rec.run()
+                loss_g, cnt_g = res[rl], res[rc]
+                grads = res.resolve(grads)
+            else:
+                loss_g = world.allreduce(loss_sum, result="replicated")
+                cnt_g = world.allreduce(cnt, result="replicated")
+                grads = ctx.reduce_grads(grads, meta_leaves)
+            gl = T.leaves(grads)     # the step's own buffers: in place
+            del grads
+            for g in gl:
+                g.div_(per_rank(cnt_g, g))
+            # global grad norm: each leaf weighted by 1/replication over the
+            # node tier, so every element counts once; node-local, since
+            # the pods hold identical gradients after the bridge
+            gsq = torch.zeros_like(loss_g)
+            for g, meta in zip(gl, meta_leaves):
+                repl = 1.0
+                if meta.fsdp_dim is None or ctx.mode != "hier":
+                    repl *= data
+                gsq = gsq + torch.sum(torch.square(g.float()),
+                                      dim=tuple(range(1, g.dim()))) / repl
+            gsq = node.allreduce(gsq, result="replicated")
+            gnorm = torch.sqrt(gsq)
+            scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+            for g in gl:
+                g.mul_(per_rank(scale, g))
+            step = state["step"] + 1
+            metrics = {"loss": loss_g / cnt_g, "gnorm": gnorm,
+                       "tokens": cnt_g}
+            adamw_update_(params, gl, state["m"], state["v"], step, lr=lr,
+                          weight_decay=weight_decay)
+            state["step"] = step
+        return state, metrics
+
+    out_specs = (state_specs, {"loss": P(), "gnorm": P(), "tokens": P()})
+    smapped = vc.smap(body, in_specs=(state_specs, bspec),
+                      out_specs=out_specs)
+
+    def step(state, batch):
+        with vc.bind():
+            return body(state, batch)
+
+    return TrainStepBundle(fn=smapped, step=step, state_specs=state_specs,
+                           batch_spec=bspec, model=model, vc=vc, stats=stats)

@@ -22,6 +22,16 @@ single-pod cluster has no bridge tier at all (``slow is None``).
 axis names), calls ``body`` on the stacked tensors and concatenates the rank
 axis back — the inputs and outputs mean what the reference's
 ``VirtualCluster.run`` gives with its default rank-sharded specs.
+
+``smap(body, in_specs, out_specs)`` is the general form, the reference's
+``shard_map`` over the cluster's mesh: each spec is a ``P`` — the port's own
+partition spec, one entry per dim: ``None``, a mesh axis name or a tuple of
+names — or a tree of them matching the arguments.  ``layout`` hands every
+rank the block of a global tensor that ``shard_map`` would (a dim split
+over the linearized index of its axes, replicated over the axes the spec
+does not name); ``unlayout`` puts a stacked result back together, taking
+member 0 of every axis the spec does not name, as ``shard_map`` does for an
+unmapped output.
 """
 
 from __future__ import annotations
@@ -91,6 +101,60 @@ class Mesh:
         rest = [d for d in range(len(self.names)) if d not in idx]
         return rest, idx
 
+    def coord(self, rank: int, axes: Axis) -> int:
+        """Rank ``rank``'s linearized index over ``axes`` (host int)."""
+        idx = 0
+        for d in self._dims(axes):
+            stride = math.prod(self.shape[d + 1:])
+            idx = idx * self.shape[d] + (rank // stride) % self.shape[d]
+        return idx
+
+    def _blocks(self, shape: tuple[int, ...], spec: "P") -> list:
+        """Per rank: the slices of a global ``shape`` it holds under
+        ``spec``."""
+        if len(spec) > len(shape):
+            raise ValueError(f"spec {spec} has more entries than the "
+                             f"{len(shape)}-d value it lays out")
+        out = []
+        for r in range(self.num_ranks):
+            sl = []
+            for d, n in enumerate(shape):
+                axes = names_of(spec[d]) if d < len(spec) else ()
+                k = self.size(axes)
+                if n % k:
+                    raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                     f"split over {axes} ({k} ranks)")
+                c = self.coord(r, axes)
+                sl.append(slice(c * (n // k), (c + 1) * (n // k)))
+            out.append(tuple(sl))
+        return out
+
+    def layout(self, x, spec: "P") -> torch.Tensor:
+        """Global tensor -> stacked ``(R, *local)``: rank *r* gets its
+        block under ``spec`` (a copy per rank, on the mesh's device)."""
+        x = torch.as_tensor(x)
+        blocks = self._blocks(tuple(x.shape), spec)
+        local = tuple(s.stop - s.start for s in blocks[0])
+        out = torch.empty((self.num_ranks,) + local, dtype=x.dtype,
+                          device=self.device)
+        for r, sl in enumerate(blocks):
+            out[r].copy_(x[sl])
+        return out
+
+    def unlayout(self, t: torch.Tensor, spec: "P") -> torch.Tensor:
+        """Stacked ``(R, *local)`` -> the global tensor ``spec`` describes;
+        over the axes ``spec`` does not name, member 0's block is taken."""
+        named = {a for e in spec for a in names_of(e)}
+        free = tuple(a for a in self.names if a not in named)
+        shape = list(t.shape[1:])
+        for d, e in enumerate(spec):
+            shape[d] *= self.size(names_of(e))
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        for r, sl in enumerate(self._blocks(tuple(shape), spec)):
+            if all(self.coord(r, a) == 0 for a in free):
+                out[sl] = t[r]
+        return out
+
     def to_groups(self, x: torch.Tensor, axes: Axis) -> torch.Tensor:
         """(R, *local) -> (G, n, *local): one row per group over ``axes``,
         members in their linearized ``axes`` order."""
@@ -113,6 +177,34 @@ class Mesh:
         inv = [order.index(d) for d in range(k)]
         z = z.permute(inv + list(range(k, k + len(local))))
         return z.reshape((self.num_ranks,) + local)
+
+
+class P(tuple):
+    """A partition spec: one entry per dim — ``None`` (not split), a mesh
+    axis name, or a tuple of names (split over their linearized index,
+    row-major in the order given).  Trailing dims may be left out."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(repr(e) for e in self) + ")"
+
+
+def _spec_map(fn, tree, spec):
+    """``fn(leaf, P)`` over ``tree``; ``spec`` is a ``P`` (applied to every
+    leaf below it) or a dict / tuple / list of specs matching ``tree``."""
+    if isinstance(spec, P):
+        if isinstance(tree, dict):
+            return {k: _spec_map(fn, v, spec) for k, v in tree.items()}
+        return fn(tree, spec)
+    if isinstance(spec, dict):
+        return {k: _spec_map(fn, tree[k], spec[k]) for k in spec}
+    if isinstance(spec, (tuple, list)):
+        if len(spec) != len(tree):
+            raise ValueError(f"{len(spec)} specs for {len(tree)} values")
+        return type(tree)(_spec_map(fn, t, s) for t, s in zip(tree, spec))
+    raise TypeError(f"not a partition spec: {spec!r}")
 
 
 _MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
@@ -293,6 +385,29 @@ class VirtualCluster:
         if isinstance(out, (tuple, list)):
             return type(out)(self.unstack(o) for o in out)
         return self.unstack(out)
+
+    def layout(self, tree, specs):
+        """A tree of global tensors -> stacked ``(R, *local)`` tensors under
+        a matching tree of ``P`` specs."""
+        mesh = self.mesh
+        return _spec_map(mesh.layout, tree, specs)
+
+    def unlayout(self, tree, specs):
+        """Inverse of ``layout`` (member 0 over unnamed axes)."""
+        mesh = self.mesh
+        return _spec_map(mesh.unlayout, tree, specs)
+
+    def smap(self, body, in_specs, out_specs):
+        """The reference's ``shard_map`` over this cluster's mesh: the
+        returned function lays its global arguments out under
+        ``in_specs``, runs ``body`` on the stacked tensors with the mesh
+        bound, and puts the outputs back together under ``out_specs``."""
+        def mapped(*args):
+            stacked = self.layout(tuple(args), tuple(in_specs))
+            with self.bind():
+                out = body(*stacked)
+            return self.unlayout(out, out_specs)
+        return mapped
 
     def rank_major_input(self, m: int = 6, extra: int = 3,
                          seed: int = 0) -> torch.Tensor:

@@ -13,7 +13,17 @@ op, the tier (``slow`` when the group spans pods), the group size, the
 per-rank output payload bytes and the per-rank ring messages.  The records
 are the port's counterpart of the reference's compiled-HLO collective parse;
 ``repro_torch.analysis.traffic`` prices them.
+
+``all_gather``, ``psum`` and ``psum_scatter`` carry gradients with the
+reference's transposes, each an explicit ``torch.autograd.Function`` whose
+backward is the substrate's own collective (recorded, in the same fixed
+left-to-right order): ``all_gather`` <-> ``psum_scatter``, and ``psum``
+(of values replicated over its group) transposes to ``psum``, as
+``lax.psum`` does under ``shard_map`` without replication checking.  The
+backward runs under the mesh and the record of its forward, so it works
+outside ``VirtualCluster.bind`` and on autograd's device threads.
 """
+
 
 from __future__ import annotations
 
@@ -24,7 +34,7 @@ from typing import Iterator, Optional
 
 import torch
 
-from repro_torch.substrate.cluster import Axis, active_mesh
+from repro_torch.substrate.cluster import _MESH, Axis, active_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,10 +105,8 @@ def _replicate(mesh, full: torch.Tensor, n: int, axes: Axis
     return mesh.from_groups(per_member, axes).contiguous()
 
 
-def all_gather(x: torch.Tensor, axes: Axis, *, axis: int = 0,
-               tiled: bool = True) -> torch.Tensor:
-    """Every member gets the members' buffers in group order: concatenated
-    along local ``axis`` (``tiled``) or stacked as a new local ``axis``."""
+def _all_gather(x: torch.Tensor, axes: Axis, axis: int, tiled: bool
+                ) -> torch.Tensor:
     mesh = active_mesh()
     ax = _local(axis, x) if tiled else axis % x.dim()
     g = mesh.to_groups(x, axes)                         # (G, n, *local)
@@ -127,14 +135,102 @@ def _group_sum(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return acc.to(dtype)
 
 
-def psum(x: torch.Tensor, axes: Axis) -> torch.Tensor:
-    """Every member gets the group sum, in ``x``'s dtype (an int16 payload
-    stays int16 on the wire, as ``lax.psum`` keeps it)."""
+def _psum(x: torch.Tensor, axes: Axis) -> torch.Tensor:
     mesh = active_mesh()
     g = mesh.to_groups(x, axes)
     out = _replicate(mesh, _group_sum(g, x.dtype), g.shape[1], axes)
     _note("all-reduce", axes, out)
     return out
+
+
+class _Replay:
+    """The mesh and traffic record a collective ran under, restored around
+    its backward (which autograd may run on another thread)."""
+
+    def __init__(self):
+        self.mesh, self.rec = active_mesh(), _RECORD.get()
+
+    def __enter__(self):
+        self._tokens = (_MESH.set(self.mesh), _RECORD.set(self.rec))
+
+    def __exit__(self, *exc):
+        _MESH.reset(self._tokens[0])
+        _RECORD.reset(self._tokens[1])
+
+
+class _AllGatherFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, axis, tiled):
+        ctx.replay, ctx.axes, ctx.tiled = _Replay(), axes, tiled
+        # the gathered local dim (untiled: the new one)
+        ctx.axis = _local(axis, x) if tiled else axis % x.dim()
+        return _all_gather(x, axes, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.replay:
+            if ctx.tiled:
+                return _psum_scatter(g.contiguous(), ctx.axes,
+                                     ctx.axis), None, None, None
+            piece = _psum_scatter(g.contiguous(), ctx.axes, ctx.axis)
+            return piece.squeeze(ctx.axis + 1), None, None, None
+
+
+class _PsumFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.replay, ctx.axes = _Replay(), axes
+        return _psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.replay:
+            return _psum(g.contiguous(), ctx.axes), None
+
+
+class _PsumScatterFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.replay, ctx.axes, ctx.dim = _Replay(), axes, dim
+        return _psum_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.replay:
+            return _all_gather(g.contiguous(), ctx.axes, ctx.dim,
+                               True), None, None
+
+
+def _tracks_grad(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def all_gather(x: torch.Tensor, axes: Axis, *, axis: int = 0,
+               tiled: bool = True) -> torch.Tensor:
+    """Every member gets the members' buffers in group order: concatenated
+    along local ``axis`` (``tiled``) or stacked as a new local ``axis``.
+    Gradient: ``psum_scatter`` of the cotangent along that axis."""
+    if _tracks_grad(x):
+        return _AllGatherFn.apply(x, axes, axis, tiled)
+    return _all_gather(x, axes, axis, tiled)
+
+
+def psum(x: torch.Tensor, axes: Axis) -> torch.Tensor:
+    """Every member gets the group sum, in ``x``'s dtype (an int16 payload
+    stays int16 on the wire, as ``lax.psum`` keeps it).  Gradient: ``psum``
+    of the cotangent."""
+    if _tracks_grad(x):
+        return _PsumFn.apply(x, axes)
+    return _psum(x, axes)
+
+
+def psum_scatter(x: torch.Tensor, axes: Axis, *,
+                 scatter_dimension: int = 0) -> torch.Tensor:
+    """Group sum, split along local ``scatter_dimension``: member *i* gets
+    piece *i* (tiled).  Gradient: ``all_gather`` of the cotangent."""
+    if _tracks_grad(x):
+        return _PsumScatterFn.apply(x, axes, scatter_dimension)
+    return _psum_scatter(x, axes, scatter_dimension)
 
 
 def pmax(x: torch.Tensor, axes: Axis) -> torch.Tensor:
@@ -146,10 +242,8 @@ def pmax(x: torch.Tensor, axes: Axis) -> torch.Tensor:
     return out
 
 
-def psum_scatter(x: torch.Tensor, axes: Axis, *,
-                 scatter_dimension: int = 0) -> torch.Tensor:
-    """Group sum, split along local ``scatter_dimension``: member *i* gets
-    piece *i* (tiled)."""
+def _psum_scatter(x: torch.Tensor, axes: Axis, scatter_dimension: int
+                  ) -> torch.Tensor:
     mesh = active_mesh()
     ax = _local(scatter_dimension, x)
     g = mesh.to_groups(x, axes)

@@ -23,6 +23,11 @@ on the CPU (the plain version) within 1e-4 relative.  The lru_scan kernel
 is held to its plain version (f32 2e-4, bf16 5e-2; ragged C and T, B 1 and
 8, the a = 1 carry against ``cumsum``), and a full-width
 ``recurrentgemma-9b`` ``rglru`` block's prefill on the card to the CPU.
+The flash backward kernel is held to the autograd of the plain version
+(f32 2e-4, bf16 2e-2 of the largest gradient), its forward with lse to the
+forward without it bit for bit, and the reduced ``qwen3-0.6b``'s hier
+train step on the card to the CPU; the kernels without a backward refuse a
+grad-carrying call.
 """
 
 import dataclasses
@@ -508,3 +513,105 @@ def test_full_width_rglru_block_prefill_on_the_card_matches_the_cpu(cuda):
     for a, b in ((y_g, y_c), (st_g["h"], st_c["h"]),
                  (st_g["conv"], st_c["conv"])):
         assert ((a.cpu() - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the flash backward kernel and the cluster train step on the card
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [(2, 4, 2, 100, 100, 16, True, None, 0, "bhtd"),
+             (1, 4, 1, 70, 90, 32, True, 16, 0, "bhtd"),
+             (1, 2, 1, 40, 40, 128, True, None, -10, "bhtd"),
+             (1, 2, 1, 40, 60, 128, False, None, 0, "bthd"),
+             (1, 4, 2, 130, 130, 256, True, 64, 0, "bthd")]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain_autograd(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    B, H, KV, Tq, Tkv, hd, causal, window, qo, layout = case
+    g = torch.Generator(device=cuda).manual_seed(13)
+    shp = (lambda n, T: (B, n, T, hd)) if layout == "bhtd" else (
+        lambda n, T: (B, T, n, hd))
+    q, do = (torch.randn(shp(H, Tq), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(shp(KV, Tkv), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=qo, layout=layout)
+    o_plain = kflash.flash_attention_cuda(q, k, v, **kw)
+    o, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, o_plain)
+    before = kbwd.launches
+    got = kbwd.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert kbwd.launches == before + 1
+    want = kbwd.flash_attention_bwd_plain(q, k, v, do, **kw)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert err.item() <= tol
+
+
+def test_flash_autograd_route_and_refusals(cuda):
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.randn((2, 64, 4, 64), generator=g, device=cuda,
+                    requires_grad=True)
+    k, v = (torch.randn((2, 64, 2, 64), generator=g, device=cuda,
+                        requires_grad=True) for _ in range(2))
+    before = kbwd.launches
+    out = ops.flash_attention(q, k, v, layout="bthd")
+    out.square().sum().backward()
+    assert kbwd.launches == before + 1
+    want = kbwd.flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), 2 * out.detach(), layout="bthd")
+    for x, w in zip((q, k, v), want):
+        assert ((x.grad - w).abs().max() / w.abs().max()).item() <= 2e-4
+    x = torch.ones((8, 8), device=cuda, requires_grad=True)
+    for fn in (lambda: ops.matmul(x, x),
+               lambda: ops.q4_matmul(x, *quantize_q4(
+                   torch.ones((8, 8), device=cuda), group=8), group=8),
+               lambda: ops.lru_scan(x[None], x[None])):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fn()
+    with torch.no_grad():
+        ops.matmul(x, x)
+
+
+def test_cluster_train_step_on_the_card_matches_the_cpu(cuda):
+    """The reduced qwen3-0.6b's hier step on 2x4: the card (the flash kernel
+    and its backward) against the CPU (the plain version's autograd)."""
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.runtime.steps import make_cluster_train_step
+    cfg = get_config("qwen3-0.6b").reduced(n_layers=2, d_model=128,
+                                           n_heads=2)
+    toks = torch.randint(0, cfg.vocab, (8, 65),
+                         generator=torch.Generator().manual_seed(1))
+    from repro_torch.optim.adamw import adamw_init
+    res, params = {}, None
+    for dev in (cuda, torch.device("cpu")):
+        vc = VirtualCluster(pods=2, chips=4, device=dev)
+        bundle = make_cluster_train_step(cfg, vc)
+        if params is None:               # drawn on the card, from a seed
+            params = T.tree_map(lambda t: t.cpu(),
+                                bundle.model.init_params(0))
+        p_dev = T.tree_map(lambda t: t.to(dev), params)
+        m, v = adamw_init(p_dev)
+        state = bundle.layout_state({"params": p_dev, "m": m, "v": v,
+                                     "step": torch.zeros(
+                                         (), dtype=torch.int32)})
+        before = kbwd.launches
+        state, met = bundle.step(state, bundle.layout_batch(
+            {"tokens": toks}))
+        res[dev.type] = (float(met["loss"][0]), float(met["gnorm"][0]),
+                         T.leaves(T.tree_map(lambda t: t.cpu(),
+                                             bundle.unlayout_state(state))))
+        if dev.type == "cuda":
+            assert kbwd.launches > before
+    (lg, gg, pg), (lc, gc, pc) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= 2e-4 * abs(lc) and abs(gg - gc) <= 5e-3 * gc
+    for a, b in zip(pg, pc):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)

@@ -525,8 +525,9 @@ def test_q4_kernel_wrapper_refuses_cpu_tensors():
 def test_every_kernel_builds_through_one_builder(monkeypatch):
     """Every kernel module binds its entry points on the library the one
     builder returns for its own source."""
+    from repro_torch.kernels import flash_attention_bwd as kflash_bwd
     asked = []
-    mods = (kmatmul, kquant, kflash, klru)
+    mods = (kmatmul, kquant, kflash, kflash_bwd, klru)
 
     def fake(source):
         asked.append(source)
@@ -544,7 +545,7 @@ def test_every_kernel_builds_through_one_builder(monkeypatch):
         for mod in mods:
             mod.library.cache_clear()
     assert asked == ["matmul.cu", "q4_matmul.cu", "flash_attention.cu",
-                     "lru_scan.cu"]
+                     "flash_attention_bwd.cu", "lru_scan.cu"]
     assert set(asked) == set(_cuda.SOURCES)
     for lib, mod in zip(libs, mods):
         for name in mod._ENTRY.values():
