@@ -109,12 +109,31 @@ and
 in f32 and bf16, the a = 1 carry against ``cumsum``), timed f32 at phase
 9's prefill groups (4, 511 / 1023 / 2047 / 3071, 4096), then at (8, 2048,
 4096) and (1, 3072, 4096), beside the plain version and, for orientation,
-``torch.cumsum``.
+``torch.cumsum``.  It holds the flash backward kernel
+(``kernels.flash_attention_bwd``) to the plain version's autograd (f32 2e-4
+and bf16 2e-2 of the largest gradient, 9 shapes: masks, GQA, one kv head
+with the q heads split over CTAs, q_offset with rows that see no key,
+ragged lengths, both layouts), two launches on the same inputs to the same
+bits, and times it f32 at qwen3-0.6b's training shape as phase 11 (a)
+launches it (4 x 16 heads, 8 kv heads, 2048, hd 128, causal), at the
+global 8 x 2048 and at the hybrid's windowed hd-256 layer, beside the
+plain backward and SDPA's f32 backward, with its share of the 3xTF32 bound
+and SDPA's time over its own; then its non-finite classes (8 cases) and
+its recompute rule on finite operands whose dk overflows.
+
+11. training (after phase 9): ``qwen3-0.6b`` at full width, f32, seeded
+   random weights, on the 2x4 cluster, 8 x 2048 tokens a step — (a) hier
+   at full depth, 3 steps: step ms, tokens/s, the training state's bytes
+   and the flash forward / backward launches; (b) hier against naive at 2
+   layers, 2 steps: losses, gnorms, m, v and the params agree, and the
+   state's C1 naive/hier per node equals ``chips``; (c) one hier step at 2
+   layers, 8 x 128, card against CPU.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
-phase 10, then phase 8's and phase 9's serving runs) and read just after;
-the non-finite rule's recompute counters are zeroed before phase 3 and must
-read 0 after phase 9.  The line
+phase 10, then phase 8's and phase 9's serving runs, phase 11 (a)) and
+read just after; the recompute counters (the non-finite rule's, and the
+flash backward's) are zeroed before phase 3 and must read 0 after phase
+11.  The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -939,7 +958,7 @@ def main() -> int:
             raise AssertionError(f"{what}: {n} tiles recomputed")
         return f"{n} of {tiles} tiles recomputed"
 
-    for m_ in (kmatmul, kquant, kflash):
+    for m_ in (kmatmul, kquant, kflash, kbwd):
         m_.recomputes.reset()
     for dtype in (torch.float32, torch.bfloat16):
         a = torch.randn((2, 200, 96), generator=g, device=dev)
@@ -992,9 +1011,10 @@ def main() -> int:
 
     # the flash backward kernel against the autograd of the plain version:
     # the forward with lse gives the same output bits, its lse matches the
-    # plain log-sum-exp, and dq / dk / dv agree (f32 2e-4, bf16 2e-2 of the
-    # largest gradient) over masks, GQA, q_offset (rows with no visible
-    # key included), ragged lengths and both layouts
+    # plain log-sum-exp, two launches give the same bits, and dq / dk / dv
+    # agree (f32 2e-4, bf16 2e-2 of the largest gradient) over masks, GQA
+    # (one kv head: the dk / dv pass splits the q heads), q_offset (rows
+    # with no visible key included), ragged lengths and both layouts
     def bwd_check(q, k, v, do, dtype, what, **kw):
         o0 = kflash.flash_attention_cuda(q, k, v, **kw)
         o, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -1010,7 +1030,12 @@ def main() -> int:
         if not lse_err <= 1e-4 * (1 + want_lse[seen].abs().max().item()):
             raise AssertionError(f"{what}: lse off by {lse_err}")
         got = kbwd.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        again = kbwd.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
         torch.cuda.synchronize()
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+            raise AssertionError(f"{what}: two launches on the same inputs "
+                                 "gave different bits")
+        del again
         want = kbwd.flash_attention_bwd_plain(q, k, v, do, **kw)
         tol = 2e-4 if dtype == torch.float32 else 2e-2
         errs, abs_err = [], 0.0
@@ -1029,7 +1054,9 @@ def main() -> int:
                  (1, 2, 1, 40, 40, 128, True, None, -10, "bhtd"),
                  (1, 2, 1, 40, 60, 128, False, None, 0, "bthd"),
                  (1, 4, 2, 130, 130, 256, True, 64, 0, "bthd"),
-                 (1, 2, 1, 40, 20, 16, False, 4, 10, "bhtd")]
+                 (1, 2, 1, 40, 20, 16, False, 4, 10, "bhtd"),
+                 (1, 8, 1, 130, 130, 256, True, 64, 0, "bhtd"),
+                 (2, 16, 1, 200, 260, 128, True, None, 60, "bthd")]
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, KV, Tq, Tkv, hd, causal, window, qo, layout in bwd_cases:
             shp = (lambda n, T_: (B, n, T_, hd)) if layout == "bhtd" else (
@@ -1044,8 +1071,9 @@ def main() -> int:
                     f"Tq{Tq} Tkv{Tkv} hd{hd} causal={causal} "
                     f"window={window} q_offset={qo} {layout}")
             errs = bwd_check(q, k, v, do, dtype, what, **kw)[2]
-            print(f"[kernel] {what}: forward with lse bit-identical, rel err "
-                  f"dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e}")
+            print(f"[kernel] {what}: forward with lse bit-identical, two "
+                  f"launches bit-identical, rel err dq {errs[0]:.2e} dk "
+                  f"{errs[1]:.2e} dv {errs[2]:.2e}")
     # timed at the training shapes: qwen3-0.6b's attention layer as phase
     # 11 (a) launches it (hier on 2x4 runs the model once per node, on its
     # 4 ranks' sequences folded: 4 x 2048, 16 heads, 8 kv heads, hd 128,
@@ -1100,13 +1128,17 @@ def main() -> int:
         moved = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
         bnd = f32_bounds(flops, moved)
         bwd_rows[name] = {"err": abs_err, "ms": ms, "plain_ms": plain,
-                          "library_ms": lib, **bnd}
+                          "library_ms": lib, **bnd,
+                          "of_bound": bnd["bound_ms"] / ms,
+                          "library_over_kernel": lib / ms}
         print(f"[kernel] {what}: rel err dq {errs[0]:.2e} dk {errs[1]:.2e} "
               f"dv {errs[2]:.2e}, max |err| {abs_err:.3g}  kernel {ms:.3f} "
               f"ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain (autograd of "
               f"flash_attention_plain, backward alone) {plain:.3f} ms  "
               f"scaled_dot_product_attention backward {lib:.3f} ms  "
-              f"{bounds_text(bnd)} ({flops:.4g} FLOP, {moved / 1e9:.3f} GB)")
+              f"{bounds_text(bnd)} ({flops:.4g} FLOP, {moved / 1e9:.3f} GB)"
+              f"; of the 3xTF32 bound {bnd['bound_ms'] / ms:.3f}, SDPA / "
+              f"kernel {lib / ms:.3f}")
         del q, k, v, do, o, lse
         gc.collect()
         torch.cuda.empty_cache()
@@ -1140,6 +1172,25 @@ def main() -> int:
             print(f"[nonfinite] flash_attention_bwd f32 B{B} H{H} KV{KV} "
                   f"T{T} hd{hd} window={window}, specials in {where}: "
                   f"classes as the plain version's autograd {counts}")
+    # finite operands whose dk overflows (ref.bwd_overflow_inputs): the fast
+    # path's non-finite gradients are counted and recomputed on the exact
+    # path, with the plain autograd's classes (at most 12 CTAs check their
+    # outputs: 4 dq, up to 4 dk / dv and 4 of the partials' sum)
+    kbwd.recomputes.reset()
+    q, k, v, do = kref.bwd_overflow_inputs(g, dev)
+    o, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True)
+    got = kbwd.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    want = kbwd.flash_attention_bwd_plain(q, k, v, do)
+    counts = {}
+    for name, a_, b_ in zip(("dq", "dk", "dv"), got, want):
+        top = torch.where(torch.isfinite(b_), b_.abs(), 0).max()
+        counts[name] = check_classes(a_, b_, top, 2e-4,
+                                     f"flash_attention_bwd overflow {name}")
+    print(f"[nonfinite] flash_attention_bwd f32 B1 H4 KV2 T64 hd32, finite "
+          f"operands whose dk overflows: classes as the plain version's "
+          f"autograd {counts}, "
+          + recomputed(kbwd, "flash_attention_bwd overflow", 12))
+    del q, k, v, do, o, lse, got, want
     kflash.recomputes.reset()
     # no silent detach: the kernels without a backward refuse a
     # grad-carrying call on the card
@@ -1223,7 +1274,7 @@ def main() -> int:
     # -- main path: zero the counts, drive phases 3-7, read them -----------------
     kmatmul.launches = 0
     kquant.launches = 0
-    for m_ in (kmatmul, kquant, kflash):    # read after phase 9
+    for m_ in (kmatmul, kquant, kflash, kbwd):    # read after phase 11
         m_.recomputes.reset()
 
     # -- 3. collectives over the topology matrix --------------------------------
@@ -1811,8 +1862,8 @@ def main() -> int:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
-        ("flash_attention", kflash))}
-    print(f"[nonfinite] tiles recomputed over phases 3-10: {recomputes}")
+        ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
+    print(f"[nonfinite] tiles recomputed over phases 3-11: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")
@@ -1846,7 +1897,9 @@ def main() -> int:
         "launches": launches["flash_attention_bwd"],
         "max_abs_err": bwd_top["err"], "ms": bwd_top["ms"],
         "plain_ms": bwd_top["plain_ms"], **least(bwd_top),
-        "library_ms": bwd_top["library_ms"]}]}))
+        "library_ms": bwd_top["library_ms"],
+        "of_bound": bwd_top["of_bound"],
+        "library_over_kernel": bwd_top["library_over_kernel"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

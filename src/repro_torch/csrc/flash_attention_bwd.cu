@@ -1,9 +1,10 @@
 // The gradient of the causal / sliding-window GQA flash attention of
-// flash_attention.cu, for training (sm_90a):
+// flash_attention.cu, for training, on Hopper's tensor cores (sm_90a):
 //   dQ = scale dS K,  dK = scale dS^T Q,  dV = P^T dO,
-//   dS = P o (dO V^T - D),  D = rowsum(dO o O),  P = exp(S - lse),
-// with S = scale Q K^T masked as the forward masks it (kpos >= Tkv, causal,
-// window, q_offset; kv head h / group), and lse the forward's row
+//   dS = P o (dP - D),  dP = dO V^T,  D = rowsum(dO o O),
+//   P = exp(scale Q K^T - lse),
+// with the scores masked as the forward masks them (kpos >= Tkv, causal,
+// window, q_offset; kv head h / group) and lse the forward's row
 // log-sum-exp.
 //
 // The TPU kernel it is the gradient of, src/repro/kernels/flash_attention.py
@@ -12,19 +13,50 @@
 // gradient, held against the autograd of the plain version
 // (kernels/flash_attention.py::flash_attention_plain).
 //
-// Three launches, deterministic, no atomics on the gradients:
-//   1. prep, a warp per row: D = rowsum(dO o O) for every q row, and a flag
-//      if q, k, v or dO holds a non-finite or large (|x| > 1e15) element or
-//      D or a visible row's lse is not finite;
-//   2. dq, one CTA per (b, h, 32-row q tile): walks the
-//      key tiles its rows can see, recomputes S and P from lse and dP =
-//      dO V^T in shared memory, and sums dS K into fp32 registers;
-//   3. dkv, one CTA per (b, kv head, 32-key tile): walks the q heads of its
-//      GQA group and, for each, the q tiles that can see its keys; holds dK
-//      and dV in fp32 registers and writes them once.
-// All products are fp32 FMA loops (the CUDA cores): first correct, then
-// fast.  bf16 operands are widened as they are staged, the sums stay fp32,
-// and the gradients are rounded once to the operands' dtype.
+// Launches, deterministic (no atomics on dQ, dK or dV: two calls on the
+// same inputs give the same bits):
+//   1. prep, a warp per row: D for every q row, and flag[0] if q, k, v or dO
+//      holds a non-finite or large (|x| > 1e15) element, or D or a visible
+//      row's lse is not finite;
+//   2. dq, one CTA per (b, h, 64-row q tile), heavy (late) tiles first: Q
+//      and dO stay in shared memory, the key tiles its rows can see stream
+//      through a 2-stage cp.async ring (K and V, 16 keys at hd >= 128, 32
+//      below); per tile S = Q K^T and dP = dO V^T, then P and dS in
+//      registers, then dQ += dS K;
+//   3. dkv, one CTA per (b, kv head, 64-key tile[, share of the group's q
+//      heads]), heavy (early) tiles first: K and V stay in shared memory,
+//      the (q head, q tile) pairs that can see its keys stream through the
+//      ring (Q, dO and their rows' lse and D, 16 q rows at hd >= 128, 32
+//      below); per tile S^T = K Q^T and dP^T = V dO^T with the keys as the
+//      M rows, then dV += P^T dO and dK += dS^T Q;
+//   4. when the group's q heads are split (below), the sum of the dK / dV
+//      partials in split order;
+//   5-6. the exact path's dq and dk / dv, which return at once unless
+//      flag[0] or flag[1] is set.
+// All five products run as 3xTF32 m16n8k8 mma.sync products (tf32x3.cuh),
+// fragments split into big / small in registers as they are read; bf16
+// operands are widened as they are staged and take the one big.big
+// product.  A warp owns 16 resident rows; at hd 256 a pair of warps splits
+// hd and adds its two halves of S and dP through shared memory (a + b ==
+// b + a, so both hold the same bits).  The score accumulator is the next
+// product's A fragment as it stands: column c of an n-tile holds streamed
+// row 8 j + pi(c), pi(c) = c ^ (c >> 2), and its k slots k0 = 2t, k1 =
+// 2t + 1 take rows pi(2t) and pi(2t + 1) of the B operand.  So P and dS
+// never touch shared memory, and with a row stride of hd + 8 floats both
+// reads of a streamed row are free of bank conflicts: along the row as a
+// float2 (the S / dP B operand) and down a column (the B operand of dQ,
+// dK, dV).  Each tile's dQ, dK or dV product is summed from zero and added
+// into the fp32 sum with one IEEE add, so the tensor cores, which truncate
+// as they accumulate, never sum more than one tile.
+//
+// Enough CTAs at few kv heads: when B x KV x key tiles is under two waves
+// of the card's CTA slots (the hybrid's one kv head), the dkv grid splits
+// each group's q heads into `splits` contiguous shares (a power of 2
+// capped at the group; the wrapper picks it from the card's SM count and
+// the CTAs an SM holds, Fast<HD>::MIN_BLOCKS).  Each CTA then writes its fp32 dK / dV partials to a
+// scratch of 2 x splits x B x KV x Tkv x hd floats (the wrapper's `part`),
+// and launch 4 adds them in split order (one read of it, one write of dK
+// and dV): at 4 x 3071 keys x hd 256 with 2 splits, 50 MB each way.
 //
 // A row with no visible key (qpos < 0 under the causal mask, or every key
 // older than the window) has, in the plain version, the softmax of equal
@@ -35,8 +67,8 @@
 //
 // Non-finite values.  The plain version's autograd gives NaN and inf in
 // particular places (the max's gradient over ties, 0 times inf in the
-// products, the clamp of the softmax sum).  With the flag set, both
-// gradient kernels take an exact path instead: a warp per q row (dq) or
+// products, the clamp of the softmax sum).  With flag[0] set, the fast
+// kernels return at once and the exact path runs: a warp per q row (dq) or
 // per key (dkv) redoes the plain version's forward and its autograd
 // formulas literally in fp32 — the NaN-propagating row max and its tie
 // count, exp(s - max), the clamped sum, the division's two gradients, the
@@ -44,47 +76,58 @@
 // the mask's zero — so each gradient element lands in the plain version's
 // class.  dq writes the per-row statistics that pass needs (max, ties, sum,
 // clamped sum, the sum's and the max's gradients) and dkv reads them.  The
-// large-value bound keeps every product and sum of the fast path below the
-// fp32 range: 256 products of two values of 1e15 are below 3e32.
+// flag does not cover everything: finite operands below 1e15 can still
+// overflow a gradient (dS near 1e30 times a q element near 1e15), where
+// 3xTF32's cross terms give NaN for the fp32 product's inf, and a score
+// recomputed far above the forward's lse overflows P.  So, as tf32x3.cuh's
+// rule does per tile, every fast CTA (and the partials' sum) checks its
+// outputs; one that finds a non-finite value adds one to *recomputes and
+// sets flag[1], and the exact path then recomputes every gradient.  The
+// counter reads 0 wherever the fast path's gradients are finite.
 //
-// What bounds it: at qwen3's training shape (8 x 16 heads (8 kv) x 2048,
-// hd 128, causal) the backward is 2.5 times the forward's work counted
-// densely, 3.4e11 FLOP (two recomputes of S and dP, one for each gradient
-// kernel, are not counted), against 0.67 GB moved, so arithmetic bounds it:
-// 2.1 ms at 3 x FLOP on the TF32 tensor cores (495 TFLOP/s), 5.1 ms as
-// fp32 FMA at 67 TFLOP/s — the route this kernel takes.  What it gives up:
-// the tensor cores (3xTF32 mma / wgmma as the forward), the P and dS
-// tiles' round trip through shared memory, and computing dQ in the dkv
-// pass (the second recompute), which the deterministic order costs here.
+// What bounds it: at qwen3's training shape as one node launches it (4 x 16
+// heads (8 kv) x 2048, hd 128, causal) the backward is 2.5 times the
+// forward's work counted densely, 1.7e11 FLOP, against 0.40 GB moved, so
+// arithmetic bounds it: 1.04 ms at 3 x FLOP on the TF32 tensor cores (495
+// TFLOP/s).  The kernel does 7 products per visible (q, k) pair, not 5:
+// dq and dkv each recompute S and dP (computing dQ in the dkv pass instead
+// would need a deterministic sum of per-key-tile dQ partials, ~1 GB written
+// and read at that shape).  What it still gives up: wgmma (TF32 wgmma takes
+// B only K-major, so dV = P^T dO and dK = dS^T Q would need dO and Q staged
+// transposed), TMA with a producer warp, and K / V (dq) or Q / dO (dkv)
+// split once per CTA instead of once per warp.
 //
 // Operands are (B, heads, T, hd) views with element strides for b, h and t
 // and a unit stride along hd (the model's (B, T, heads, hd) tensors run
-// without a copy); lse, D and the statistics are contiguous fp32.  Plain C
-// entry points; each returns the launches' CUDA error code.
+// without a copy), every row start aligned to 4 elements; lse, D, the
+// statistics and the partials are contiguous fp32.  Plain C entry points;
+// each returns the launches' CUDA error code.
 
 #include "tf32x3.cuh"
 
 namespace {
 
-using tf32x3::narrow;
-using tf32x3::widen;
+using namespace tf32x3;
 
 constexpr float NEG = -1e30f;
 constexpr float LARGE = 1e15f;
-constexpr int THREADS = 256;
-constexpr int BK = 32;    // keys per tile
-constexpr int NSTAT = 6;  // exact path: max, ties, sum, clamped sum, the
-                          // sum's gradient, the max's gradient
+constexpr int THREADS = 256;  // prep, the exact path, the partials' sum
+constexpr int EX = 32;        // exact path: q rows / keys per CTA
+constexpr int NSTAT = 6;      // exact path: max, ties, sum, clamped sum, the
+                              // sum's gradient, the max's gradient
 
 struct Params {
-  int B, H, KV, Tq, Tkv, group, causal, window, q_offset;
+  int B, H, KV, Tq, Tkv, group, causal, window, q_offset, splits;
   float scale;
   // b, h, t element strides
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
   const float* lse;  // (B, H, Tq)
   float* D;          // (B, H, Tq) scratch
   float* stats;      // (B, H, Tq, NSTAT) scratch (exact path)
-  int* flag;         // set by prep: take the exact path
+  float* part;       // (2, splits, B, KV, Tkv, hd) scratch (splits > 1)
+  int* flag;         // [0] set by prep, [1] by a fast CTA: take the exact
+                     // path
+  int* recomputes;   // fast CTAs that found a non-finite gradient
 };
 
 // the keys [lo, hi] row qpos can see (empty when lo > hi)
@@ -96,11 +139,18 @@ __device__ __forceinline__ void visible(long long qpos, const Params& p,
   if (p.window > 0 && qpos - p.window + 1 > lo) lo = qpos - p.window + 1;
 }
 
+// whether row qpos (a row of q when row_ok) sees key kpos
+__device__ __forceinline__ bool sees(long long qpos, long long kpos,
+                                     bool row_ok, const Params& p) {
+  return row_ok && kpos < p.Tkv && (!p.causal || kpos <= qpos) &&
+         (p.window <= 0 || qpos - kpos < p.window);
+}
+
 __device__ __forceinline__ bool ok_value(float x) {
   return isfinite(x) && fabsf(x) <= LARGE;
 }
 
-// 1. D and the flag: a warp per row; rows [0, B H Tq) are q / dO / O rows,
+// 1. D and flag[0]: a warp per row; rows [0, B H Tq) are q / dO / O rows,
 // the next B KV Tkv are k / v rows
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -145,8 +195,528 @@ __global__ void __launch_bounds__(THREADS)
     for (int c = lane; c < HD; c += 32)
       bad |= !ok_value(widen(k[c])) || !ok_value(widen(v[c]));
   }
-  if (__any_sync(0xffffffffu, bad) && lane == 0) *p.flag = 1;
+  if (__any_sync(0xffffffffu, bad) && lane == 0) p.flag[0] = 1;
 }
+
+// -- the fast path ----------------------------------------------------------
+
+// A CTA keeps R = 64 rows of its own operands resident (16 per row-warp,
+// four row-warps) and streams BS rows of the other side at a time through
+// a 2-stage ring; at hd 256 a pair of warps splits hd.  Row stride ST =
+// hd + 8 floats (ST = 8 mod 32: rows r with distinct r mod 4 fall on
+// distinct 8-bank groups).  The dq and dk / dv passes take the same tiles.
+template <int HD_>
+struct Fast {
+  static constexpr int HD = HD_;
+  static constexpr int WN = HD >= 256 ? 2 : 1;  // warps along hd
+  static constexpr int RW = 4;                  // warps along the rows
+  static constexpr int THREADS = 32 * RW * WN;
+  static constexpr int R = 16 * RW;             // resident rows
+  static constexpr int BS = HD >= 128 ? 16 : 32;  // streamed rows a step
+  static constexpr int ST = HD + 8;
+  static constexpr int HDW = HD / WN;           // hd columns per warp
+  static constexpr int NS = BS / 8;             // score n-tiles per warp
+  static constexpr int NO = HDW / 8;            // output n-tiles per warp
+  static constexpr int NG = NO < 4 ? NO : 4;    // output n-tiles a pass
+  static constexpr int STAGE = 2 * BS * ST;     // two operands' rows
+  // partial S and dP swapped between the warps of a pair (WN = 2)
+  static constexpr int SX = WN > 1 ? RW * WN * 2 * NS * 4 * 32 : 0;
+  static constexpr int ROWS = 4 * BS;  // 2 stages of lse, D (dkv)
+  // resident rows, the ring, the streamed rows' lse and D, the swap
+  static constexpr int SMEM_FLOATS = 2 * R * ST + 2 * STAGE + ROWS + SX;
+  static constexpr int MIN_BLOCKS = WN > 1 ? 1 : 2;
+};
+
+// the streamed row (within its 8) that column c of a score n-tile holds
+__device__ __forceinline__ int pi(int c) { return c ^ (c >> 2); }
+
+// the A fragment of rows g and g + 8 at columns x[0], x[1] (k slots 2t,
+// 2t + 1), split
+template <bool X3, int ST>
+__device__ __forceinline__ void frag_a(const float* x, uint32_t (&b)[4],
+                                       uint32_t (&s)[4]) {
+  const float2 lo = *reinterpret_cast<const float2*>(x);
+  const float2 hi = *reinterpret_cast<const float2*>(x + 8 * ST);
+  split_exact<X3>(lo.x, b[0], s[0]);
+  split_exact<X3>(hi.x, b[1], s[1]);
+  split_exact<X3>(lo.y, b[2], s[2]);
+  split_exact<X3>(hi.y, b[3], s[3]);
+}
+
+// the B fragment of one row at columns y[0], y[1], split
+template <bool X3>
+__device__ __forceinline__ void frag_b(const float* y, uint32_t (&b)[2],
+                                       uint32_t (&s)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(y);
+  split_exact<X3>(v.x, b[0], s[0]);
+  split_exact<X3>(v.y, b[1], s[1]);
+}
+
+// a1 = X1 Y1^T and a2 = X2 Y2^T for one warp: its 16 resident rows (X, from
+// the warp's first row) by the stage's BS streamed rows (Y), over hd
+// columns [d0, d0 + HDW), summed from zero.  Column c of n-tile j is
+// streamed row 8 j + pi(c).
+template <bool X3, class F>
+__device__ __forceinline__ void scores2(const float* X1, const float* Y1,
+                                        const float* X2, const float* Y2,
+                                        int d0, int g, int t, int pg,
+                                        float (&a1)[F::NS][4],
+                                        float (&a2)[F::NS][4]) {
+  constexpr int ST = F::ST;
+#pragma unroll
+  for (int j = 0; j < F::NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a1[j][e] = a2[j][e] = 0.f;
+#pragma unroll
+  for (int kq = 0; kq < F::HDW; kq += 8) {
+    const int kk = d0 + kq + 2 * t;
+    uint32_t xb1[4], xs1[4], xb2[4], xs2[4];
+    frag_a<X3, ST>(X1 + g * ST + kk, xb1, xs1);
+    frag_a<X3, ST>(X2 + g * ST + kk, xb2, xs2);
+#pragma unroll
+    for (int j = 0; j < F::NS; ++j) {
+      uint32_t yb[2], ys[2];
+      frag_b<X3>(Y1 + (8 * j + pg) * ST + kk, yb, ys);
+      mma3<X3>(a1[j], xb1, xs1, yb, ys);
+      frag_b<X3>(Y2 + (8 * j + pg) * ST + kk, yb, ys);
+      mma3<X3>(a2[j], xb2, xs2, yb, ys);
+    }
+  }
+}
+
+// at hd 256: add the pair's other hd half into a1 and a2, so both warps
+// hold the same sums.  The reads finish before the next step's CTA barrier,
+// so one buffer serves every step.
+template <class F>
+__device__ __forceinline__ void swap_halves(float* Sx, int warp, int lane,
+                                            float (&a1)[F::NS][4],
+                                            float (&a2)[F::NS][4]) {
+  if constexpr (F::WN > 1) {
+    constexpr int NS = F::NS, W = 2 * NS * 4 * 32;
+    float* mine = Sx + warp * W + lane;
+    const float* other = Sx + (warp ^ F::RW) * W + lane;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[(4 * j + e) * 32] = a1[j][e];
+        mine[(4 * (NS + j) + e) * 32] = a2[j][e];
+      }
+    asm volatile("bar.sync %0, 64;" ::"r"(1 + warp % F::RW) : "memory");
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a1[j][e] += other[(4 * j + e) * 32];
+        a2[j][e] += other[(4 * (NS + j) + e) * 32];
+      }
+  }
+}
+
+// a score tile as the A fragments of the next product (its columns become
+// the k slots: elements 0, 2, 1, 3), split
+template <bool X3, int NS>
+__device__ __forceinline__ void split_tile(const float (&a)[NS][4],
+                                           uint32_t (&b)[NS][4],
+                                           uint32_t (&s)[NS][4]) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    split<X3>(a[j][0], b[j][0], s[j][0]);
+    split<X3>(a[j][2], b[j][1], s[j][1]);
+    split<X3>(a[j][1], b[j][2], s[j][2]);
+    split<X3>(a[j][3], b[j][3], s[j][3]);
+  }
+}
+
+// acc += A Y over the warp's hd columns [d0, d0 + HDW): A a split score
+// tile (k slots: streamed rows 8 j + pi(2t), 8 j + pi(2t + 1)), Y the
+// stage's streamed rows, read down their columns.  Each pass of NG output
+// n-tiles is summed from zero over the step and added into acc.
+template <bool X3, class F>
+__device__ __forceinline__ void accumulate(float (&acc)[F::NO][4],
+                                           const uint32_t (&ab)[F::NS][4],
+                                           const uint32_t (&as)[F::NS][4],
+                                           const float* Y, int d0, int g,
+                                           int p0, int p1) {
+  constexpr int ST = F::ST, NG = F::NG;
+#pragma unroll
+  for (int n0 = 0; n0 < F::NO; n0 += NG) {
+    float d[NG][4];
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < F::NS; ++j) {
+      const float* y0 = Y + (8 * j + p0) * ST + d0 + 8 * n0 + g;
+      const float* y1 = Y + (8 * j + p1) * ST + d0 + 8 * n0 + g;
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        uint32_t bb[2], bs[2];
+        split_exact<X3>(y0[8 * n], bb[0], bs[0]);
+        split_exact<X3>(y1[8 * n], bb[1], bs[1]);
+        mma3<X3>(d[n], ab[j], as[j], bb, bs);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += d[n][e];
+  }
+}
+
+// rows [r0, r0 + n) of a (T, hd) operand into shared rows of stride ST
+// (f32 by cp.async, bf16 widened); rows at or past `limit` are zeros
+template <typename T, class F>
+__device__ __forceinline__ void stage(float* dst, const T* src,
+                                      long long stride, long long r0, int n,
+                                      long long limit, int tid) {
+  constexpr int HD = F::HD, ST = F::ST;
+  for (int i = tid; i < n * HD / 4; i += F::THREADS) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    const bool ok = r0 + r < limit;
+    load4(dst + r * ST + c, src + (ok ? r0 + r : 0) * stride + c, ok);
+  }
+}
+
+// non-finite gradients from the fast path: count the CTA, ask for the exact
+// path (every thread of the CTA calls it)
+__device__ __forceinline__ void check_finite(bool bad, const Params& p) {
+  if (__syncthreads_or(bad) && threadIdx.x == 0) {
+    atomicAdd(p.recomputes, 1);
+    p.flag[1] = 1;
+  }
+}
+
+// 2. dq
+template <typename T, int HD>
+__global__ void __launch_bounds__(Fast<HD>::THREADS, Fast<HD>::MIN_BLOCKS)
+    flash_bwd_dq(const T* __restrict__ Q, const T* __restrict__ K,
+                 const T* __restrict__ V, const T* __restrict__ dO,
+                 T* __restrict__ dQ, const Params p) {
+  using F = Fast<HD>;
+  constexpr int R = F::R, BS = F::BS, ST = F::ST, NS = F::NS, NO = F::NO;
+  constexpr bool X3 = std::is_same<T, float>::value;
+  if (p.flag[0]) return;  // the exact path takes every tile
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // [R][ST]
+  float* dOs = Qs + R * ST;         // [R][ST]
+  float* ring = dOs + R * ST;       // 2 stages of K [BS][ST], V [BS][ST]
+  float* Sx = ring + 2 * F::STAGE + F::ROWS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % F::RW, d0 = (warp / F::RW) * F::HDW;
+  const int pg = pi(g), p0 = pi(2 * t), p1 = pi(2 * t + 1);
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int kvh = h / p.group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;  // heavy tiles first
+  const T* q = Q + b * p.qs[0] + h * p.qs[1];
+  const T* k = K + b * p.ks[0] + kvh * p.ks[1];
+  const T* v = V + b * p.vs[0] + kvh * p.vs[1];
+  const T* go = dO + b * p.dos[0] + h * p.dos[1];
+  T* dq = dQ + b * p.dqs[0] + h * p.dqs[1];
+  const long long row0 = ((long long)b * p.H + h) * p.Tq;
+
+  // the key tiles the tile's rows can see (a row's lo and hi grow with it)
+  long long lo, hi, lo_last, hi_last;
+  visible((long long)p.q_offset + q0, p, lo, hi);
+  visible((long long)p.q_offset + min(q0 + R, p.Tq) - 1, p, lo_last,
+          hi_last);
+  const int t_lo = (int)(lo / BS);
+  const int t_hi = hi_last < lo ? t_lo - 1 : (int)(hi_last / BS);
+
+  stage<T, F>(Qs, q, p.qs[2], q0, R, p.Tq, tid);
+  stage<T, F>(dOs, go, p.dos[2], q0, R, p.Tq, tid);
+  auto load_kv = [&](int tile, int s) {
+    float* Ks = ring + s * F::STAGE;
+    stage<T, F>(Ks, k, p.ks[2], (long long)tile * BS, BS, p.Tkv, tid);
+    stage<T, F>(Ks + BS * ST, v, p.vs[2], (long long)tile * BS, BS, p.Tkv,
+                tid);
+  };
+  if (t_lo <= t_hi) load_kv(t_lo, 0);
+  cp_async_commit();
+
+  // this thread's rows: g and g + 8 of the warp's 16
+  int row[2];
+  long long qpos[2];
+  float lse[2], Dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = q0 + 16 * rg + g + 8 * r;
+    qpos[r] = (long long)p.q_offset + row[r];
+    const bool ok = row[r] < p.Tq;
+    lse[r] = ok ? p.lse[row0 + row[r]] : 0.f;
+    Dr[r] = ok ? p.D[row0 + row[r]] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = t_lo; it <= t_hi; ++it) {
+    const int s = (it - t_lo) & 1;
+    cp_async_wait<0>();  // tile `it` has landed (this thread's part)
+    __syncthreads();     // ... everyone's, and slot s ^ 1 is free
+    if (it < t_hi) load_kv(it + 1, s ^ 1);
+    cp_async_commit();
+    const float* Ks = ring + s * F::STAGE;
+    const float* Vs = Ks + BS * ST;
+    const int k0 = it * BS;
+    float sc[NS][4], dp[NS][4];
+    scores2<X3, F>(Qs + 16 * rg * ST, Ks, dOs + 16 * rg * ST, Vs, d0, g, t,
+                   pg, sc, dp);
+    swap_halves<F>(Sx, warp, lane, sc, dp);
+    // P = exp(scale S - lse) on the visible keys (0 elsewhere), dS into sc
+    // (element e of n-tile j: row g + 8 (e >> 1), key 8 j + pi(2t + (e & 1)))
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + 8 * j + ((e & 1) ? p1 : p0);
+        const float pr = sees(qpos[r], kpos, row[r] < p.Tq, p)
+                             ? expf(sc[j][e] * p.scale - lse[r])
+                             : 0.f;
+        sc[j][e] = pr * (dp[j][e] - Dr[r]);
+      }
+    uint32_t ab[NS][4], as[NS][4];
+    split_tile<X3, NS>(sc, ab, as);
+    accumulate<X3, F>(acc, ab, as, Ks, d0, g, p0, p1);  // dQ += dS K
+  }
+  cp_async_wait<0>();
+
+  bool bad = false;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (row[r] < p.Tq)
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        bad |= !(isfinite(acc[n][2 * r]) && isfinite(acc[n][2 * r + 1]));
+  check_finite(bad, p);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= p.Tq) continue;
+    T* out = dq + (long long)row[r] * p.dqs[2] + d0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store2(out + 8 * n, acc[n][2 * r] * p.scale,
+             acc[n][2 * r + 1] * p.scale);
+  }
+}
+
+// 3. dk and dv (or their partials for one share of the group's q heads)
+template <typename T, int HD>
+__global__ void __launch_bounds__(Fast<HD>::THREADS, Fast<HD>::MIN_BLOCKS)
+    flash_bwd_dkv(const T* __restrict__ Q, const T* __restrict__ K,
+                  const T* __restrict__ V, const T* __restrict__ dO,
+                  T* __restrict__ dK, T* __restrict__ dV, const Params p) {
+  using F = Fast<HD>;
+  constexpr int R = F::R, BS = F::BS, ST = F::ST, NS = F::NS, NO = F::NO;
+  constexpr bool X3 = std::is_same<T, float>::value;
+  if (p.flag[0]) return;  // the exact path takes every tile
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                  // [R][ST] the CTA's keys
+  float* Vs = Ks + R * ST;           // [R][ST]
+  float* ring = Vs + R * ST;         // 2 stages of Q [BS][ST], dO [BS][ST]
+  float* rows = ring + 2 * F::STAGE; // 2 stages of lse [BS], D [BS]
+  float* Sx = rows + F::ROWS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % F::RW, d0 = (warp / F::RW) * F::HDW;
+  const int pg = pi(g), p0 = pi(2 * t), p1 = pi(2 * t + 1);
+  const int sp = blockIdx.y % p.splits;  // the share of the group's heads
+  const int bk = blockIdx.y / p.splits;  // b KV + kv head
+  const int b = bk / p.KV, kvh = bk % p.KV;
+  const int k0 = blockIdx.x * R;  // early (heavy under causal) tiles first
+  const T* k = K + b * p.ks[0] + kvh * p.ks[1];
+  const T* v = V + b * p.vs[0] + kvh * p.vs[1];
+  const int share = (p.group + p.splits - 1) / p.splits;
+  const int h_lo = kvh * p.group + min(p.group, sp * share);
+  const int h_hi = kvh * p.group + min(p.group, (sp + 1) * share);
+
+  // q rows that can see a key of [k0, kl]: qpos >= k0 (causal) and
+  // qpos - kl < window; the steps walk (head, q tile) pairs in order
+  const int kl = min(k0 + R, p.Tkv) - 1;
+  long long i_lo = 0, i_hi = p.Tq - 1;
+  if (p.causal) i_lo = max(i_lo, (long long)k0 - p.q_offset);
+  if (p.window > 0)
+    i_hi = min(i_hi, (long long)kl + p.window - 1 - p.q_offset);
+  const int qt_lo = i_lo > i_hi ? 0 : (int)(i_lo / BS);
+  const int n_qt = i_lo > i_hi ? 0 : (int)(i_hi / BS) - qt_lo + 1;
+  const int n_it = (h_hi - h_lo) * n_qt;
+
+  stage<T, F>(Ks, k, p.ks[2], k0, R, p.Tkv, tid);
+  stage<T, F>(Vs, v, p.vs[2], k0, R, p.Tkv, tid);
+  auto load_q = [&](int it, int s) {
+    const int h = h_lo + it / n_qt;
+    const long long i0 = (long long)(qt_lo + it % n_qt) * BS;
+    float* Qt = ring + s * F::STAGE;
+    stage<T, F>(Qt, Q + b * p.qs[0] + h * p.qs[1], p.qs[2], i0, BS, p.Tq,
+                tid);
+    stage<T, F>(Qt + BS * ST, dO + b * p.dos[0] + h * p.dos[1], p.dos[2], i0,
+                BS, p.Tq, tid);
+    if (tid < BS) {
+      const long long i = ((long long)b * p.H + h) * p.Tq + i0 + tid;
+      const bool ok = i0 + tid < p.Tq;
+      rows[s * 2 * BS + tid] = ok ? p.lse[i] : 0.f;
+      rows[s * 2 * BS + BS + tid] = ok ? p.D[i] : 0.f;
+    }
+  };
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();
+
+  // this thread's keys: g and g + 8 of the warp's 16
+  int key[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) key[r] = k0 + 16 * rg + g + 8 * r;
+  float ak[NO][4], av[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it & 1;
+    cp_async_wait<0>();  // step `it` has landed (this thread's part)
+    __syncthreads();     // ... everyone's, and slot s ^ 1 is free
+    if (it + 1 < n_it) load_q(it + 1, s ^ 1);
+    cp_async_commit();
+    const float* Qt = ring + s * F::STAGE;
+    const float* dOt = Qt + BS * ST;
+    const float* lse_s = rows + s * 2 * BS;
+    const float* D_s = lse_s + BS;
+    const int i0 = (qt_lo + it % n_qt) * BS;
+    // S^T = K Q^T and dP^T = V dO^T: the keys are the rows
+    float sc[NS][4], dp[NS][4];
+    scores2<X3, F>(Ks + 16 * rg * ST, Qt, Vs + 16 * rg * ST, dOt, d0, g, t,
+                   pg, sc, dp);
+    swap_halves<F>(Sx, warp, lane, sc, dp);
+    // P^T into sc, dS^T into dp (element e of n-tile j: key g + 8 (e >> 1),
+    // q row i0 + 8 j + pi(2t + (e & 1)))
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + ((e & 1) ? p1 : p0);
+        const long long qpos = (long long)p.q_offset + i0 + c;
+        const float pr = sees(qpos, key[e >> 1], i0 + c < p.Tq, p)
+                             ? expf(sc[j][e] * p.scale - lse_s[c])
+                             : 0.f;
+        sc[j][e] = pr;
+        dp[j][e] = pr * (dp[j][e] - D_s[c]);
+      }
+    uint32_t ab[NS][4], as[NS][4];
+    split_tile<X3, NS>(sc, ab, as);
+    accumulate<X3, F>(av, ab, as, dOt, d0, g, p0, p1);  // dV += P^T dO
+    split_tile<X3, NS>(dp, ab, as);
+    accumulate<X3, F>(ak, ab, as, Qt, d0, g, p0, p1);   // dK += dS^T Q
+  }
+  cp_async_wait<0>();
+
+  // rows with no visible key: weight 1 / Tkv on every key in the plain
+  // softmax, so dO / Tkv on every key's dv ([0, m_hi] before every key
+  // under the causal mask, [w_lo, Tq) past the window)
+  const float inv = 1.f / (float)p.Tkv;
+  long long m_hi = -1, w_lo = p.Tq;
+  if (p.causal) m_hi = min((long long)p.Tq, -(long long)p.q_offset) - 1;
+  if (p.window > 0)
+    w_lo = max((long long)0, (long long)p.Tkv + p.window - 1 - p.q_offset);
+  w_lo = max(w_lo, m_hi + 1);
+  for (int h = h_lo; h < h_hi; ++h) {
+    const T* go = dO + b * p.dos[0] + h * p.dos[1] + d0 + 2 * t;
+    for (int pass = 0; pass < 2; ++pass) {
+      const long long a0 = pass ? w_lo : 0, a1 = pass ? p.Tq - 1 : m_hi;
+      for (long long i = a0; i <= a1; ++i) {
+        const T* gi = go + i * p.dos[2];
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const float x0 = widen(gi[8 * n]), x1 = widen(gi[8 * n + 1]);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            av[n][2 * r] = fmaf(x0, inv, av[n][2 * r]);
+            av[n][2 * r + 1] = fmaf(x1, inv, av[n][2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+
+  bool bad = false;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (key[r] < p.Tkv)
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e)
+          bad |= !(isfinite(ak[n][e]) && isfinite(av[n][e]));
+  check_finite(bad, p);
+  const long long per = (long long)p.B * p.KV * p.Tkv * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= p.Tkv) continue;
+    if (p.splits == 1) {
+      T* dk = dK + b * p.dks[0] + kvh * p.dks[1] + (long long)key[r] * p.dks[2]
+              + d0 + 2 * t;
+      T* dv = dV + b * p.dvs[0] + kvh * p.dvs[1] + (long long)key[r] * p.dvs[2]
+              + d0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        store2(dk + 8 * n, ak[n][2 * r] * p.scale, ak[n][2 * r + 1] * p.scale);
+        store2(dv + 8 * n, av[n][2 * r], av[n][2 * r + 1]);
+      }
+    } else {
+      float* pk = p.part + sp * per + ((long long)bk * p.Tkv + key[r]) * HD
+                  + d0 + 2 * t;
+      float* pv = pk + p.splits * per;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        store2(pk + 8 * n, ak[n][2 * r], ak[n][2 * r + 1]);
+        store2(pv + 8 * n, av[n][2 * r], av[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// 4. dk and dv as the partials' sum in split order (splits > 1)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkv_sum(T* __restrict__ dK, T* __restrict__ dV, const Params p,
+                      int HD) {
+  if (p.flag[0]) return;
+  const long long per = (long long)p.B * p.KV * p.Tkv * HD;
+  bool bad = false;
+  for (long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) * 4;
+       i < per; i += (long long)gridDim.x * THREADS * 4) {
+    float4 sk = read4(p.part + i), sv = read4(p.part + p.splits * per + i);
+    for (int s = 1; s < p.splits; ++s) {
+      const float4 a = read4(p.part + s * per + i);
+      const float4 c = read4(p.part + (p.splits + s) * per + i);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+    }
+    sk.x *= p.scale; sk.y *= p.scale; sk.z *= p.scale; sk.w *= p.scale;
+    bad |= !(isfinite(sk.x) && isfinite(sk.y) && isfinite(sk.z) &&
+             isfinite(sk.w) && isfinite(sv.x) && isfinite(sv.y) &&
+             isfinite(sv.z) && isfinite(sv.w));
+    const int col = (int)(i % HD);
+    const long long row = i / HD;  // (b KV + kv head) Tkv + key
+    const long long key = row % p.Tkv, bk = row / p.Tkv;
+    const long long b = bk / p.KV, kvh = bk % p.KV;
+    T* dk = dK + b * p.dks[0] + kvh * p.dks[1] + key * p.dks[2] + col;
+    T* dv = dV + b * p.dvs[0] + kvh * p.dvs[1] + key * p.dvs[2] + col;
+    store2(dk, sk.x, sk.y);
+    store2(dk + 2, sk.z, sk.w);
+    store2(dv, sv.x, sv.y);
+    store2(dv + 2, sv.z, sv.w);
+  }
+  check_finite(bad, p);
+}
+
+// -- the exact path ---------------------------------------------------------
 
 // a warp-wide dot product of hd-long rows, lane l holding columns
 // l, l + 32, ...: the same order on every call (the exact path relies on
@@ -189,14 +759,25 @@ __device__ __forceinline__ float exact_score(const float (&qf)[DL],
   return vis ? s : NEG;
 }
 
-// 2, exact path: one q row per warp, the plain version's autograd
+// 5. dq on the exact path: one q row per warp, the plain version's autograd
 template <typename T, int HD>
-__device__ void dq_exact(const T* q, const T* k, const T* v, const T* g,
-                         T* dq, float* stats, const Params& p, int q0,
-                         int rows) {
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_exact(const T* __restrict__ Q, const T* __restrict__ K,
+                       const T* __restrict__ V, const T* __restrict__ dO,
+                       T* __restrict__ dQ, const Params p) {
+  if (!p.flag[0] && !p.flag[1]) return;
   constexpr int DL = (HD + 31) / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < rows && q0 + r < p.Tq; r += THREADS / 32) {
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int kvh = h / p.group;
+  const T* q = Q + b * p.qs[0] + h * p.qs[1];
+  const T* k = K + b * p.ks[0] + kvh * p.ks[1];
+  const T* v = V + b * p.vs[0] + kvh * p.vs[1];
+  const T* g = dO + b * p.dos[0] + h * p.dos[1];
+  T* dq = dQ + b * p.dqs[0] + h * p.dqs[1];
+  float* stats = p.stats + ((long long)b * p.H + h) * p.Tq * NSTAT;
+  const int q0 = blockIdx.x * EX;
+  for (int r = warp; r < EX && q0 + r < p.Tq; r += THREADS / 32) {
     const int i = q0 + r;
     const long long qpos = (long long)p.q_offset + i;
     long long lo, hi;
@@ -272,223 +853,24 @@ __device__ void dq_exact(const T* q, const T* k, const T* v, const T* g,
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc + a.b over four lanes, in order
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc[0..3] += s * x
-__device__ __forceinline__ void axpy4(float* acc, float s, float4 x) {
-  acc[0] = fmaf(s, x.x, acc[0]);
-  acc[1] = fmaf(s, x.y, acc[1]);
-  acc[2] = fmaf(s, x.z, acc[2]);
-  acc[3] = fmaf(s, x.w, acc[3]);
-}
-
-template <int HD>
-struct Cfg {
-  static constexpr int BQ = 32;      // q rows per tile
-  static constexpr int SR = HD + 4;  // row stride (floats) of the staged
-                                     // q / dO / k / v rows: float4-aligned,
-                                     // and 8 rows of a float4 phase fall
-                                     // on distinct banks
-  static constexpr int SP = BK + 1;  // row stride of the P / dS tiles
-};
-
-// stage rows [r0, r0 + n) of a (T, hd) operand into smem rows of stride
-// SR, widened (times mul); rows past `limit` are zero
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* src,
-                                      long long stride, int r0, int n,
-                                      int limit, float mul = 1.f) {
-  constexpr int SR = Cfg<HD>::SR;
-  for (int x = threadIdx.x; x < n * HD / 4; x += THREADS) {
-    const int r = x / (HD / 4), d = (x % (HD / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < limit) {
-      v = tf32x3::read4(src + (long long)(r0 + r) * stride + d);
-      v.x *= mul;
-      v.y *= mul;
-      v.z *= mul;
-      v.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * SR + d) = v;
-  }
-}
-
-// S = (scaled Q) K^T and dP = dO V^T for a BQ x BK tile, then P and dS into
-// shared memory.  Thread (ty, tx) = (t / 16, t % 16) owns rows ty + 16 a and
-// keys tx + 16 b.
-template <int HD>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       const float* lse_s, const float* D_s,
-                                       const long long* lo_s,
-                                       const long long* hi_s, int k0,
-                                       float* Ps, float* dSs) {
-  using C = Cfg<HD>;
-  constexpr int RA = C::BQ / 16, RB = BK / 16;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[RA][RB], dp[RA][RB];
-#pragma unroll
-  for (int a = 0; a < RA; ++a)
-#pragma unroll
-    for (int b = 0; b < RB; ++b) s[a][b] = dp[a][b] = 0.f;
-  // four hd columns per step, as float4 loads (a dot product still adds
-  // its terms in hd order)
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 qa[RA], ga[RA], kb[RB], vb[RB];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      qa[a] = ld4(Qs + (ty + 16 * a) * C::SR + d);
-      ga[a] = ld4(dOs + (ty + 16 * a) * C::SR + d);
-    }
-#pragma unroll
-    for (int b = 0; b < RB; ++b) {
-      kb[b] = ld4(Ks + (tx + 16 * b) * C::SR + d);
-      vb[b] = ld4(Vs + (tx + 16 * b) * C::SR + d);
-    }
-#pragma unroll
-    for (int a = 0; a < RA; ++a)
-#pragma unroll
-      for (int b = 0; b < RB; ++b) {
-        s[a][b] = dot4(qa[a], kb[b], s[a][b]);
-        dp[a][b] = dot4(ga[a], vb[b], dp[a][b]);
-      }
-  }
-#pragma unroll
-  for (int a = 0; a < RA; ++a)
-#pragma unroll
-    for (int b = 0; b < RB; ++b) {
-      const int i = ty + 16 * a, j = tx + 16 * b;
-      const long long kpos = k0 + j;
-      const bool vis = kpos >= lo_s[i] && kpos <= hi_s[i];
-      const float pr = vis ? expf(s[a][b] - lse_s[i]) : 0.f;
-      if (Ps != nullptr) Ps[i * C::SP + j] = pr;
-      dSs[i * C::SP + j] = pr * (dp[a][b] - D_s[i]);
-    }
-}
-
-// per-row data of a q tile: scaled q, dO, lse, D and the visible keys
-// (rows with no visible key, or past Tq, get an empty range: P = 0)
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(
-    float* Qs, float* dOs, float* lse_s, float* D_s, long long* lo_s,
-    long long* hi_s, const T* q, const T* g, const float* lse,
-    const float* D, const Params& p, int q0) {
-  constexpr int BQ = Cfg<HD>::BQ;
-  stage<T, HD>(Qs, q, p.qs[2], q0, BQ, p.Tq, p.scale);
-  stage<T, HD>(dOs, g, p.dos[2], q0, BQ, p.Tq);
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const int i = q0 + r;
-    long long lo = 1, hi = 0;
-    if (i < p.Tq) visible((long long)p.q_offset + i, p, lo, hi);
-    lo_s[r] = lo;
-    hi_s[r] = hi;
-    lse_s[r] = i < p.Tq && lo <= hi ? lse[i] : 0.f;
-    D_s[r] = i < p.Tq ? D[i] : 0.f;
-  }
-}
-
-template <int HD>
-constexpr int dq_smem_floats() {
-  using C = Cfg<HD>;
-  return 2 * C::BQ * C::SR + 2 * BK * C::SR + C::BQ * C::SP + 2 * C::BQ +
-         4 * C::BQ;  // + lo / hi as long longs
-}
-
+// 6. dk and dv on the exact path: one key per warp over every q row of the
+// group
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq(const T* __restrict__ Q, const T* __restrict__ K,
-                 const T* __restrict__ V, const T* __restrict__ dO,
-                 T* __restrict__ dQ, const Params p) {
-  using C = Cfg<HD>;
-  constexpr int BQ = C::BQ;
-  constexpr int TPR = THREADS / BQ;  // threads per row of dq
-  constexpr int DPT = HD / TPR;      // dq columns per thread
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int kvh = h / p.group;
-  const int q0 = blockIdx.x * BQ;
-  const T* q = Q + b * p.qs[0] + h * p.qs[1];
-  const T* k = K + b * p.ks[0] + kvh * p.ks[1];
-  const T* v = V + b * p.vs[0] + kvh * p.vs[1];
-  const T* g = dO + b * p.dos[0] + h * p.dos[1];
-  T* dq = dQ + b * p.dqs[0] + h * p.dqs[1];
-  const long long row0 = ((long long)b * p.H + h) * p.Tq;
-  if (*p.flag) {
-    dq_exact<T, HD>(q, k, v, g, dq, p.stats + row0 * NSTAT, p, q0, BQ);
-    return;
-  }
-  float* Qs = smem;
-  float* dOs = Qs + BQ * C::SR;
-  float* Ks = dOs + BQ * C::SR;
-  float* Vs = Ks + BK * C::SR;
-  float* dSs = Vs + BK * C::SR;
-  float* lse_s = dSs + BQ * C::SP;
-  float* D_s = lse_s + BQ;
-  long long* lo_s = reinterpret_cast<long long*>(D_s + BQ);
-  long long* hi_s = lo_s + BQ;
-  stage_rows<T, HD>(Qs, dOs, lse_s, D_s, lo_s, hi_s, q, g, p.lse + row0,
-                    p.D + row0, p, q0);
-  // the key tiles the tile's rows can see (lo and hi grow with the row)
-  long long lo, hi, lo_last, hi_last;
-  visible((long long)p.q_offset + q0, p, lo, hi);
-  visible((long long)p.q_offset + min(q0 + BQ, p.Tq) - 1, p, lo_last,
-          hi_last);
-  if (lo < 0) lo = 0;
-  const int t_lo = (int)(lo / BK);
-  const int t_hi = hi_last < lo ? t_lo - 1 : (int)(hi_last / BK);
-  const int r = threadIdx.x % BQ, c0 = (threadIdx.x / BQ) * DPT;
-  float acc[DPT];
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
-  for (int tile = t_lo; tile <= t_hi; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();  // the last tile's reads of Ks / dSs are done
-    stage<T, HD>(Ks, k, p.ks[2], k0, BK, p.Tkv);
-    stage<T, HD>(Vs, v, p.vs[2], k0, BK, p.Tkv);
-    __syncthreads();
-    scores<HD>(Qs, dOs, Ks, Vs, lse_s, D_s, lo_s, hi_s, k0, nullptr, dSs);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float ds = dSs[r * C::SP + j];
-      if constexpr (DPT % 4 == 0) {
-#pragma unroll
-        for (int c = 0; c < DPT; c += 4)
-          axpy4(acc + c, ds, ld4(Ks + j * C::SR + c0 + c));
-      } else {
-#pragma unroll
-        for (int c = 0; c < DPT; ++c)
-          acc[c] = fmaf(ds, Ks[j * C::SR + c0 + c], acc[c]);
-      }
-    }
-  }
-  if (q0 + r < p.Tq) {
-#pragma unroll
-    for (int c = 0; c < DPT; ++c)
-      dq[(long long)(q0 + r) * p.dqs[2] + c0 + c] =
-          narrow<T>(acc[c] * p.scale);
-  }
-}
-
-// 3, exact path: one key per warp over every q row of the group
-template <typename T, int HD>
-__device__ void dkv_exact(const T* Q, const T* k, const T* v, const T* dO,
-                          T* dk, T* dv, const float* stats, const Params& p,
-                          int b, int kvh, int k0) {
+    flash_bwd_dkv_exact(const T* __restrict__ Q, const T* __restrict__ K,
+                        const T* __restrict__ V, const T* __restrict__ dO,
+                        T* __restrict__ dK, T* __restrict__ dV,
+                        const Params p) {
+  if (!p.flag[0] && !p.flag[1]) return;
   constexpr int DL = (HD + 31) / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int jj = warp; jj < BK && k0 + jj < p.Tkv; jj += THREADS / 32) {
+  const int b = blockIdx.y / p.KV, kvh = blockIdx.y % p.KV;
+  const T* k = K + b * p.ks[0] + kvh * p.ks[1];
+  const T* v = V + b * p.vs[0] + kvh * p.vs[1];
+  T* dk = dK + b * p.dks[0] + kvh * p.dks[1];
+  T* dv = dV + b * p.dvs[0] + kvh * p.dvs[1];
+  const int k0 = blockIdx.x * EX;
+  for (int jj = warp; jj < EX && k0 + jj < p.Tkv; jj += THREADS / 32) {
     const int j = k0 + jj;
     float kr[DL], vr[DL], qf[DL], gr[DL], dou[DL], dkr[DL], dvr[DL];
     load_row<T, HD>(kr, k + (long long)j * p.ks[2], lane);
@@ -499,7 +881,7 @@ __device__ void dkv_exact(const T* Q, const T* k, const T* v, const T* dO,
       const int h = kvh * p.group + hg;
       const T* q = Q + b * p.qs[0] + h * p.qs[1];
       const T* g = dO + b * p.dos[0] + h * p.dos[1];
-      const float* st = stats + ((long long)b * p.H + h) * p.Tq * NSTAT;
+      const float* st = p.stats + ((long long)b * p.H + h) * p.Tq * NSTAT;
       for (int i = 0; i < p.Tq; ++i) {
         long long lo, hi;
         visible((long long)p.q_offset + i, p, lo, hi);
@@ -533,175 +915,100 @@ __device__ void dkv_exact(const T* Q, const T* k, const T* v, const T* dO,
   }
 }
 
-template <int HD>
-constexpr int dkv_smem_floats() {
-  using C = Cfg<HD>;
-  return 2 * C::BQ * C::SR + 2 * BK * C::SR + 2 * C::BQ * C::SP +
-         2 * C::BQ + 4 * C::BQ;
-}
+// -- launch -----------------------------------------------------------------
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv(const T* __restrict__ Q, const T* __restrict__ K,
-                  const T* __restrict__ V, const T* __restrict__ dO,
-                  T* __restrict__ dK, T* __restrict__ dV, const Params p) {
-  using C = Cfg<HD>;
-  constexpr int BQ = C::BQ;
-  constexpr int DPT = HD * BK / THREADS;  // dk / dv columns per thread
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y / p.KV, kvh = blockIdx.y % p.KV;
-  const int k0 = blockIdx.x * BK;
-  const T* k = K + b * p.ks[0] + kvh * p.ks[1];
-  const T* v = V + b * p.vs[0] + kvh * p.vs[1];
-  T* dk = dK + b * p.dks[0] + kvh * p.dks[1];
-  T* dv = dV + b * p.dvs[0] + kvh * p.dvs[1];
-  if (*p.flag) {
-    dkv_exact<T, HD>(Q, k, v, dO, dk, dv, p.stats, p, b, kvh, k0);
-    return;
-  }
-  float* Ks = smem;
-  float* Vs = Ks + BK * C::SR;
-  float* Qs = Vs + BK * C::SR;
-  float* dOs = Qs + BQ * C::SR;
-  float* Ps = dOs + BQ * C::SR;
-  float* dSs = Ps + BQ * C::SP;
-  float* lse_s = dSs + BQ * C::SP;
-  float* D_s = lse_s + BQ;
-  long long* lo_s = reinterpret_cast<long long*>(D_s + BQ);
-  long long* hi_s = lo_s + BQ;
-  stage<T, HD>(Ks, k, p.ks[2], k0, BK, p.Tkv);
-  stage<T, HD>(Vs, v, p.vs[2], k0, BK, p.Tkv);
-  const int kl = min(k0 + BK, p.Tkv) - 1;  // the tile's last key
-  // q rows that can see a key of [k0, kl]: qpos >= k0 (causal) and
-  // qpos - kl < window
-  long long i_lo = 0, i_hi = p.Tq - 1;
-  if (p.causal) i_lo = max(i_lo, (long long)k0 - p.q_offset);
-  if (p.window > 0)
-    i_hi = min(i_hi, (long long)kl + p.window - 1 - p.q_offset);
-  const int jk = threadIdx.x % BK, c0 = (threadIdx.x / BK) * DPT;
-  float ak[DPT], av[DPT];
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) ak[c] = av[c] = 0.f;
-  for (int hg = 0; hg < p.group; ++hg) {
-    const int h = kvh * p.group + hg;
-    const T* q = Q + b * p.qs[0] + h * p.qs[1];
-    const T* g = dO + b * p.dos[0] + h * p.dos[1];
-    const long long row0 = ((long long)b * p.H + h) * p.Tq;
-    for (long long i0 = (i_lo / BQ) * BQ; i0 <= i_hi; i0 += BQ) {
-      __syncthreads();  // the last tile's reads are done
-      stage_rows<T, HD>(Qs, dOs, lse_s, D_s, lo_s, hi_s, q, g,
-                        p.lse + row0, p.D + row0, p, (int)i0);
-      __syncthreads();
-      scores<HD>(Qs, dOs, Ks, Vs, lse_s, D_s, lo_s, hi_s, k0, Ps, dSs);
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        const float pr = Ps[r * C::SP + jk], ds = dSs[r * C::SP + jk];
-        if constexpr (DPT % 4 == 0) {
-#pragma unroll
-          for (int c = 0; c < DPT; c += 4) {
-            axpy4(av + c, pr, ld4(dOs + r * C::SR + c0 + c));
-            axpy4(ak + c, ds, ld4(Qs + r * C::SR + c0 + c));
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < DPT; ++c) {
-            av[c] = fmaf(pr, dOs[r * C::SR + c0 + c], av[c]);
-            ak[c] = fmaf(ds, Qs[r * C::SR + c0 + c], ak[c]);
-          }
-        }
-      }
-    }
-    // rows with no visible key: weight 1 / Tkv on every key in the plain
-    // softmax, so dO / Tkv on every key's dv
-    const float inv = 1.f / (float)p.Tkv;
-    long long m_lo = 0, m_hi = -1, w_lo = p.Tq, w_hi = p.Tq - 1;
-    if (p.causal) m_hi = min((long long)p.Tq, -(long long)p.q_offset) - 1;
-    if (p.window > 0)
-      w_lo = max((long long)0, (long long)p.Tkv + p.window - 1 - p.q_offset);
-    for (int pass = 0; pass < 2; ++pass) {
-      const long long a0 = pass ? max(w_lo, m_hi + 1) : m_lo;
-      const long long a1 = pass ? w_hi : m_hi;
-      for (long long i = a0; i <= a1; ++i) {
-        const T* gi = g + i * p.dos[2];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c)
-          av[c] = fmaf(widen(gi[c0 + c]), inv, av[c]);
-      }
-    }
-  }
-  if (k0 + jk < p.Tkv) {
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      dk[(long long)(k0 + jk) * p.dks[2] + c0 + c] = narrow<T>(ak[c]);
-      dv[(long long)(k0 + jk) * p.dvs[2] + c0 + c] = narrow<T>(av[c]);
-    }
-  }
+cudaError_t set_smem() {
+  const int smem = (int)(sizeof(float) * Fast<HD>::SMEM_FLOATS);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(flash_bwd_dkv<T, HD>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
 }
 
 template <typename T, int HD>
 int launch_hd(const void* q, const void* k, const void* v, const void* dO,
               void* dq, void* dk, void* dv, const Params& p,
               cudaStream_t s) {
-  using C = Cfg<HD>;
-  const size_t sq = sizeof(float) * dq_smem_floats<HD>();
-  const size_t skv = sizeof(float) * dkv_smem_floats<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sq);
+  using F = Fast<HD>;
+  const T *Q = static_cast<const T*>(q), *K = static_cast<const T*>(k),
+          *V = static_cast<const T*>(v), *G = static_cast<const T*>(dO);
+  T *dQ = static_cast<T*>(dq), *dK = static_cast<T*>(dk),
+    *dV = static_cast<T*>(dv);
+  cudaError_t err = set_smem<T, HD>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dkv<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)skv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dq first: on the exact path it writes the row statistics dkv reads
-  flash_bwd_dq<T, HD><<<dim3((p.Tq + C::BQ - 1) / C::BQ, p.B * p.H),
-                         THREADS, sq, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO),
-      static_cast<T*>(dq), p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv<T, HD><<<dim3((p.Tkv + BK - 1) / BK, p.B * p.KV), THREADS,
-                          skv, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO),
-      static_cast<T*>(dk), static_cast<T*>(dv), p);
+  const size_t smem = sizeof(float) * F::SMEM_FLOATS;
+  flash_bwd_dq<T, HD><<<dim3((p.Tq + F::R - 1) / F::R, p.B * p.H),
+                         F::THREADS, smem, s>>>(Q, K, V, G, dQ, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkv<T, HD><<<dim3((p.Tkv + F::R - 1) / F::R,
+                              p.B * p.KV * p.splits),
+                         F::THREADS, smem, s>>>(Q, K, V, G, dK, dV, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (p.splits > 1) {
+    const long long n4 = (long long)p.B * p.KV * p.Tkv * HD / 4;
+    const long long blocks = (n4 + THREADS - 1) / THREADS;
+    flash_bwd_dkv_sum<T><<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                           THREADS, 0, s>>>(dK, dV, p, HD);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  // the exact path (it returns at once unless a flag is set); dq first: it
+  // writes the row statistics dkv reads
+  flash_bwd_dq_exact<T, HD><<<dim3((p.Tq + EX - 1) / EX, p.B * p.H), THREADS,
+                              0, s>>>(Q, K, V, G, dQ, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkv_exact<T, HD><<<dim3((p.Tkv + EX - 1) / EX, p.B * p.KV),
+                               THREADS, 0, s>>>(Q, K, V, G, dK, dV, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dims: B, H, Tq, Tkv, hd, group, causal, window (0 = none), q_offset, then
-// the b, h, t element strides of q, k, v, o, dO, dq, dk and dv (24 values).
-// lse: the forward's (B, H, Tq) fp32; D: (B, H, Tq) and stats:
-// (B, H, Tq, 6) fp32 scratch; flag: one device int of scratch.
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dO, const void* lse, void* dq, void* dk, void* dv,
-           const long long* dims, float scale, void* D, void* stats,
-           void* flag, void* stream) {
-  Params p;
+// dims: B, H, Tq, Tkv, hd, group, causal, window (0 = none), q_offset,
+// splits, then the b, h, t element strides of q, k, v, o, dO, dq, dk and dv
+// (24 values)
+Params parse(const long long* dims) {
+  Params p{};
   p.B = (int)dims[0];
   p.H = (int)dims[1];
   p.Tq = (int)dims[2];
   p.Tkv = (int)dims[3];
-  const int hd = (int)dims[4];
   p.group = (int)dims[5];
   p.KV = p.H / p.group;
   p.causal = (int)dims[6];
   p.window = (int)dims[7];
   p.q_offset = (int)dims[8];
-  p.scale = scale;
+  p.splits = (int)dims[9];
   long long* strides[8] = {p.qs, p.ks, p.vs, p.os, p.dos, p.dqs, p.dks, p.dvs};
   for (int a = 0; a < 8; ++a)
-    for (int i = 0; i < 3; ++i) strides[a][i] = dims[9 + 3 * a + i];
+    for (int i = 0; i < 3; ++i) strides[a][i] = dims[10 + 3 * a + i];
+  return p;
+}
+
+// lse: the forward's (B, H, Tq) fp32; D: (B, H, Tq), stats: (B, H, Tq, 6)
+// and part: (2, splits, B, KV, Tkv, hd) fp32 scratch (part unused when
+// splits = 1); flag: two device ints of scratch; recomputes: the device
+// counter
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dO, const void* lse, void* dq, void* dk, void* dv,
+           const long long* dims, float scale, void* D, void* stats,
+           void* flag, void* part, void* recomputes, void* stream) {
+  Params p = parse(dims);
+  const int hd = (int)dims[4];
+  p.scale = scale;
   p.lse = static_cast<const float*>(lse);
   p.D = static_cast<float*>(D);
   p.stats = static_cast<float*>(stats);
+  p.part = static_cast<float*>(part);
   p.flag = static_cast<int*>(flag);
+  p.recomputes = static_cast<int*>(recomputes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
+  if ((hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256) ||
+      p.splits < 1 || p.splits > p.group)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int), s);
+  cudaError_t err = cudaMemsetAsync(flag, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = (long long)p.B * p.H * p.Tq +
                          (long long)p.B * p.KV * p.Tkv;
@@ -716,8 +1023,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     case 32: return launch_hd<T, 32>(q, k, v, dO, dq, dk, dv, p, s);
     case 64: return launch_hd<T, 64>(q, k, v, dO, dq, dk, dv, p, s);
     case 128: return launch_hd<T, 128>(q, k, v, dO, dq, dk, dv, p, s);
-    case 256: return launch_hd<T, 256>(q, k, v, dO, dq, dk, dv, p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return launch_hd<T, 256>(q, k, v, dO, dq, dk, dv, p, s);
   }
 }
 
@@ -727,16 +1033,16 @@ extern "C" int repro_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* dq, void* dk, void* dv,
     const long long* dims, float scale, void* D, void* stats, void* flag,
-    void* stream) {
+    void* part, void* recomputes, void* stream) {
   return launch<float>(q, k, v, o, dO, lse, dq, dk, dv, dims, scale, D, stats,
-                       flag, stream);
+                       flag, part, recomputes, stream);
 }
 
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* dq, void* dk, void* dv,
     const long long* dims, float scale, void* D, void* stats, void* flag,
-    void* stream) {
+    void* part, void* recomputes, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, dO, lse, dq, dk, dv, dims, scale,
-                               D, stats, flag, stream);
+                               D, stats, flag, part, recomputes, stream);
 }

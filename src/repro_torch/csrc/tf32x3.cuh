@@ -1,7 +1,7 @@
 // 3xTF32 on Hopper's tensor cores: the split, the m16n8k8 product, the
 // cp.async copies and the non-finite rule's FMA recompute shared by
-// matmul.cu, q4_matmul.cu and flash_attention.cu (lru_scan.cu takes the
-// copies only).
+// matmul.cu, q4_matmul.cu, flash_attention.cu and flash_attention_bwd.cu
+// (lru_scan.cu takes the copies only).
 //
 // An f32 value x is carried as big + small: big = tf32(x), rounded to
 // nearest with ties away (the bits of cvt.rna.tf32.f32 for every finite x

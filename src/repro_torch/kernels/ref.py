@@ -204,62 +204,93 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     return torch.logsumexp(s, dim=-1).reshape(B, H, Tq)
 
 
-def flash_attention_bwd_emulated(q, k, v, o, do, lse, *, causal: bool = True,
-                                 window: Optional[int] = None,
-                                 q_offset: int = 0, bq: int = 64,
-                                 bk: int = 32) -> tuple[torch.Tensor, ...]:
-    """The backward kernel's arithmetic on the CPU (bhtd layout): D =
-    rowsum(do o o); per (q tile, key tile) P = exp(scale q.k - lse) on the
-    visible keys (0 elsewhere and on rows with no visible key), dP = do.v,
-    dS = P (dP - D), dq += dS k, dk += dS^T q, dv += P^T do, all in fp32;
-    then each row with no visible key adds do / Tkv to every key's dv.
-    When q, k, v or do holds a non-finite or large (|x| > 1e15) element, or
-    D or a visible row's lse is not finite, the kernel's exact path is
-    taken instead: the plain version's autograd formulas written out
-    (``_bwd_exact``).  Returns (dq, dk, dv) in the operands' dtype."""
-    B, H, Tq, hd = q.shape
-    KV, Tkv = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = 1.0 / math.sqrt(hd)
-    vis = _visible(Tq, Tkv, causal, window, q_offset, q.device)
-    has_key = vis.any(dim=1)
+def _tf32x1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The one big.big TF32 product of bf16 operands (a widened bf16 value
+    is its own big; an f32 intermediate is rounded to TF32)."""
+    return split_tf32(a)[0] @ split_tf32(b)[0]
+
+
+def flash_attention_bwd_tf32x3_emulated(q, k, v, o, do, lse, *,
+                                        causal: bool = True,
+                                        window: Optional[int] = None,
+                                        q_offset: int = 0
+                                        ) -> tuple[torch.Tensor, ...]:
+    """``csrc/flash_attention_bwd.cu``'s arithmetic on the CPU (bhtd
+    layout): D = rowsum(do o o); S = scale q.k and dP = do.v as 3xTF32
+    products (``_tf32x3``; the one TF32 product for bf16); P = exp(S - lse)
+    on the visible keys (0 elsewhere and on rows with no visible key), dS =
+    P (dP - D); then, at the kernel's tile size (16 streamed rows a step
+    at hd >= 128, 32 below), each key tile's dS k added into the fp32 dq
+    sum, and for every q head of the group in order each q tile's P^T do
+    and dS^T q added into the fp32 dv and dk sums — each tile's product as
+    3xTF32, summed from zero, folded in with one add; dq and dk times
+    scale; then each row with no visible key adds do / Tkv to every key's
+    dv.  The exact path (``_bwd_exact``)
+    is taken instead when q, k, v or do holds a non-finite or large
+    (|x| > 1e15) element, or D or a visible row's lse is not finite, and
+    also when this fast path's fp32 gradients are not finite (the kernel's
+    recompute rule).  Returns (dq, dk, dv) in the operands' dtype."""
+    vis = _visible(q.shape[2], k.shape[2], causal, window, q_offset,
+                   q.device)
     D = (do.float() * o.float()).sum(-1)
     large = [x.float() for x in (q, k, v, do)]
     bad = any((~torch.isfinite(x) | (x.abs() > 1e15)).any() for x in large)
     bad = bad or not torch.isfinite(D).all() \
-        or not torch.isfinite(lse[..., has_key]).all()
-    if bad:
-        return _bwd_exact(q, k, v, do, vis)
-    qs = q.float().reshape(B, KV, G, Tq, hd) * scale
-    kf, vf = k.float(), v.float()
+        or not torch.isfinite(lse[..., vis.any(dim=1)]).all()
+    if not bad:
+        grads = _bwd_tf32x3_fast(q, k, v, do, lse, D, vis)
+        if all(torch.isfinite(x).all() for x in grads):
+            return tuple(x.to(y.dtype) for x, y in zip(grads, (q, k, v)))
+    return _bwd_exact(q, k, v, do, vis)
+
+
+def _bwd_tf32x3_fast(q, k, v, do, lse, D, vis):
+    """The fast path of ``flash_attention_bwd_tf32x3_emulated``: fp32
+    (dq, dk, dv), not yet rounded to the operands' dtype."""
+    B, H, Tq, hd = q.shape
+    KV, Tkv = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    prod = _tf32x3 if q.dtype == torch.float32 else _tf32x1
+    bs = 16 if hd >= 128 else 32       # the kernel's Fast<HD>::BS
+    qf = q.float().reshape(B, KV, G, Tq, hd)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
     g = do.float().reshape(B, KV, G, Tq, hd)
-    L = lse.float().reshape(B, KV, G, Tq)
-    Dg = D.reshape(B, KV, G, Tq)
-    dq = torch.zeros_like(qs)
+    s = prod(qf, kf.transpose(-1, -2)) * scale
+    p = torch.where(vis, torch.exp(s - lse.float().reshape(B, KV, G, Tq, 1)),
+                    torch.zeros(()))
+    dp = prod(g, vf.transpose(-1, -2))
+    ds = p * (dp - D.reshape(B, KV, G, Tq, 1))
+    dq = torch.zeros(B, KV, G, Tq, hd)
+    for j0 in range(0, Tkv, bs):
+        dq = dq + prod(ds[..., j0:j0 + bs], kf[..., j0:j0 + bs, :])
     dk = torch.zeros(B, KV, Tkv, hd)
     dv = torch.zeros(B, KV, Tkv, hd)
-    for i0 in range(0, Tq, bq):
-        i1 = min(i0 + bq, Tq)
-        for j0 in range(0, Tkv, bk):
-            j1 = min(j0 + bk, Tkv)
-            s = torch.einsum("bkgqd,bktd->bkgqt", qs[..., i0:i1, :],
-                             kf[:, :, j0:j1])
-            m = vis[i0:i1, j0:j1] & has_key[i0:i1, None]
-            p = torch.where(m, torch.exp(s - L[..., i0:i1, None]),
-                            torch.zeros(()))
-            dp = torch.einsum("bkgqd,bktd->bkgqt", g[..., i0:i1, :],
-                              vf[:, :, j0:j1])
-            ds = p * (dp - Dg[..., i0:i1, None])
-            dq[..., i0:i1, :] += torch.einsum("bkgqt,bktd->bkgqd", ds,
-                                              kf[:, :, j0:j1])
-            dk[:, :, j0:j1] += torch.einsum("bkgqt,bkgqd->bktd", ds,
-                                            qs[..., i0:i1, :])
-            dv[:, :, j0:j1] += torch.einsum("bkgqt,bkgqd->bktd", p,
-                                            g[..., i0:i1, :])
-    spread = g[..., ~has_key, :].sum(dim=(2, 3)) / Tkv      # (B, KV, hd)
-    dv += spread[:, :, None, :]
-    return ((dq * scale).reshape(B, H, Tq, hd).to(q.dtype),
-            dk.to(k.dtype), dv.to(v.dtype))
+    for h in range(G):
+        for i0 in range(0, Tq, bs):
+            i1 = i0 + bs
+            dv = dv + prod(p[:, :, h, i0:i1].transpose(-1, -2),
+                           g[:, :, h, i0:i1])
+            dk = dk + prod(ds[:, :, h, i0:i1].transpose(-1, -2),
+                           qf[:, :, h, i0:i1])
+    dv = dv + g[..., ~vis.any(dim=1), :].sum(dim=(2, 3))[:, :, None] / Tkv
+    return (dq.reshape(B, H, Tq, hd) * scale, dk * scale, dv)
+
+
+def bwd_overflow_inputs(generator: torch.Generator, device=None):
+    """Finite (q, k, v, do), all within the backward's 1e15 bound, whose dk
+    overflows fp32: one q row with a 1e15 element in a column that every
+    key zeroes (the scores stay normal), v and that row's do near 1e14, so
+    dS near 1e27 times 1e15 passes the fp32 range; 3xTF32's cross terms
+    make NaN of some of those infinities.  Shapes (1, 4 | 2, 64, 32),
+    causal: the case for the backward kernel's recompute rule."""
+    q, k, v, do = (torch.randn((1, n, 64, 32), generator=generator,
+                               device=device) for n in (4, 2, 2, 4))
+    k[..., 3] = 0.0
+    q[0, 1, 40, 3] = 1e15
+    v *= 1e14
+    do[0, 1, 40] *= 1e14
+    return q, k, v, do
 
 
 def _bwd_exact(q, k, v, do, vis):

@@ -523,7 +523,11 @@ BWD_CASES = [(2, 4, 2, 100, 100, 16, True, None, 0, "bhtd"),
              (1, 4, 1, 70, 90, 32, True, 16, 0, "bhtd"),
              (1, 2, 1, 40, 40, 128, True, None, -10, "bhtd"),
              (1, 2, 1, 40, 60, 128, False, None, 0, "bthd"),
-             (1, 4, 2, 130, 130, 256, True, 64, 0, "bthd")]
+             (1, 4, 2, 130, 130, 256, True, 64, 0, "bthd"),
+             # a tile boundary at hd 256 and one kv head: the dk / dv pass
+             # splits the group's q heads over CTAs
+             (1, 8, 1, 130, 130, 256, True, 64, 0, "bhtd"),
+             (2, 16, 1, 200, 260, 128, True, None, 60, "bthd")]
 
 
 @pytest.mark.parametrize("case", BWD_CASES)
@@ -552,6 +556,45 @@ def test_flash_bwd_kernel_matches_plain_autograd(cuda, case, dtype):
         assert a.shape == b.shape and a.dtype == dtype
         err = (a.float() - b.float()).abs().max() / b.float().abs().max()
         assert err.item() <= tol
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 8, 512, 128, None),
+                                   (2, 16, 1, 700, 256, 256)])
+def test_flash_bwd_kernel_is_deterministic(cuda, shape):
+    """Two launches on the same inputs give the same bits, with the heads
+    split over CTAs (one kv head) or not."""
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    B, H, KV, T, hd, window = shape
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, do = (torch.randn((B, T, H, hd), generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, KV, hd), generator=g, device=cuda)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, q_offset=0, layout="bthd")
+    o, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    first = kbwd.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    second = kbwd.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_overflow_takes_the_exact_path(cuda):
+    """Finite operands whose dk overflows: the fast path's non-finite
+    gradients are counted and recomputed on the exact path, whose classes
+    are the plain autograd's."""
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import ref
+    q, k, v, do = ref.bwd_overflow_inputs(
+        torch.Generator(device=cuda).manual_seed(7), cuda)
+    o, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True)
+    kbwd.recomputes.reset()
+    got = kbwd.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    assert kbwd.recomputes.read() > 0
+    kbwd.recomputes.reset()
+    want = kbwd.flash_attention_bwd_plain(q, k, v, do)
+    for a, b in zip(got, want):
+        for cls in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(cls(a), cls(b))
 
 
 def test_flash_autograd_route_and_refusals(cuda):
