@@ -128,12 +128,33 @@ its recompute rule on finite operands whose dk overflows.
    layers, 2 steps: losses, gnorms, m, v and the params agree, and the
    state's C1 naive/hier per node equals ``chips``; (c) one hier step at 2
    layers, 8 x 128, card against CPU.
+12. training with tensor parallelism, on the factored cluster ``2x(2x2)``
+   (each node's 4 ranks = 2 store ranks x 2 tp ranks): (a) ``qwen3-0.6b``
+   at full width and depth in ``head_tp`` (kv heads tp-sharded), hier, 8 x
+   2048, phase 11 (a)'s seed, lr, clip and batches, 3 steps: step ms,
+   tokens/s, the state's bytes, losses and gnorms equal to phase 11 (a)'s
+   (the same model split over 2 tp ranks) and the loss falling from step 1
+   to step 3, and the flash launches
+   equal to phase 11 (a)'s (336 / 168: the tp ranks fold into the
+   kernel's batch); (b) hier against naive at 2 layers, 2 steps, phase
+   11 (b)'s tolerances, and C1 naive/hier = 2.0 exactly for params, m, v
+   and grads (the store size: the tp ranks hold different shards); (c)
+   one hier step at 2 layers, 8 x 128, card against CPU; (d) one step of
+   ``starcoder2-7b`` (36 heads: tp 8 takes context-parallel attention) cut
+   to 2 layers on ``1x(1x8)``, 2 x 2048: the loss, and the flash launches
+   one a tp rank a layer at the shapes phase 2 checked (Tq 256 at its
+   q_offset against Tkv 2048).
+
+Phase 2 holds the flash forward and backward kernels at phase 12's shapes
+too: (8, 2048, 8 q / 4 kv, 128) and (2, 256, 36 q / 4 kv, 128) against
+2048 keys at q_offset 256 and 1792.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
-phase 10, then phase 8's and phase 9's serving runs, phase 11 (a)) and
-read just after; the recompute counters (the non-finite rule's, and the
+phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
+12 (a)) and read just after; the JSON's flash rows sum the main paths that
+launch them.  The recompute counters (the non-finite rule's, and the
 flash backward's) are zeroed before phase 3 and must read 0 after phase
-11.  The line
+12.  The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1143,6 +1164,37 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     bwd_top = bwd_rows["qwen3-0.6b train, per node"]   # the main path's shape
+    # phase 12's shapes, forward and backward against the plain versions:
+    # qwen3-0.6b in head_tp at tp 2 as phase 12 (a) launches it (a node's
+    # 4 sequences x its 2 tp ranks folded into the batch, 8 q / 4 kv heads
+    # a rank) and starcoder2-7b in cp at tp 8 as phase 12 (d) launches it
+    # (a rank's 256-query chunk at its q_offset against the gathered 2048
+    # keys, 36 q / 4 kv heads), ranks 1 and 7
+    tp_shapes = set()
+    for name, (B, H, KV, Tq, Tkv, qo) in (
+            ("qwen3-0.6b head_tp, tp 2", (8, 8, 4, 2048, 2048, 0)),
+            ("starcoder2-7b cp, tp 8, rank 1", (2, 36, 4, 256, 2048, 256)),
+            ("starcoder2-7b cp, tp 8, rank 7", (2, 36, 4, 256, 2048, 1792))):
+        q, do = (torch.randn((B, Tq, H, 128), generator=g, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn((B, Tkv, KV, 128), generator=g, device=dev)
+                for _ in range(2))
+        kw = dict(causal=True, window=None, q_offset=qo, layout="bthd")
+        what = (f"flash_attention f32 {name}: q {tuple(q.shape)} k "
+                f"{tuple(k.shape)} q_offset {qo}")
+        fwd_err = check_flash(ops.flash_attention(q, k, v, **kw),
+                              kflash.flash_attention_plain(q, k, v, **kw),
+                              torch.float32, what)
+        o, lse, errs, _ = bwd_check(q, k, v, do, torch.float32, what, **kw)
+        fwd_ms = cuda_ms(lambda: kflash.flash_attention_cuda(q, k, v, **kw),
+                         3)
+        b_ms = cuda_ms(lambda: kbwd.flash_attention_bwd_cuda(
+            q, k, v, o, do, lse, **kw), 3)
+        tp_shapes.add((B, Tq, H, Tkv, KV, qo > 0))
+        print(f"[kernel] {what}: forward max|err| {fwd_err:.3g} "
+              f"{fwd_ms:.3f} ms; backward rel err dq {errs[0]:.2e} dk "
+              f"{errs[1]:.2e} dv {errs[2]:.2e}, {b_ms:.3f} ms")
+        del q, k, v, do, o, lse
     # the backward's non-finite classes, as the forward's above, with dO too
     for B, H, KV, T, hd, window in ((1, 4, 2, 128, 64, None),
                                     (1, 8, 1, 200, 256, 16)):
@@ -1767,6 +1819,7 @@ def main() -> int:
             raise AssertionError(f"the training run never launched {k_}")
     train_row = {"ms": sum(r["ms"] for r in rows[1:]) / (len(rows) - 1),
                  "tokens": 8 * 2048}
+    train_rows = rows
     del bundle, state, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -1857,13 +1910,205 @@ def main() -> int:
     print(f"[phase] train {time.perf_counter() - t_phase:.1f} s")
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
 
+    # -- 12. training with tensor parallelism: the factored cluster -----------
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    vc_tp = VirtualCluster.from_label("2x(2x2)", device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) the main path: qwen3-0.6b full width and depth, hier on 2x(2x2)
+    # (per node 2 store ranks x 2 tp ranks: head_tp, kv heads sharded),
+    # 8 x 2048, the seed, lr and clip of phase 11 (a)
+    params = meta.init_params(model_defs, tcfg,
+                              torch.Generator(device=dev).manual_seed(11),
+                              dev)
+    bundle, state, nbytes = train_setup(tcfg, vc_tp, "hier", params)
+    del params
+    if meta.attn_mode_for(tcfg, bundle.model.ctx.tp) != "head_tp":
+        raise AssertionError("qwen3-0.6b at tp 2 is not head_tp")
+    batches = train_batches(tcfg, 2048, 3)
+    kflash.launches = kbwd.launches = 0
+    state, rows = run_steps(bundle, state, batches,
+                            "qwen3-0.6b full depth hier 2x(2x2) 8x2048")
+    tp_launches = {"flash_attention (forward)": kflash.launches,
+                   "flash_attention_bwd": kbwd.launches}
+    nbytes["grads"] = bundle.stats["grad_bytes"]
+    print(f"[train] tp training state on the card (2 node copies, each tp "
+          f"shard once per node): "
+          + ", ".join(f"{k_} {v_ / 1e9:.3f} GB" for k_, v_ in nbytes.items())
+          + f", total {sum(nbytes.values()) / 1e9:.3f} GB; peak allocated "
+          f"in phase 12 (a) {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} "
+          f"GB")
+    print(f"[train] launches in the tp training run: "
+          + ", ".join(f"{k_} {v_}" for k_, v_ in tp_launches.items())
+          + " (one a layer a node run, the tp ranks folded into the batch; "
+          "the forward twice: the remat)")
+    if tp_launches != train_launches:
+        raise AssertionError(f"tp launches {tp_launches} != phase 11 (a)'s "
+                             f"{train_launches}")
+    # the same params and batches as phase 11 (a): the same model split
+    # over 2 tp ranks gives the same losses and gnorms, within §2's
+    # tolerances; and the loss falls over the 3 steps (step 3's batch
+    # scores above step 2's in both runs)
+    losses = [r["loss"] for r in rows]
+    for i, (r_t, r_1) in enumerate(zip(rows, train_rows)):
+        close(torch.tensor(r_t["loss"]), torch.tensor(r_1["loss"]), 2e-4, 0,
+              f"tp vs phase 11 (a) step {i + 1} loss")
+        close(torch.tensor(r_t["gnorm"]), torch.tensor(r_1["gnorm"]), 5e-3,
+              0, f"tp vs phase 11 (a) step {i + 1} gnorm")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"tp training loss did not fall: {losses}")
+    tp_row = {"ms": sum(r["ms"] for r in rows[1:]) / (len(rows) - 1)}
+    print(f"[train] tp step (steps 2-3) {tp_row['ms']:.1f} ms against phase "
+          f"11 (a)'s {train_row['ms']:.1f} ms "
+          f"({8 * 2048 / tp_row['ms'] * 1e3:.1f} against "
+          f"{8 * 2048 / train_row['ms'] * 1e3:.1f} tokens/s); losses and "
+          f"gnorms equal phase 11 (a)'s within rtol 2e-4 / 5e-3, the loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    del bundle, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) hier against naive on 2x(2x2), 2 layers, 2 steps: per node hier
+    # holds each tp shard once, naive once per store rank, so C1 is the
+    # store size, 2, for every group
+    params = meta.init_params(meta.model_defs(cfg2, 1, 1, "hier"), cfg2,
+                              torch.Generator(device=dev).manual_seed(12),
+                              dev)
+    batches = train_batches(cfg2, 2048, 2)
+    out = {}
+    for mode in ("hier", "naive"):
+        bundle, state, nb = train_setup(cfg2, vc_tp, mode, params)
+        state, rows = run_steps(bundle, state, batches,
+                                f"qwen3-0.6b 2 layers {mode} 2x(2x2) 8x2048")
+        nb["grads"] = bundle.stats["grad_bytes"]
+        glob = bundle.unlayout_state(state)
+        out[mode] = {"rows": rows, "bytes": nb,
+                     "state": _map(lambda t: t.cpu(), {
+                         g_: glob[g_] for g_ in ("params", "m", "v")})}
+        del glob, bundle, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    h, n_ = out["hier"], out["naive"]
+    for r_h, r_n in zip(h["rows"], n_["rows"]):
+        close(torch.tensor(r_n["loss"]), torch.tensor(r_h["loss"]), 2e-4, 0,
+              "tp hier vs naive loss")
+        close(torch.tensor(r_n["gnorm"]), torch.tensor(r_h["gnorm"]), 5e-3, 0,
+              "tp hier vs naive gnorm")
+    excused, total, worst = state_close(n_["state"], h["state"],
+                                        "tp hier vs naive", len(batches))
+    c1 = {g_: n_["bytes"][g_] / h["bytes"][g_] for g_ in h["bytes"]}
+    print(f"[train] hier vs naive, 2x(2x2), 2 layers, 2 steps: loss "
+          f"{[r['loss'] for r in h['rows']]} vs "
+          f"{[r['loss'] for r in n_['rows']]}, gnorm "
+          f"{[r['gnorm'] for r in h['rows']]} vs "
+          f"{[r['gnorm'] for r in n_['rows']]}, m and v per leaf within "
+          f"rtol 2e-4 atol 2e-5 of the leaf's largest (worst m "
+          f"{worst['m']:.3g}, v {worst['v']:.3g} of that tolerance), "
+          f"updated params within rtol 2e-4 atol 2e-5 but {excused} of "
+          f"{total} elements where AdamW's update is ill-conditioned; "
+          f"state per node hier "
+          f"{sum(h['bytes'].values()) / vc_tp.pods / 1e9:.4f} GB naive "
+          f"{sum(n_['bytes'].values()) / vc_tp.pods / 1e9:.4f} GB, C1 "
+          f"naive/hier by group {c1} (the store size 2, not chips "
+          f"{vc_tp.chips})")
+    if any(v_ != 2.0 for v_ in c1.values()):
+        raise AssertionError(f"tp training-state C1 {c1} != 2.0")
+    del out, h, n_
+
+    # (c) card against CPU: one hier step on 2x(2x2), 2 layers, 8 x 128
+    batch = train_batches(cfg2, 128, 1)
+    res = {}
+    for d_ in (dev, torch.device("cpu")):
+        vc_d = VirtualCluster.from_label("2x(2x2)", device=d_)
+        bundle, state, _ = train_setup(cfg2, vc_d, "hier",
+                                       _map(lambda t: t.to(d_), params))
+        state, mt = bundle.step(state, bundle.layout_batch(batch[0]))
+        glob = bundle.unlayout_state(state)
+        res[d_.type] = (float(mt["loss"][0]), float(mt["gnorm"][0]),
+                        _map(lambda t: t.cpu(), {
+                            g_: glob[g_] for g_ in ("params", "m", "v")}))
+        del glob, bundle, state
+        gc.collect()
+    close(torch.tensor(res["cuda"][0]), torch.tensor(res["cpu"][0]), 2e-4,
+          0, "tp card vs CPU loss")
+    close(torch.tensor(res["cuda"][1]), torch.tensor(res["cpu"][1]), 5e-3,
+          0, "tp card vs CPU gnorm")
+    excused, total, worst = state_close(res["cuda"][2], res["cpu"][2],
+                                        "tp card vs CPU", 1)
+    print(f"[train] card vs CPU, hier 2x(2x2), 2 layers, 8 x 128, one step: "
+          f"loss {res['cuda'][0]:.6f} vs {res['cpu'][0]:.6f}, gnorm "
+          f"{res['cuda'][1]:.6f} vs {res['cpu'][1]:.6f}, m and v per leaf "
+          f"within rtol 2e-4 atol 2e-5 of the leaf's largest (worst m "
+          f"{worst['m']:.3g}, v {worst['v']:.3g} of that tolerance), "
+          f"updated params within rtol 2e-4 atol 2e-5 but {excused} of "
+          f"{total} elements where AdamW's update is ill-conditioned")
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) context-parallel attention at full width: starcoder2-7b (36
+    # heads, so tp 8 takes cp) cut to 2 layers on one node's 1x8 fast tier
+    # factored (1, 8), 2 x 2048 tokens, one hier step
+    scfg = dataclasses.replace(get_config("starcoder2-7b"), n_layers=2)
+    vc_cp = VirtualCluster.from_label("1x(1x8)", device=dev)
+    params = meta.init_params(meta.model_defs(scfg, 1, 1, "hier"), scfg,
+                              torch.Generator(device=dev).manual_seed(13),
+                              dev)
+    bundle = make_cluster_train_step(scfg, vc_cp, mode="hier", lr=3e-4,
+                                     clip=1.0, global_batch=2)
+    ctx_cp = bundle.model.ctx
+    T_cp = 2048
+    if meta.attn_mode_for(scfg, ctx_cp.tp) != "cp" or \
+            (2, T_cp // ctx_cp.tp, scfg.n_heads, T_cp, scfg.n_kv, True) \
+            not in tp_shapes:
+        raise AssertionError("phase 2 did not check the cp step's flash "
+                             "shapes")
+    state = {"params": vc_cp.layout(params, bundle.state_specs["params"])}
+    del params
+    state["m"] = _map(torch.zeros_like, state["params"])
+    state["v"] = _map(torch.zeros_like, state["params"])
+    state["step"] = vc_cp.layout(torch.zeros((), dtype=torch.int32),
+                                 bundle.state_specs["step"])
+    stream = SyntheticLM(DataConfig(vocab=scfg.vocab, seq_len=T_cp,
+                                    global_batch=2, seed=7))
+    kflash.launches = kbwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, mt = bundle.step(state, bundle.layout_batch(stream.next_batch()))
+    loss, gnorm = float(mt["loss"][0]), float(mt["gnorm"][0])
+    torch.cuda.synchronize()
+    cp_ms = (time.perf_counter() - t0) * 1e3
+    cp_launches = (kflash.launches, kbwd.launches)
+    want_cp = (2 * scfg.n_layers * ctx_cp.tp, scfg.n_layers * ctx_cp.tp)
+    print(f"[train] starcoder2-7b 2 layers cp (tp {ctx_cp.tp}) hier on "
+          f"{vc_cp.label}, 2 x {T_cp}, one step: loss {loss:.6f} gnorm "
+          f"{gnorm:.6f} step {cp_ms:.1f} ms; flash_attention launches "
+          f"{cp_launches[0]}, flash_attention_bwd {cp_launches[1]} (one a "
+          f"tp rank a layer, q (2, {T_cp // ctx_cp.tp}, {scfg.n_heads}, "
+          f"128) at q_offset rank x {T_cp // ctx_cp.tp} against k, v (2, "
+          f"{T_cp}, {scfg.n_kv}, 128))")
+    if not (np.isfinite(loss) and np.isfinite(gnorm)) or \
+            cp_launches != want_cp:
+        raise AssertionError(f"cp step: loss {loss} gnorm {gnorm}, "
+                             f"launches {cp_launches} (want {want_cp})")
+    del bundle, state, mt
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase] train tp {time.perf_counter() - t_phase:.1f} s")
+    launches["flash_attention"] += (
+        train_launches["flash_attention (forward)"]
+        + tp_launches["flash_attention (forward)"])
+    launches["flash_attention_bwd"] += tp_launches["flash_attention_bwd"]
+
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
-    print(f"[nonfinite] tiles recomputed over phases 3-11: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-12: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")

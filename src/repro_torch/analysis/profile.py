@@ -7,7 +7,7 @@
     PYTHONPATH=src python -m repro_torch.analysis.profile --serve
         [--model recurrentgemma-9b]
     PYTHONPATH=src python -m repro_torch.analysis.profile --train
-        [--mode hier|naive] [--layers N] [--topology 2x4]
+        [--mode hier|naive] [--layers N] [--topology 2x4|2x(2x2)]
 
 SUMMA: for each scheme, one warm-up run, then one profiled run of the whole
 multiply (all rounds, ``use_kernel=True``).  ``--ag-matmul``: the same for
@@ -22,7 +22,10 @@ and lru_scan kernels.  ``--train``: ``qwen3-0.6b``'s cluster train step
 (``runtime.steps``) at full width — full depth unless ``--layers`` cuts
 it — in ``--mode`` on the stacked ``--topology``, global batch 8 x 2048
 tokens: one warm-up step, then one profiled step, with the shares of the
-flash forward and backward kernels and of the f32 matrix products.  Prints
+flash forward and backward kernels and of the f32 matrix products, and on
+a topology with a tp axis (``2x(2x2)``) the device time of the tp
+collectives: the ``tp::*`` ranges of their forwards (``ParallelCtx``)
+and their backward nodes, each range's kernels counted once.  Prints
 each
 run's wall time, the device busy time (the union of every kernel and copy
 interval on the card, so overlapping streams count once), the busy share of
@@ -67,8 +70,42 @@ def profile_scheme(a, b, scheme: str, chunks: int, top: int = 5) -> dict:
     return {"scheme": scheme, **profile_run(run, top)}
 
 
-def profile_run(run, top: int = 5) -> dict:
-    """One warm-up call of ``run``, then one profiled call."""
+#: Profiler ranges (CPU events) whose device work is the tp collectives:
+#: the forwards' ``tp::*`` ranges and the substrate Functions' backward
+#: nodes.
+TP_RANGES = ("tp::", "_AllGatherFnBackward", "_PsumScatterFnBackward",
+             "_PsumFnBackward")
+
+
+def _device_us(e) -> float:
+    """A CPU event's device time, its children's kernels included."""
+    return getattr(e, "device_time_total", None) or getattr(
+        e, "cuda_time_total", 0.0)
+
+
+def _ranges_ms(prof, parts: tuple) -> dict:
+    """Device ms under each CPU event whose name holds one of ``parts``,
+    by name; an event nested inside a counted one is not counted again."""
+    hits = [e for e in prof.events() if e.device_type == DeviceType.CPU
+            and any(p_ in e.name for p_ in parts)]
+    ids = {id(e) for e in hits}
+    out: dict[str, float] = defaultdict(float)
+    for e in hits:
+        up, nested = e.cpu_parent, False
+        while up is not None:
+            if id(up) in ids:
+                nested = True
+                break
+            up = up.cpu_parent
+        if not nested:
+            out[e.name.split(": ")[-1]] += _device_us(e) / 1e3
+    return dict(out)
+
+
+def profile_run(run, top: int = 5, ranges: tuple = ()) -> dict:
+    """One warm-up call of ``run``, then one profiled call; with
+    ``ranges``, the device ms under the CPU events those name parts
+    match (``_ranges_ms``)."""
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -89,7 +126,8 @@ def profile_run(run, top: int = 5) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "top": ranked[:top],
-            "all": ranked, "launches": len(dev)}
+            "all": ranked, "launches": len(dev),
+            "ranges": _ranges_ms(prof, ranges) if ranges else {}}
 
 
 def _print(label: str, r: dict) -> None:
@@ -157,8 +195,7 @@ def profile_train(dev: torch.device, mode: str, topology: str,
     cfg = get_config("qwen3-0.6b")
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    pods, chips = (int(x) for x in topology.split("x"))
-    vc = VirtualCluster(pods=pods, chips=chips, device=dev)
+    vc = VirtualCluster.from_label(topology, device=dev)
     bundle = make_cluster_train_step(cfg, vc, mode=mode, global_batch=8)
     state = bundle.init_layout_state(0)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -172,9 +209,16 @@ def profile_train(dev: torch.device, mode: str, topology: str,
     def step():
         bundle.step(state, batch)
 
-    r = profile_run(step, top)
+    tp = bundle.model.ctx.tp_axis is not None
+    r = profile_run(step, top, TP_RANGES if tp else ())
     _print("train", r)
     _print_share(r)
+    if tp:
+        total = sum(r["ranges"].values())
+        print(f"[profile]    tp collectives {total:.2f} ms = "
+              f"{100 * total / r['busy_ms']:.1f}% of device busy time: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                  r["ranges"].items(), key=lambda kv: -kv[1])))
 
 
 #: The port's kernels (and the library's f32 products) by parts of their

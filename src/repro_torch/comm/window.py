@@ -50,6 +50,7 @@ class SharedWindow:
     axis: int = 0
     epoch: int = 0
     dirty: bool = False
+    lead: int = 0                     # per-rank dims before the members
 
     # -- stores (open an epoch) ----------------------------------------------
     def store(self, shard: torch.Tensor) -> "SharedWindow":
@@ -102,12 +103,13 @@ class SharedWindow:
         """The node's buffer as ONE tensor, for a window whose ``shard`` is
         a single node's members ``(n, *shard)`` — what a model run once per
         memory domain reads (``models.parallel``): the members' shards
-        joined along ``axis`` in member order, one copy for the node.  Its
-        gradient splits the cotangent back into the members' shards, the
-        node's reduce-scatter store with the sum over the node's ranks
+        joined along ``axis`` in member order, one copy for the node
+        (behind ``lead`` leading dims: the tp ranks', one window each).
+        Its gradient splits the cotangent back into the members' shards,
+        the node's reduce-scatter store with the sum over the node's ranks
         already taken by the batch the run folds together."""
         self._check_clean()
-        return node_read(self.shard, self.axis)
+        return node_read(self.shard, self.axis, lead=self.lead)
 
     def read_rank_order(self) -> torch.Tensor:
         """Full buffer in SMP (pod, local_rank) rank order; needs the
@@ -125,12 +127,13 @@ class SharedWindow:
 # FSDP-style parameter access (the window applied along a weight dim).
 # ---------------------------------------------------------------------------
 
-def node_read(shards: torch.Tensor, axis: int) -> torch.Tensor:
-    """One node's members ``(n, *shard)`` joined along local ``axis``
-    (differentiable: the transpose is the split)."""
-    shape = list(shards.shape[1:])
-    shape[axis] *= shards.shape[0]
-    return shards.movedim(0, axis).reshape(shape)
+def node_read(shards: torch.Tensor, axis: int, lead: int = 0
+              ) -> torch.Tensor:
+    """One node's members ``(*lead, n, *shard)`` joined along local
+    ``axis`` of the shard (differentiable: the transpose is the split)."""
+    shape = list(shards.shape[:lead]) + list(shards.shape[lead + 1:])
+    shape[lead + axis] *= shards.shape[lead]
+    return shards.movedim(lead, lead + axis).reshape(shape)
 
 
 def window_gather(x: torch.Tensor, dim: Optional[int], fast_axis

@@ -71,7 +71,9 @@ def train_state_from_reference(state, vc, specs) -> dict:
     """The reference's train state as its ``smap`` returns it (global
     arrays: a sharded leaf's shards joined, a replicated leaf once) -> the
     port's state laid out on ``vc`` under ``specs`` (the bundle's
-    ``state_specs``): stacked ``(R, *local)`` tensors on its device."""
+    ``state_specs``): stacked ``(R, *local)`` tensors on its device — a
+    tp-sharded leaf split over the tp axis as over the store axes, a
+    tp-replicated one copied to every tp rank."""
     return vc.layout(params_from_reference(state, vc.device), specs)
 
 

@@ -1,15 +1,17 @@
 """Training launcher: the cluster train step over a synthetic token stream.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
-        [--reduced] --topology 2x4 --mode hier|naive --steps N --batch B \\
-        --seq T [--device cuda|cpu] [--opts prefetch,stepgraph]
+        [--reduced] --topology 2x4|2x(2x2) --mode hier|naive --steps N \\
+        --batch B --seq T [--device cuda|cpu] [--opts prefetch,stepgraph]
 
 Builds ``runtime.steps.make_cluster_train_step`` on a stacked
-``VirtualCluster`` of ``pods x chips`` ranks (``--topology``) on one device,
-draws the parameters from ``--seed`` on that device, lays the state out
-(hier: one copy per node, sharded over its ranks; naive: a replica per
-rank) and drives ``--steps`` steps over ``data/synthetic.py``'s stream.  It
-prints one line per step — loss, gnorm, the step's milliseconds (host clock
+``VirtualCluster`` (``--topology``: ``PODSxCHIPS``, or ``PODSx(DPxTP)``
+for a node's fast tier factored over data and tensor parallelism, the
+production layout) on one device, draws the parameters from ``--seed`` on
+that device, lays the state out (hier: one copy per node, sharded over its
+store ranks; naive: a replica per store rank; each tp rank its shard) and
+drives ``--steps`` steps over ``data/synthetic.py``'s stream.  It prints
+one line per step — loss, gnorm, the step's milliseconds (host clock
 around work that ends in a synchronize) and tokens/s — then the training
 state's device bytes by group (params / m / v / grads) and, on the card,
 the flash-attention kernel's forward and backward launch counts.
@@ -51,7 +53,8 @@ def main(argv=None) -> int:
     ap.add_argument("--d-model", type=int, default=64)
     ap.add_argument("--n-layers", type=int, default=2)
     ap.add_argument("--topology", default="2x4",
-                    help="PODSxCHIPS stacked on the one device")
+                    help="PODSxCHIPS or PODSx(DPxTP), stacked on the one "
+                         "device")
     ap.add_argument("--mode", default="hier", choices=["hier", "naive"])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=8)
@@ -72,12 +75,11 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=args.n_layers, d_model=args.d_model)
-    pods, chips = (int(x) for x in args.topology.lower().split("x"))
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is visible "
                          "(pass --device cpu)")
-    vc = VirtualCluster(pods=pods, chips=chips, device=dev)
+    vc = VirtualCluster.from_label(args.topology, device=dev)
     opts = tuple(o for o in args.opts.split(",") if o)
     bundle = make_cluster_train_step(cfg, vc, mode=args.mode, lr=args.lr,
                                      clip=args.clip,
@@ -105,8 +107,11 @@ def main(argv=None) -> int:
         print(f"[train] step {i + 1} loss {loss:.6f} gnorm {gnorm:.6f} "
               f"step {ms:.1f} ms {tokens / ms * 1e3:.1f} tokens/s")
     sizes = state_bytes(state, bundle.stats.get("grad_bytes", 0))
+    tp = bundle.model.ctx.tp
     copies = (f"{vc.pods} node copies" if args.mode == "hier"
-              else f"{vc.num_devices} replicas")
+              else f"{vc.num_devices // tp} replicas")
+    if tp > 1:
+        copies += f" of each of {tp} tp shards"
     print("[train] state bytes: "
           + " ".join(f"{k} {v}" for k, v in sizes.items())
           + f" total {sum(sizes.values())} ({copies})")

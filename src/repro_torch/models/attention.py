@@ -1,8 +1,8 @@
 """Attention: flash-style prefill through the Hopper kernel, and decode.
 
-The reference's ``repro/models/attention.py`` for the single-device ctx.
-``flash_attention`` (prefill) takes the model's (B, T, heads, hd) layout and
-goes through ``kernels.ops.flash_attention``: the hand-written kernel
+The reference's ``repro/models/attention.py``.  ``flash_attention``
+(prefill) takes the model's (B, T, heads, hd) layout and goes through
+``kernels.ops.flash_attention``: the hand-written kernel
 (``csrc/flash_attention.cu``) on CUDA tensors, its plain version on CPU
 tensors — there is no third route.  Decode attention is a one-query
 product over the cache, outside any kernel in the reference too, and stays
@@ -10,9 +10,26 @@ plain PyTorch.
 
 Training runs through the same ``attn_block``: on CUDA tensors that carry
 gradients ``ops.flash_attention`` takes the kernel with its backward kernel
-(``ops.FlashAttention``).  The tensor-parallel modes (``head_tp`` at
-tp > 1, ``cp``, split-K decode) are the tp half of ROADMAP Queue 1 item 13
-and raise.
+(``ops.FlashAttention``).  With a tp axis (``models.parallel``: the tp
+ranks stacked on a leading axis) the block runs in one of the reference's
+two modes, chosen per arch by head divisibility:
+
+* ``head_tp`` — the q heads (and the kv heads when they divide by tp) are
+  sharded; x is all-gathered to the full T and the output reduce-scattered
+  (``matmul_rs``).  The tp ranks fold into the kernel's batch: one launch
+  for all of them, q ``(tp*B, T, H/tp, hd)``.  Where a rank's kv map is the
+  kernel's own ``h // (H_loc / kv_loc)`` the kv heads go in as they are;
+  where it is not (replicated kv heads whose groups straddle ranks), each
+  rank's kv heads are expanded per q head first (glue: ``kv_loc = H/tp``).
+* ``cp`` — context parallel, for any head count: each rank's queries are
+  its T-chunk, K / V are all-gathered over tp.  The kernel takes one
+  scalar ``q_offset``, so it is launched once per tp rank, each with
+  ``Tq = T/tp`` against the full ``Tkv = T`` at ``q_offset = rank * T/tp``;
+  each rank's gathered K / V takes its own cotangent, which the gather's
+  transpose (the reduce-scatter) sums as the reference's does.
+
+Split-K decode over a T-sharded cache (serving at tp > 1) waits for ROADMAP
+Queue 1 items 15 and 17.
 """
 
 from __future__ import annotations
@@ -24,6 +41,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm, rope
+from repro_torch.models.meta import TP_SERVE, not_ported
 from repro_torch.models.parallel import ParallelCtx
 
 NEG = -1e30
@@ -37,22 +55,69 @@ def _kv_head_map(nq_local: int, q_head_offset, H: int, kv: int,
         - kv_head_offset
 
 
+def _kv_heads(nq: int, kv: int, q_head_offset: int, H: int, kv_total: int,
+              kv_head_offset: int) -> Optional[list[int]]:
+    """The local kv head of each local q head, or ``None`` where that is
+    the kernel's own map ``h // (nq / kv)``."""
+    heads = _kv_head_map(nq, q_head_offset, H, kv_total,
+                         kv_head_offset).tolist()
+    if nq % kv == 0 and heads == [h // (nq // kv) for h in range(nq)]:
+        return None
+    return heads
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset=0, H: Optional[int] = None,
+                    q_offset=0, q_head_offset=0, kv_head_offset=0,
+                    H: Optional[int] = None,
                     kv_total: Optional[int] = None) -> torch.Tensor:
     """q: (B, Tq, nq, hd); k, v: (B, Tkv, kv, hd) (full KV).
 
-    ``q_offset``: global position of q[.., 0, ..]; kv positions past Tkv
-    are masked.  ``H`` / ``kv_total`` are the global head counts; at
-    tp = 1 they are the local ones (a head-parallel shard raises)."""
+    ``q_offset``: global position of q[.., 0, ..] (a sequence-parallel
+    chunk); kv positions past Tkv are masked.  ``q_head_offset``: global
+    index of q head 0 (a head-parallel shard), ``kv_head_offset`` that of
+    kv head 0; ``H`` / ``kv_total`` the global head counts.  Where the
+    shard's kv map is not the kernel's own, k and v are expanded per q head
+    before the call."""
     nq, kv = q.shape[2], k.shape[2]
-    if (H or nq) != nq or (kv_total or kv) != kv:
-        raise NotImplementedError("head-parallel attention shards are the "
-                                  "tp half of ROADMAP Queue 1 item 13, not "
-                                  "ported yet")
+    heads = _kv_heads(nq, kv, q_head_offset, H or nq, kv_total or kv,
+                      kv_head_offset)
+    if heads is not None:
+        idx = torch.tensor(heads, device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                q_offset=int(q_offset), layout="bthd")
+
+
+def _attend_tp(q, k, v, ctx: ParallelCtx, *, mode: str, window, t_offset,
+               T_loc: int, H: int, kv: int) -> torch.Tensor:
+    """Attention of the stacked tp ranks: q (R, B, Tq, nq, hd), k / v
+    (R, B, Tkv, kv_loc, hd) -> (R, B, Tq, nq, hd).  ``head_tp``: one launch
+    with the ranks folded into the batch; ``cp``: one launch per rank at
+    its chunk's ``q_offset``."""
+    R, B, Tq, nq, hd = q.shape
+    kv_loc = k.shape[-2]
+    ranks = ctx.tp_ranks()
+    if mode == "cp":
+        return torch.stack([flash_attention(
+            q[i], k[i], v[i], causal=True, window=window,
+            q_offset=t_offset + r * T_loc, H=H, kv_total=kv)
+            for i, r in enumerate(ranks)])
+    maps = [_kv_heads(nq, kv_loc, r * nq, H, kv,
+                      r * kv_loc if kv_loc != kv else 0) for r in ranks]
+    if any(m is not None for m in maps):
+        own = [h // (nq // kv_loc) for h in range(nq)] \
+            if nq % kv_loc == 0 else None
+        idx = torch.tensor([m if m is not None else own for m in maps],
+                           device=k.device)[:, None, None, :, None]
+        k = torch.take_along_dim(k, idx, dim=3)
+        v = torch.take_along_dim(v, idx, dim=3)
+        kv_loc = nq
+    o = ops.flash_attention(
+        q.reshape(R * B, Tq, nq, hd), k.reshape(R * B, -1, kv_loc, hd),
+        v.reshape(R * B, -1, kv_loc, hd), causal=True, window=window,
+        q_offset=t_offset, layout="bthd")
+    return o.reshape(R, B, Tq, nq, hd)
 
 
 def attn_flops(B: int, Tq: int, Tkv: int, H: int, hd: int, *,
@@ -75,37 +140,58 @@ def attn_flops(B: int, Tq: int, Tkv: int, H: int, hd: int, *,
 def attn_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
                cfg, *, mode: str, window: Optional[int], t_offset: int = 0,
                return_kv: bool = False):
-    """x_sp: (B, T, d).  Returns the new x (and this layer's (k, v) when
-    ``return_kv`` — used by prefill to build the cache)."""
-    if mode != "head_tp":
-        raise NotImplementedError("context-parallel attention is the tp half "
-                                  "of ROADMAP Queue 1 item 13, not ported "
-                                  "yet")
+    """x_sp: (B, T/tp, d) per rank (stacked with a tp axis).  Returns the
+    new x (and this layer's (k, v) when ``return_kv`` — used by prefill to
+    build the cache, at tp = 1)."""
+    if return_kv and ctx.tp_axis:
+        raise not_ported("prefill into a T-sharded cache at tp > 1",
+                         TP_SERVE)
     H, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     eps = cfg.norm_eps
-    B, T, d = x_sp.shape
-    h = rms_norm(x_sp, ctx.gather_w(p["ln"], meta["ln"].fsdp_dim), eps)
+    T_loc = x_sp.shape[-2]
+    h = rms_norm(x_sp, ctx.at(ctx.gather_w(p["ln"], meta["ln"].fsdp_dim),
+                              x_sp.dim()), eps)
     wq = ctx.gather_w(p["wq"], meta["wq"].fsdp_dim)
-    wkv = ctx.gather_w(p["wkv"], meta["wkv"].fsdp_dim)
+    wkv = ctx.gather_w(p["wkv"], meta["wkv"].fsdp_dim)   # (d, 2, kv_loc hd)
     wo = ctx.gather_w(p["wo"], meta["wo"].fsdp_dim)
+    kv_loc = wkv.shape[-1] // hd
 
-    q = (h @ wq).reshape(B, T, H, hd)
-    kvp = (h @ wkv.reshape(d, -1)).reshape(B, T, 2, kv, hd)
-    k, v = kvp[:, :, 0], kvp[:, :, 1]
+    if mode == "head_tp":
+        hq = ctx.ag_tokens(h)                              # (B, T, d)
+        n_q = H // ctx.tp
+    else:                                                  # cp
+        hq = h
+        n_q = H
+    lead = tuple(hq.shape[:-1])
+    q = ctx.mm(hq, wq).reshape(lead + (n_q, hd))
+    kvp = ctx.mm(hq, wkv.flatten(-2)).reshape(lead + (2, kv_loc, hd))
+    k, v = kvp[..., 0, :, :], kvp[..., 1, :, :]
     if cfg.qk_norm:
-        q = rms_norm(q, ctx.gather_w(p["q_norm"], meta["q_norm"].fsdp_dim),
-                     eps)
-        k = rms_norm(k, ctx.gather_w(p["k_norm"], meta["k_norm"].fsdp_dim),
-                     eps)
+        q = rms_norm(q, ctx.at(ctx.gather_w(
+            p["q_norm"], meta["q_norm"].fsdp_dim), q.dim()), eps)
+        k = rms_norm(k, ctx.at(ctx.gather_w(
+            p["k_norm"], meta["k_norm"].fsdp_dim), k.dim()), eps)
     if cfg.pos == "rope":
         rdt = ctx.compute_dtype if ctx.has("bf16_rope") else None
-        t = t_offset + torch.arange(T, device=x_sp.device)
+        t = t_offset + torch.arange(q.shape[-3], device=x_sp.device)
+        if mode == "cp":                                   # (R, T/tp)
+            t = t + (ctx.tp_rank * T_loc)[:, None]
         q = rope(q, t, cfg.rope_theta, rdt)
         k = rope(k, t, cfg.rope_theta, rdt)
 
-    o = flash_attention(q, k, v, causal=True, window=window,
-                        q_offset=t_offset, H=H, kv_total=kv)
-    out = x_sp + ctx.matmul_rs(o.reshape(B, T, H * hd), wo)
+    if not ctx.tp_axis:
+        o = flash_attention(q, k, v, causal=True, window=window,
+                            q_offset=t_offset, H=H, kv_total=kv)
+    else:
+        if mode == "cp":
+            k, v = ctx.ag_tokens(k), ctx.ag_tokens(v)      # (B, T, kv, hd)
+        o = _attend_tp(q, k, v, ctx, mode=mode, window=window,
+                       t_offset=t_offset, T_loc=T_loc, H=H, kv=kv)
+    o = o.reshape(o.shape[:-2] + (n_q * hd,))
+    if mode == "head_tp":
+        out = x_sp + ctx.matmul_rs(o, wo)
+    else:
+        out = x_sp + ctx.mm(o, wo)
     if return_kv:
         return out, (k, v)
     return out

@@ -7,14 +7,18 @@ reference's ``init_params`` made maps leaf for leaf onto the port's
 tree on a device from an explicit ``torch.Generator`` with the reference's
 init rules; it cannot reproduce ``jax.random``'s draws.
 
-Sharding policy, as the reference's: ``tp_dim`` is the dim a tensor-
-parallel axis would shard (tp > 1 is the tp half of ROADMAP Queue 1 item 13
-and raises here); ``fsdp_dim`` (hier mode, ``data`` > 1) is the dim sharded
-over the node's ranks — the node's shared window — picked by
-``_resolve_fsdp``; ``param_specs`` gives the port's ``P`` tree the cluster
-step lays the state out with, and ``abstract_params`` the shapes on the
-``meta`` device (no memory).  The ``mlstm`` / ``slstm`` blocks and the MoE
-channel mix wait for Queue 1 item 16.
+Sharding policy, as the reference's: ``tp_dim`` is the dim the tensor-
+parallel axis shards, the same in naive and hier mode (head-parallel
+attention shards the q / out heads and, when the kv heads divide by tp, the
+kv heads; context-parallel attention replicates its weights; the ffn and
+RG-LRU shard their hidden width, the embed and unembed their vocab);
+``fsdp_dim`` (hier mode, ``data`` > 1) is the dim sharded over the node's
+store ranks — the node's shared window — picked by ``_resolve_fsdp``;
+``param_specs`` gives the port's ``P`` tree the cluster step lays the state
+out with, and ``abstract_params`` the shapes on the ``meta`` device (no
+memory).  Serve-time defs at tp > 1 (with split-K and 2-D decode) wait for
+ROADMAP Queue 1 items 15 and 17; the ``mlstm`` / ``slstm`` blocks and the
+MoE channel mix for item 16.
 """
 
 from __future__ import annotations
@@ -40,9 +44,15 @@ class PMeta:
     dtype: torch.dtype = torch.float32
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
+def not_ported(what: str, item) -> NotImplementedError:
+    """``item``: a Queue 1 item number, or a phrase such as "items 15 and
+    17"."""
+    where = f"item {item}" if isinstance(item, int) else item
     return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                               f"item {item}")
+                               f"{where}")
+
+
+TP_SERVE = "items 15 and 17"
 
 
 def _resolve_fsdp(meta: PMeta, data: int, mode: str, serve: bool,
@@ -76,14 +86,20 @@ def attn_mode_for(cfg: ModelConfig, tp: int) -> str:
 
 def attn_defs(cfg: ModelConfig, tp: int, serve: bool,
               opts=frozenset()) -> dict[str, PMeta]:
-    if tp != 1:
-        raise not_ported("tensor-parallel attention weights (the tp half)",
-                         13)
+    if serve and tp != 1:
+        raise not_ported("serve-time attention weights at tp > 1 (split-K "
+                         "and 2-D decode)", TP_SERVE)
     d, H, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    # the training layout marks the head dims tensor parallelism would
-    # shard (head_tp at tp = 1), so the FSDP dim avoids them as in the
-    # reference
-    q_tp, kv_tp, o_tp = (None, None, None) if serve else (1, 2, 0)
+    mode = attn_mode_for(cfg, tp)
+    if serve:
+        q_tp = kv_tp = o_tp = None
+    else:
+        # head_tp shards the q / out heads and the kv heads when they
+        # divide by tp (at tp = 1 too, so the FSDP dim avoids them as in
+        # the reference); cp replicates every attention weight
+        q_tp = 1 if mode == "head_tp" else None
+        kv_tp = 2 if (mode == "head_tp" and kv % tp == 0) else None
+        o_tp = 0 if mode == "head_tp" else None
     out = {
         "ln": PMeta((d,), init="zeros"),
         "wq": PMeta((d, H * hd), tp_dim=q_tp),
@@ -148,9 +164,9 @@ def model_defs(cfg: ModelConfig, tp: int, data: int, mode: str,
                serve: bool = False, opts=frozenset()) -> dict:
     """Full meta tree.  'units' metas describe PER-LAYER shapes (they get a
     stacked leading dim at materialization)."""
-    if tp != 1:
-        raise not_ported("the tensor-parallel parameter tree (the tp half)",
-                         13)
+    if serve and tp != 1:
+        raise not_ported("the serve-time parameter tree at tp > 1",
+                         TP_SERVE)
     d = cfg.d_model
     defs: dict = {
         "embed": PMeta((cfg.vocab_padded, d), tp_dim=0),
@@ -239,13 +255,13 @@ def abstract_params(defs: dict, cfg: ModelConfig, specs: dict) -> dict:
 def param_specs(defs: dict, cfg: ModelConfig, *, tp_axis: Optional[str],
                 fsdp_axis: Optional[str]) -> dict:
     """The ``P`` tree of the parameters (stacked unit dims accounted
-    for)."""
-    if tp_axis:
-        raise not_ported("tensor-parallel parameter specs (the tp half)", 13)
-
+    for): ``tp_dim`` over ``tp_axis``, ``fsdp_dim`` / ``data_dim`` over
+    ``fsdp_axis``."""
     def mk(path, meta: PMeta):
         off = 1 if path and path[0] == "units" else 0
         spec = [None] * (len(meta.shape) + off)
+        if meta.tp_dim is not None and tp_axis:
+            spec[meta.tp_dim + off] = tp_axis
         if meta.fsdp_dim is not None and fsdp_axis:
             spec[meta.fsdp_dim + off] = fsdp_axis
         if meta.data_dim is not None and fsdp_axis:

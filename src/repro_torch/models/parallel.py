@@ -1,12 +1,15 @@
 """ParallelCtx: how model math maps onto the mesh, in both collective modes.
 
 The reference's ``repro/models/parallel.py`` over the port's stacked
-cluster, without the tensor-parallel axis.  Axis roles:
+cluster.  Axis roles:
 
+* ``tp_axis``   — tensor parallelism with sequence-parallel residuals
+  (Megatron-SP: between blocks the activations are token-sharded over tp);
+  the last axis of a factored fast tier (``runtime.steps.cluster_ctx``);
 * ``fsdp_axes`` — where parameters are *stored*: in **hier** mode (the
   paper's MPI+MPI scheme) weights live once per node, sharded over the
-  node's ranks (the MPI-3 shared window); in **naive** mode (the pure-MPI
-  analogue) every rank holds a private replica;
+  node's store ranks (the MPI-3 shared window); in **naive** mode (the
+  pure-MPI analogue) every rank holds a private replica;
 * ``dp_axes``   — batch sharding (``(pod, data)`` or ``(data,)``);
 * ``pod_axis``  — the bridge (slow tier): gradient reductions cross it once
   per shard.
@@ -28,9 +31,20 @@ the card, which is the C1 the paper claims — and its gradient is the split
 into the members' shards, the node's reduce-scatter with the sum over the
 node's ranks taken by the folded batch.
 
-The tensor-parallel half (a ``model`` axis, head-parallel and
-context-parallel attention, ``ag_tokens`` / ``rs_tokens`` / ``group_*``)
-is ROADMAP Queue 1 item 13's second half: a ctx with a tp axis raises.
+**Tensor parallelism inside a domain run.**  With a tp axis the tp ranks
+of a domain hold different shards and exchange activations, so the run
+keeps them apart: every activation and every weight carries a leading
+axis of the ``tp`` ranks, stacked as the substrate stacks ranks, with a
+mesh of the tp axis alone bound.  The tp collectives (``ag_tokens``,
+``rs_tokens``, ``psum_tp``, ``pmax_tp``, ``group_*``) are the substrate's
+over that axis, and they work the same on the whole cluster's stacked
+``(R, ...)`` tensors, so the model code is the reference's per-rank body
+over stacked ranks.  ``at`` broadcasts a stacked weight against a stacked
+activation and ``mm`` multiplies per rank (``(tp, B, T, d)`` by
+``(tp, d, n)``, one batched product); ``tp_rank`` is each stacked rank's
+index on the tp axis.  A hier weight
+with an FSDP dim arrives as ``(tp, n, *shard)``: one window per tp rank,
+read over the store ranks only.
 """
 
 from __future__ import annotations
@@ -39,15 +53,14 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.comm import Communicator
 from repro_torch.comm.handle import AsyncCollectiveHandle, side_stream
 from repro_torch.comm.window import SharedWindow, WindowEpochError
 from repro_torch.core import tree as T
-
-_TP = ("tensor parallelism (a model axis, head- and context-parallel "
-       "attention, ag_tokens / rs_tokens) is the tp half of ROADMAP Queue 1 "
-       "item 13, not ported yet")
+from repro_torch.substrate import collectives as coll
+from repro_torch.substrate.cluster import active_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +81,8 @@ class ParallelCtx:
     overlap_chunks: int = 2
 
     def __post_init__(self):
-        if self.tp_axis or self.tp != 1:
-            raise NotImplementedError(_TP)
+        if self.tp != 1 and not self.tp_axis:
+            raise ValueError(f"tp={self.tp} needs a tp_axis")
         if self.mode not in ("hier", "naive"):
             raise ValueError(f"mode must be hier or naive, got {self.mode!r}")
 
@@ -102,8 +115,35 @@ class ParallelCtx:
         return "stepgraph" in self.opts
 
     @property
-    def tp_rank(self) -> int:
-        return 0
+    def tp_rank(self):
+        """Each stacked rank's index on the tp axis, ``(R,)`` int64 (0
+        without a tp axis)."""
+        return coll.axis_index(self.tp_axis) if self.tp_axis else 0
+
+    def tp_ranks(self) -> list[int]:
+        """``tp_rank`` as host ints, one per stacked rank of the bound
+        mesh."""
+        mesh = active_mesh()
+        return [mesh.coord(r, self.tp_axis) for r in range(mesh.num_ranks)]
+
+    def mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w`` per stacked rank: x (R, ..., K) by w (R, K, N) as one
+        batched product over the ranks with each rank's rows folded (no
+        broadcast copy of w); plain ``x @ w`` without a tp axis."""
+        if not self.tp_axis:
+            return x @ w
+        rows = x.reshape(x.shape[0], -1, x.shape[-1])
+        return torch.bmm(rows, w).reshape(tuple(x.shape[:-1])
+                                          + (w.shape[-1],))
+
+    def at(self, w: torch.Tensor, nd: int) -> torch.Tensor:
+        """A stacked per-rank tensor (leading rank axis) broadcast against
+        an ``nd``-dim stacked activation: singleton dims after the rank
+        axis.  Identity without a tp axis, where plain broadcasting does."""
+        if not self.tp_axis:
+            return w
+        return w.reshape((w.shape[0],) + (1,) * (nd - w.dim())
+                         + tuple(w.shape[1:]))
 
     # ---- the data-tier communicator -----------------------------------------
     @property
@@ -122,13 +162,17 @@ class ParallelCtx:
             and fsdp_dim is not None
 
     def _window(self, w: torch.Tensor, dim: int) -> SharedWindow:
-        return SharedWindow(self.comm, w, axis=dim, epoch=1)
+        """A node window over stacked shards (one per tp rank with a tp
+        axis: ``(tp, n, *shard)``)."""
+        return SharedWindow(self.comm, w, axis=dim, epoch=1,
+                            lead=1 if self.tp_axis else 0)
 
     # ---- weight load (the shared-memory window) -----------------------------
     def gather_w(self, w: torch.Tensor, fsdp_dim: Optional[int]
                  ) -> torch.Tensor:
         """Load a weight from the node store (cast first, so the compute
-        dtype moves).  hier: the node's stacked shards ``(n, *shard)`` read
+        dtype moves).  hier: the node's stacked shards ``(n, *shard)`` —
+        ``(tp, n, *shard)`` with a tp axis, one window per tp rank — read
         through its ``SharedWindow`` as one buffer; autograd transposes the
         read into the reduce-scatter store.  naive / no FSDP dim: the local
         copy."""
@@ -143,23 +187,40 @@ class ParallelCtx:
         weight stored along its contraction dim, the node's ``(c, K/c,
         N)``) the window read streams panel by panel behind the matmuls —
         per rank the reference's ``comm.ag_matmul`` with
-        ``use_kernel=False``."""
+        ``use_kernel=False``.  (Under tp the one caller, the ffn's
+        ``w_out``, is tp-sharded along its contraction dim, so its store
+        dim is never 0 and it never streams, as in the reference.)"""
         if self.has("overlap") and self._stored(fsdp_dim) and fsdp_dim == 0 \
                 and w.dim() == 3:
             shard = w.to(self.compute_dtype)
             nc = _clamp_chunks(self.overlap_chunks, shard.shape[1])
             return _node_ag_matmul(x, shard, nc)
-        return x @ self.gather_w(w, fsdp_dim)
+        return self.mm(x, self.gather_w(w, fsdp_dim))
 
     def matmul_rs(self, x: torch.Tensor, w: torch.Tensor, dim: int = 1
                   ) -> torch.Tensor:
-        return x @ w
+        """``rs_tokens(x @ w, dim)``; with the ``overlap`` opt the token-dim
+        reduce-scatter of panel *k* runs behind the matmul of panel *k+1*
+        (``Communicator(fast_axis=tp).matmul_rs``), otherwise the unfused
+        matmul then scatter.  ``dim`` is a local dim (after the rank
+        axis)."""
+        if not self.tp_axis:
+            return x @ w
+        if self.has("overlap"):
+            nc = _clamp_chunks(self.overlap_chunks,
+                               x.shape[dim + 1] // self.tp)
+            if nc > 1:
+                with record_function("tp::matmul_rs"):
+                    return Communicator(fast_axis=self.tp_axis).matmul_rs(
+                        x, w, axis=dim, n_chunks=nc)
+        return self.rs_tokens(self.mm(x, w), dim)
 
     # ---- gradient reduction (the bridge) -------------------------------------
     def grad_reduce_axes(self, meta) -> tuple[str, ...]:
         """Axes a gradient leaf still needs to be summed over: the bridge in
         hier mode (plus the fsdp axes for leaves not stored sharded), the
-        whole dp tier in naive mode.  Bridge axes come first."""
+        whole dp tier in naive mode, plus the tp axis for leaves the tp
+        ranks replicate.  Bridge axes come first."""
         axes: tuple[str, ...] = ()
         if self.mode == "hier":
             if self.pod_axis:
@@ -168,6 +229,8 @@ class ParallelCtx:
                 axes += tuple(self.fsdp_axes)
         else:
             axes += tuple(self.dp_axes)
+        if meta.tp_dim is None and self.tp_axis:
+            axes += (self.tp_axis,)
         return axes
 
     def _axes_comm(self, axes: tuple[str, ...]) -> Communicator:
@@ -273,18 +336,57 @@ class ParallelCtx:
                                         precision=precision, tol=tol),
             grads)
 
-    # ---- tp collectives (identities without a tp axis) -----------------------
+    # ---- tp collectives over stacked ranks (identities without a tp axis) ---
+    # ``dim`` is a local dim, after the stacked rank axis.  Each forward
+    # runs in a ``tp::<name>`` profiler range (its backward is the
+    # substrate Function's node), which ``analysis.profile`` reads.
     def ag_tokens(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        return x
+        """Sequence-parallel all-gather: (B, T/tp, d) -> (B, T, d) per
+        rank.  Gradient: the reduce-scatter."""
+        if not self.tp_axis:
+            return x
+        with record_function("tp::ag_tokens"):
+            return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True)
 
     def rs_tokens(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        return x
+        """Sequence-parallel reduce-scatter: partial (B, T, d) ->
+        (B, T/tp, d) per rank.  Gradient: the all-gather."""
+        if not self.tp_axis:
+            return x
+        with record_function("tp::rs_tokens"):
+            return coll.psum_scatter(x, self.tp_axis, scatter_dimension=dim)
 
     def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        if not self.tp_axis:
+            return x
+        with record_function("tp::psum_tp"):
+            return coll.psum(x, self.tp_axis)
 
     def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        """Cross-shard max as an all-gather then a max, as the reference
+        takes it (its pmax has no JVP, and this sits in differentiated
+        loss code)."""
+        if not self.tp_axis:
+            return x
+        with record_function("tp::pmax_tp"):
+            return coll.all_gather(x, self.tp_axis, axis=0,
+                                   tiled=False).amax(dim=1)
+
+    def group_all_gather(self, x: torch.Tensor, *, group: int, dim: int
+                         ) -> torch.Tensor:
+        """All-gather within contiguous subgroups of ``group`` tp ranks."""
+        if not self.tp_axis or group == 1:
+            return x
+        with record_function("tp::group_all_gather"):
+            return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True,
+                                   group=group)
+
+    def group_psum(self, x: torch.Tensor, *, group: int) -> torch.Tensor:
+        """psum within contiguous subgroups of ``group`` tp ranks."""
+        if not self.tp_axis or group == 1:
+            return x
+        with record_function("tp::group_psum"):
+            return coll.psum(x, self.tp_axis, group=group)
 
     def shard(self, n: int) -> int:
         if n % self.tp:

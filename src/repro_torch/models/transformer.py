@@ -1,7 +1,7 @@
 """Decoder assembly: the pattern units and the prefill / decode entry points.
 
-The reference's ``repro/models/transformer.py`` for a dense model on one
-device.  The model is a stack of *pattern units* (``cfg.pattern`` repeated
+The reference's ``repro/models/transformer.py`` for a dense model.  The
+model is a stack of *pattern units* (``cfg.pattern`` repeated
 ``cfg.n_units`` times, plus an unrolled remainder); unit params are stacked
 on a leading ``n_units`` dim, exactly the reference's parameter tree, and a
 Python loop over units takes the place of ``lax.scan``.
@@ -19,6 +19,16 @@ streamed cross-entropy.  What raises ``NotImplementedError``: the
 ``encodec`` frontends (ROADMAP Queue 1 item 16).  Training through the
 ``rglru`` block is not offered on the card: the lru_scan kernel has no
 backward yet and refuses a grad-carrying call.
+
+With a tp axis (``models.parallel``: the tp ranks stacked on a leading
+axis) the training loss runs the reference's sequence-parallel layout: the
+vocab-parallel embedding reduce-scatters into the (B, T/tp, d) residual
+stream of each rank, every block gathers its tokens in and scatters them
+out, attention picks ``head_tp`` or ``cp`` per arch
+(``meta.attn_mode_for``), and the loss is the vocab-parallel
+``unembed_xent``.  Serving at tp > 1 (prefill into a T-sharded cache,
+split-K decode) waits for ROADMAP Queue 1 items 15 and 17: its entry
+points raise.
 
 Decode updates the cache in place and returns the same cache tree:
 attention blocks write each slot's new position
@@ -42,9 +52,11 @@ from repro_torch.models.attention import (attn_block, cache_write,
 from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
                                        rms_norm, rope_decode, sinusoidal_pe,
                                        unembed_xent, unembed_xent_rows)
+from repro_torch.models.meta import TP_SERVE
 from repro_torch.models.meta import not_ported as _not_ported
 from repro_torch.models.parallel import (ParallelCtx, ParamGroup,
                                          prefetch_walk)
+from repro_torch.substrate.collectives import keep_mesh
 
 XENT_CHUNK = 512
 from repro_torch.models.rglru import rglru_block, rglru_state_init
@@ -72,14 +84,21 @@ class Model(torch.nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return M.init_params(self.defs, self.cfg, gen, self.device)
 
+    def _serving(self):
+        """The serve-time defs; at tp > 1 serving raises (items 15, 17)."""
+        if self.serve_defs is None:
+            raise _not_ported("serving at tp > 1 (prefill into a T-sharded "
+                              "cache, split-K decode)", TP_SERVE)
+        return self.serve_defs
+
     def param_specs(self, *, serve: bool = False, tp_axis=None,
                     fsdp_axis="data") -> dict:
-        defs = self.serve_defs if serve else self.defs
+        defs = self._serving() if serve else self.defs
         return M.param_specs(defs, self.cfg, tp_axis=tp_axis,
                              fsdp_axis=fsdp_axis)
 
     def abstract_params(self, specs, *, serve: bool = False) -> dict:
-        defs = self.serve_defs if serve else self.defs
+        defs = self._serving() if serve else self.defs
         return M.abstract_params(defs, self.cfg, specs)
 
     # ---- entry points ------------------------------------------------------
@@ -88,13 +107,15 @@ class Model(torch.nn.Module):
         return _loss(self.cfg, self.ctx, self.defs, params, batch)
 
     def prefill_fn(self, params, batch, s_max: int, *, unroll: int = 1):
+        self._serving()
         return _prefill(self.cfg, self.ctx, self.defs, params, batch, s_max)
 
     def decode_fn(self, params, cache, token, pos, *, unroll: int = 1):
-        return _decode(self.cfg, self.ctx, self.serve_defs, params, cache,
+        return _decode(self.cfg, self.ctx, self._serving(), params, cache,
                        token, pos)
 
     def cache_init(self, B_loc: int, s_max: int) -> dict:
+        self._serving()
         return _cache_init(self.cfg, self.ctx, B_loc, s_max, self.device)
 
 
@@ -103,7 +124,7 @@ def build(cfg: ModelConfig, ctx: ParallelCtx, data: int = 1,
     defs = M.model_defs(cfg, ctx.tp, data, ctx.mode, serve=False,
                         opts=ctx.opts)
     serve_defs = M.model_defs(cfg, ctx.tp, data, ctx.mode, serve=True,
-                              opts=ctx.opts)
+                              opts=ctx.opts) if ctx.tp == 1 else None
     return Model(cfg, ctx, defs, serve_defs, device)
 
 
@@ -189,27 +210,35 @@ def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
 # ---------------------------------------------------------------------------
 
 def _embed_sp(cfg, ctx, defs, params, batch, *, T: int):
-    """The input embedding (B, T, d) plus the (labels, mask) of shape
-    (B, T) — the token frontend."""
+    """The sequence-parallel input embedding (B, T/tp, d) plus the FULL
+    (labels, mask) of shape (B, T) — the token frontend; stacked per tp
+    rank with a tp axis (the rows are every rank's)."""
     if cfg.frontend:
         raise _not_ported(f"the {cfg.frontend} frontend", 16)
     emb = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
     tokens = torch.as_tensor(batch["tokens"], device=emb.device)  # (B, T+1)
-    ids = tokens[:, :T]
-    labels = tokens[:, 1:T + 1]
-    x = embed(ids, emb, ctx)
+    if ctx.tp_axis and tokens.dim() == 2:
+        tokens = tokens.expand((emb.shape[0],) + tuple(tokens.shape))
+    ids = tokens[..., :T]
+    labels = tokens[..., 1:T + 1]
+    x = embed(ids, emb, ctx, sp=bool(ctx.tp_axis))
     mask = torch.ones(labels.shape, dtype=torch.float32, device=emb.device)
     if cfg.tie_embeddings:  # gemma-style input scaling
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.pos == "sinusoidal":
-        pos = torch.arange(T, device=emb.device)
-        x = x + sinusoidal_pe(pos, cfg.d_model)[None].to(x.dtype)
+        T_loc = x.shape[-2]
+        pos = torch.arange(T_loc, device=emb.device)
+        if ctx.tp_axis:                                # (R, T/tp)
+            pos = pos + (ctx.tp_rank * T_loc)[:, None]
+        pe = sinusoidal_pe(pos, cfg.d_model).to(x.dtype)
+        x = x + ctx.at(pe, x.dim())
     return x, labels, mask
 
 
 def _unembed_weight(cfg, ctx, defs, params):
     if cfg.tie_embeddings:
-        return ctx.gather_w(params["embed"], defs["embed"].fsdp_dim).T
+        w = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
+        return w.transpose(-1, -2)                     # (d, V/tp)
     return ctx.gather_w(params["unembed"], defs["unembed"].fsdp_dim)
 
 
@@ -217,12 +246,14 @@ def _unembed_weight(cfg, ctx, defs, params):
 # Train loss
 # ---------------------------------------------------------------------------
 
-def _remat(fn):
+def _remat(fn, ctx):
     """``fn`` rematerialised in the backward (the reference's
-    ``jax.checkpoint``) when gradients are being recorded."""
+    ``jax.checkpoint``) when gradients are being recorded; with a tp axis
+    the recompute re-runs the tp collectives under the mesh bound here."""
     def run(*args):
         if torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
+            f = keep_mesh(fn) if ctx.tp_axis else fn
+            return checkpoint(f, *args, use_reentrant=False)
         return fn(*args)
     return run
 
@@ -244,20 +275,21 @@ def _scan_units(cfg, ctx, defs, params, x):
     budget = ctx.prefetch
     if budget > 0:
         inner = dataclasses.replace(ctx, fsdp_axes=())
-        unit_f = _remat(lambda c, full: unit(c, full, inner))
+        unit_f = _remat(lambda c, full: unit(c, full, inner), ctx)
         groups = [ParamGroup(ctx, _unit(params["units"], u), defs["units"])
                   for u in range(cfg.n_units)]
         return prefetch_walk(groups, lambda c, _k, full: unit_f(c, full), x,
                              budget)
-    unit_r = _remat(lambda c, pu: unit(c, pu, ctx))
+    unit_r = _remat(lambda c, pu: unit(c, pu, ctx), ctx)
     for u in range(cfg.n_units):
         x = unit_r(x, _unit(params["units"], u))
     return x
 
 
 def _loss(cfg, ctx, defs, params, batch, *, rows: bool = False):
-    """(nll sum, token count) — local partials the caller reduces; with
-    ``rows`` the (B,) per-row partials."""
+    """(nll sum, token count) — local partials the caller reduces (per
+    stacked rank with a tp axis); with ``rows`` the (..., B) per-row
+    partials."""
     T = torch.as_tensor(batch["tokens"]).shape[1] - 1
     x, labels, mask = _embed_sp(cfg, ctx, defs, params, batch, T=T)
     x = _scan_units(cfg, ctx, defs, params, x)
@@ -265,8 +297,9 @@ def _loss(cfg, ctx, defs, params, batch, *, rows: bool = False):
         key = f"r{i}"
         x = _block_train(k, x, params["rem"][key], defs["rem"][key], ctx,
                          cfg)
-    x = rms_norm(x, ctx.gather_w(params["final_ln"],
-                                 defs["final_ln"].fsdp_dim), cfg.norm_eps)
+    x = rms_norm(x, ctx.at(ctx.gather_w(params["final_ln"],
+                                        defs["final_ln"].fsdp_dim), x.dim()),
+                 cfg.norm_eps)
     w_un = _unembed_weight(cfg, ctx, defs, params)
     xent = unembed_xent_rows if rows else unembed_xent
     return xent(x, labels, mask, w_un, ctx, chunk=XENT_CHUNK,

@@ -12,10 +12,15 @@ import torch
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv: x (B, T, C), w (C, K)."""
-    K = w.shape[1]
-    out = x * w[:, -1]
+    """Depthwise causal conv: x (..., B, T, C), w (..., C, K) (leading dims
+    alike: stacked ranks)."""
+    K = w.shape[-1]
+
+    def tap(k):                                   # (..., 1, 1, C)
+        return w[..., k].unsqueeze(-2).unsqueeze(-2)
+
+    out = x * tap(-1)
     for j in range(1, K):
-        shifted = torch.nn.functional.pad(x, (0, 0, j, 0))[:, :-j]
-        out = out + shifted * w[:, K - 1 - j]
+        shifted = torch.nn.functional.pad(x, (0, 0, j, 0))[..., :-j, :]
+        out = out + shifted * tap(K - 1 - j)
     return out

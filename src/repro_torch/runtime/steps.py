@@ -38,6 +38,23 @@ per-row loss, so the world allreduce of the metrics and the bridge
 reference's do, and the sums differ from the reference's only in the
 order in which a node's rows add up.
 
+**Tensor parallelism inside a domain run.**  On a fast tier factored over
+``(store, tp)`` (``cluster_ctx``: the last fast axis is tp, as in the
+reference's production layout) a domain's tp ranks hold *different*
+shards and exchange activations — work the reference does — so they are
+not collapsed into one plain full-width run (which would give the same
+numbers but skip the tp collectives, the vocab-parallel loss and the tp
+gradient reductions).  The run keeps a leading axis of the tp ranks on
+every leaf and activation, with a mesh of the tp axis alone bound: the tp
+collectives are the substrate's over that axis, the weight products are
+batched over it, and a tp-sharded window leaf is read over the store
+ranks only, one window per tp rank.  A domain is a node in hier (its
+store ranks' rows folded into the batch) and one store rank's tp group in
+naive.  The state keeps the reference's layout, so per node hier holds
+each tp shard once and naive once per store rank: C1 naive/hier is the
+store size, not ``chips``.  The grad norm divides a tp-replicated leaf's
+square by ``tp`` as well.
+
 ``make_train_step`` / ``make_ctx`` need the production mesh (ROADMAP Queue
 1 item 17) and ``make_step_bench`` the step-time bench (item 14); they
 raise.
@@ -45,6 +62,7 @@ raise.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -59,7 +77,7 @@ from repro_torch.models.meta import not_ported
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import Model, _loss, build
 from repro_torch.optim.adamw import adamw_init, adamw_update_, per_rank
-from repro_torch.substrate.cluster import P
+from repro_torch.substrate.cluster import Mesh, P, bind_mesh
 
 
 def make_ctx(*args, **kwargs):
@@ -79,7 +97,7 @@ def cluster_ctx(vc, *, mode: str = "hier", compute_dtype=torch.float32,
     """A ``ParallelCtx`` over a ``VirtualCluster``'s own axis names: the
     slow tier is the bridge, the fast tier is where parameters are stored.
     A fast tier factored over several axes makes its last axis tensor-
-    parallel, as in the reference — the tp half, which raises."""
+    parallel and the others the store, as in the reference."""
     if len(vc.slow_names) > 1:
         raise ValueError("cluster_ctx supports at most one slow (bridge) "
                          f"axis, got {vc.slow_names}")
@@ -146,19 +164,29 @@ class TrainStepBundle:
                               self.batch_spec)
 
 
-def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, chips: int,
+def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
                   stats: dict):
     """Forward + backward once per memory domain.  Returns the stacked
     per-rank gradients (the parameters' layout), loss and token partials
     (``(R,)`` each); ``stats["grad_bytes"]`` gets the gradients' device
-    bytes (``analysis.traffic.device_bytes`` on the card)."""
+    bytes (``analysis.traffic.device_bytes`` on the card).
+
+    A domain's members are ``s`` store ranks times ``t`` tp ranks,
+    consecutive in rank order with tp innermost (hier: a node, ``s`` its
+    store size; naive: one store rank's tp group).  Inside the run every
+    leaf and activation keeps a leading axis of the ``t`` tp ranks (dropped
+    without a tp axis) under a mesh of the tp axis alone: a window leaf is
+    ``(t, s, *shard)`` (one window per tp rank, read over the store ranks),
+    any other the store's first member's copies ``(t, *local)``."""
     R = tokens.shape[0]
-    hier = ctx.mode == "hier" and bool(ctx.fsdp_axes)
-    n = chips if hier else 1
+    tp = bool(ctx.tp_axis)
+    s = store if ctx.mode == "hier" and ctx.fsdp_axes else 1
+    t = ctx.tp if tp else 1
+    n = s * t
     leaves = T.leaves(params)
     metas = T.leaves(defs)
     units = T.leaves(_units_flags(params))
-    window = [hier and m.fsdp_dim is not None for m in metas]
+    window = [s > 1 and m.fsdp_dim is not None for m in metas]
     on_card = tokens.device.type == "cuda"
     base = device_bytes(tokens.device) if on_card else 0
     grads = [torch.zeros_like(w) for w in leaves]
@@ -167,27 +195,42 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, chips: int,
         else sum(g.numel() * g.element_size() for g in grads))
     loss = torch.zeros(R, dtype=torch.float32, device=tokens.device)
     cnt = torch.zeros(R, dtype=torch.float32, device=tokens.device)
+    mesh = Mesh((ctx.tp_axis,), (t,), (), tokens.device) if tp else None
+
+    def to_domain(w, win, u):
+        x = w.reshape((s, t) + tuple(w.shape[1:]))
+        x = x.movedim(0, 1) if win else x[0]        # (t, s, ..) / (t, ..)
+        if u:                                       # the unit dim first
+            x = x.movedim(2 if win else 1, 0)
+        return x if tp else x.squeeze(1 if u else 0)
+
+    def from_domain(g, win, u, dst):
+        if not tp:
+            g = g.unsqueeze(1 if u else 0)
+        if u:
+            g = g.movedim(0, 2 if win else 1)
+        if win:
+            dst.copy_(g.movedim(0, 1).reshape(dst.shape))
+        else:
+            dst[:t].copy_(g)
+
     for a in range(0, R, n):
-        dom = []
-        for w, win, u in zip(leaves, window, units):
-            x = w[a:a + n] if win else w[a]
-            if win and u:               # (n_units, n, *shard)
-                x = x.movedim(0, 1)
-            dom.append(x.detach().requires_grad_(True))
-        rows = tokens[a:a + n].reshape((-1,) + tuple(tokens.shape[2:]))
-        with torch.enable_grad():
+        dom = [to_domain(w[a:a + n], win, u).detach().requires_grad_(True)
+               for w, win, u in zip(leaves, window, units)]
+        # the store ranks' rows (their tp ranks hold the same rows)
+        rows = tokens[a:a + n:t].reshape((-1,) + tuple(tokens.shape[2:]))
+        with torch.enable_grad(), (bind_mesh(mesh) if tp
+                                   else contextlib.nullcontext()):
             nll, count = _loss(cfg, ctx, defs, T.unflatten(params, dom),
                                {"tokens": rows}, rows=True)
             got = torch.autograd.grad(nll.sum(), dom, allow_unused=True)
         for g, dst, win, u in zip(got, grads, window, units):
-            if g is None:
-                continue
-            if win:
-                dst[a:a + n].copy_(g.movedim(1, 0) if u else g)
-            else:
-                dst[a].copy_(g)
-        loss[a:a + n] = nll.detach().reshape(n, -1).sum(dim=1)
-        cnt[a:a + n] = count.reshape(n, -1).sum(dim=1)
+            if g is not None:
+                from_domain(g, win, u, dst[a:a + n])
+        # per-row partials (t, s * rows) -> per rank in (store, tp) order
+        loss[a:a + n] = nll.detach().reshape(t, s, -1).sum(dim=2).T \
+            .reshape(n)
+        cnt[a:a + n] = count.reshape(t, s, -1).sum(dim=2).T.reshape(n)
         del got, nll, dom
     return T.unflatten(params, grads), loss, cnt
 
@@ -222,7 +265,8 @@ def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
                                if a != ctx.pod_axis)))
     model = build(cfg, ctx, data=data, device=vc.device)
     defs = model.defs
-    pspecs = model.param_specs(fsdp_axis=ctx.fsdp_axes[0]
+    pspecs = model.param_specs(tp_axis=ctx.tp_axis,
+                               fsdp_axis=ctx.fsdp_axes[0]
                                if ctx.fsdp_axes else None)
     state_specs = {"params": pspecs, "m": pspecs, "v": pspecs, "step": P()}
     n_dp = math.prod(sizes[a] for a in ctx.dp_axes)
@@ -236,7 +280,7 @@ def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
     def body(state, batch):
         params = state["params"]
         grads, loss_sum, cnt = _domain_grads(cfg, ctx, defs, params,
-                                             batch["tokens"], vc.chips, stats)
+                                             batch["tokens"], data, stats)
         with torch.no_grad():
             if ctx.stepgraph:
                 rec = world.record()
@@ -259,11 +303,14 @@ def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
             for g in gl:
                 g.div_(per_rank(cnt_g, g))
             # global grad norm: each leaf weighted by 1/replication over the
-            # node tier, so every element counts once; node-local, since
-            # the pods hold identical gradients after the bridge
+            # node tier (tp ranks and store ranks), so every element counts
+            # once; node-local, since the pods hold identical gradients
+            # after the bridge
             gsq = torch.zeros_like(loss_g)
             for g, meta in zip(gl, meta_leaves):
                 repl = 1.0
+                if meta.tp_dim is None and ctx.tp_axis:
+                    repl *= ctx.tp
                 if meta.fsdp_dim is None or ctx.mode != "hier":
                     repl *= data
                 gsq = gsq + torch.sum(torch.square(g.float()),

@@ -40,6 +40,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import re
 from typing import Iterator, Optional, Sequence, Union
 
 import numpy as np
@@ -318,6 +319,39 @@ class VirtualCluster:
         if len(self.fast_names) > 1 or len(self.slow_names) > 1:
             base += "-" + ".".join(self.axis_names)
         return base
+
+    @classmethod
+    def from_label(cls, label: str, device: Union[str, torch.device] = "cuda"
+                   ) -> "VirtualCluster":
+        """The cluster a ``label`` names, for one slow axis: ``2x4`` (axes
+        ``pod`` / ``data``), ``2x(2x2)`` (the fast tier factored over
+        ``dp`` / ``tp``, the production layout) or the full
+        ``2x(2x2)-pod.dp.tp`` with the axis names."""
+        m = re.fullmatch(r"(\d+)x(?:(\d+)|\((\d+(?:x\d+)+)\))(?:-([\w.]+))?",
+                         label.strip())
+        if not m:
+            raise ValueError(f"bad topology label {label!r} (PODSxCHIPS, "
+                             "PODSx(DPxTP) or ...-pod.dp.tp)")
+        pods = int(m.group(1))
+        fshape = (int(m.group(2)),) if m.group(2) else tuple(
+            int(x) for x in m.group(3).split("x"))
+        if m.group(4):
+            names = tuple(m.group(4).split("."))
+            slow, fast = (names[:1], names[1:]) if pods > 1 else ((), names)
+        elif len(fshape) == 1:
+            slow, fast = ("pod",), ("data",)
+        elif len(fshape) == 2:
+            slow, fast = ("pod",), ("dp", "tp")
+        else:
+            raise ValueError(f"label {label!r}: name the axes of a fast tier "
+                             f"factored {len(fshape)} ways")
+        if len(fast) != len(fshape) or len(slow) > 1:
+            raise ValueError(f"label {label!r}: axis names do not match the "
+                             f"shape")
+        return cls(pods=pods, chips=math.prod(fshape),
+                   fast_axis=fast if len(fast) > 1 else fast[0],
+                   slow_axis=slow[0] if slow else "pod",
+                   fast_shape=fshape, device=device)
 
     @property
     def mesh(self) -> Mesh:

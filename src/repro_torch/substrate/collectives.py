@@ -21,7 +21,14 @@ left-to-right order): ``all_gather`` <-> ``psum_scatter``, and ``psum``
 (of values replicated over its group) transposes to ``psum``, as
 ``lax.psum`` does under ``shard_map`` without replication checking.  The
 backward runs under the mesh and the record of its forward, so it works
-outside ``VirtualCluster.bind`` and on autograd's device threads.
+outside ``VirtualCluster.bind`` and on autograd's device threads;
+``keep_mesh`` does the same for a function that autograd re-runs in the
+backward (a rematerialised block).
+
+Each of the three also takes ``group``: the members of every group over
+``axes`` split into contiguous subgroups of that size, each exchanging
+only within itself — the reference's ``axis_index_groups`` of contiguous
+ranges (``ParallelCtx.group_all_gather`` / ``group_psum``).
 """
 
 
@@ -66,12 +73,13 @@ def recording() -> Iterator[list[CollectiveRecord]]:
         _RECORD.reset(token)
 
 
-def _note(op: str, axes: Axis, out: torch.Tensor) -> None:
+def _note(op: str, axes: Axis, out: torch.Tensor,
+          group: Optional[int] = None) -> None:
     rec = _RECORD.get()
     if rec is None:
         return
     mesh = active_mesh()
-    n = mesh.size(axes)
+    n = group or mesh.size(axes)
     if n <= 1:
         return
     messages = {"all-reduce": 2 * (n - 1), "collective-permute": 1}.get(
@@ -97,19 +105,40 @@ def axis_index(axes: Axis) -> torch.Tensor:
     return active_mesh().index(axes)
 
 
+def _groups(mesh, x: torch.Tensor, axes: Axis, group: Optional[int]
+            ) -> torch.Tensor:
+    """(R, *local) -> (G, n, *local) over ``axes``; with ``group``, every
+    group's members split into contiguous subgroups of that size (rows of
+    ``group`` members)."""
+    g = mesh.to_groups(x, axes)
+    if group is None:
+        return g
+    n = g.shape[1]
+    if group < 1 or n % group:
+        raise ValueError(f"subgroups of {group} do not tile a group of {n}")
+    return g.reshape((-1, group) + tuple(g.shape[2:]))
+
+
+def _ungroup(mesh, y: torch.Tensor, axes: Axis) -> torch.Tensor:
+    """Inverse of ``_groups``: (rows, members, *local) -> (R, *local)."""
+    n = mesh.size(axes)
+    return mesh.from_groups(y.reshape((-1, n) + tuple(y.shape[2:])), axes)
+
+
 def _replicate(mesh, full: torch.Tensor, n: int, axes: Axis
                ) -> torch.Tensor:
-    """(G, *local) group results -> one private copy per member."""
+    """(G, *local) group results -> one private copy per member of each
+    group of ``n``."""
     per_member = full.unsqueeze(1).expand((full.shape[0], n)
                                           + tuple(full.shape[1:]))
-    return mesh.from_groups(per_member, axes).contiguous()
+    return _ungroup(mesh, per_member, axes).contiguous()
 
 
-def _all_gather(x: torch.Tensor, axes: Axis, axis: int, tiled: bool
-                ) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, axes: Axis, axis: int, tiled: bool,
+                group: Optional[int] = None) -> torch.Tensor:
     mesh = active_mesh()
     ax = _local(axis, x) if tiled else axis % x.dim()
-    g = mesh.to_groups(x, axes)                         # (G, n, *local)
+    g = _groups(mesh, x, axes, group)                   # (G, n, *local)
     n = g.shape[1]
     full = g.movedim(1, ax + 1)
     if tiled:
@@ -117,7 +146,7 @@ def _all_gather(x: torch.Tensor, axes: Axis, axis: int, tiled: bool
         shp[ax] *= n
         full = full.reshape([g.shape[0]] + shp)
     out = _replicate(mesh, full, n, axes)
-    _note("all-gather", axes, out)
+    _note("all-gather", axes, out, group)
     return out
 
 
@@ -135,11 +164,12 @@ def _group_sum(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return acc.to(dtype)
 
 
-def _psum(x: torch.Tensor, axes: Axis) -> torch.Tensor:
+def _psum(x: torch.Tensor, axes: Axis, group: Optional[int] = None
+          ) -> torch.Tensor:
     mesh = active_mesh()
-    g = mesh.to_groups(x, axes)
+    g = _groups(mesh, x, axes, group)
     out = _replicate(mesh, _group_sum(g, x.dtype), g.shape[1], axes)
-    _note("all-reduce", axes, out)
+    _note("all-reduce", axes, out, group)
     return out
 
 
@@ -158,47 +188,62 @@ class _Replay:
         _RECORD.reset(self._tokens[1])
 
 
+def keep_mesh(fn):
+    """``fn`` that always runs under the mesh and traffic record bound when
+    ``keep_mesh`` was called: for a function with collectives inside that
+    autograd re-runs in the backward (``torch.utils.checkpoint``), which may
+    be on another thread."""
+    replay = _Replay()
+
+    def run(*args, **kwargs):
+        with replay:
+            return fn(*args, **kwargs)
+    return run
+
+
 class _AllGatherFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes, axis, tiled):
+    def forward(ctx, x, axes, axis, tiled, group):
         ctx.replay, ctx.axes, ctx.tiled = _Replay(), axes, tiled
+        ctx.group = group
         # the gathered local dim (untiled: the new one)
         ctx.axis = _local(axis, x) if tiled else axis % x.dim()
-        return _all_gather(x, axes, axis, tiled)
+        return _all_gather(x, axes, axis, tiled, group)
 
     @staticmethod
     def backward(ctx, g):
         with ctx.replay:
-            if ctx.tiled:
-                return _psum_scatter(g.contiguous(), ctx.axes,
-                                     ctx.axis), None, None, None
-            piece = _psum_scatter(g.contiguous(), ctx.axes, ctx.axis)
-            return piece.squeeze(ctx.axis + 1), None, None, None
+            piece = _psum_scatter(g.contiguous(), ctx.axes, ctx.axis,
+                                  ctx.group)
+            if not ctx.tiled:
+                piece = piece.squeeze(ctx.axis + 1)
+            return piece, None, None, None, None
 
 
 class _PsumFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes):
-        ctx.replay, ctx.axes = _Replay(), axes
-        return _psum(x, axes)
+    def forward(ctx, x, axes, group):
+        ctx.replay, ctx.axes, ctx.group = _Replay(), axes, group
+        return _psum(x, axes, group)
 
     @staticmethod
     def backward(ctx, g):
         with ctx.replay:
-            return _psum(g.contiguous(), ctx.axes), None
+            return _psum(g.contiguous(), ctx.axes, ctx.group), None, None
 
 
 class _PsumScatterFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes, dim):
+    def forward(ctx, x, axes, dim, group):
         ctx.replay, ctx.axes, ctx.dim = _Replay(), axes, dim
-        return _psum_scatter(x, axes, dim)
+        ctx.group = group
+        return _psum_scatter(x, axes, dim, group)
 
     @staticmethod
     def backward(ctx, g):
         with ctx.replay:
-            return _all_gather(g.contiguous(), ctx.axes, ctx.dim,
-                               True), None, None
+            return _all_gather(g.contiguous(), ctx.axes, ctx.dim, True,
+                               ctx.group), None, None, None
 
 
 def _tracks_grad(x: torch.Tensor) -> bool:
@@ -206,31 +251,34 @@ def _tracks_grad(x: torch.Tensor) -> bool:
 
 
 def all_gather(x: torch.Tensor, axes: Axis, *, axis: int = 0,
-               tiled: bool = True) -> torch.Tensor:
+               tiled: bool = True, group: Optional[int] = None
+               ) -> torch.Tensor:
     """Every member gets the members' buffers in group order: concatenated
     along local ``axis`` (``tiled``) or stacked as a new local ``axis``.
     Gradient: ``psum_scatter`` of the cotangent along that axis."""
     if _tracks_grad(x):
-        return _AllGatherFn.apply(x, axes, axis, tiled)
-    return _all_gather(x, axes, axis, tiled)
+        return _AllGatherFn.apply(x, axes, axis, tiled, group)
+    return _all_gather(x, axes, axis, tiled, group)
 
 
-def psum(x: torch.Tensor, axes: Axis) -> torch.Tensor:
+def psum(x: torch.Tensor, axes: Axis, *, group: Optional[int] = None
+         ) -> torch.Tensor:
     """Every member gets the group sum, in ``x``'s dtype (an int16 payload
     stays int16 on the wire, as ``lax.psum`` keeps it).  Gradient: ``psum``
     of the cotangent."""
     if _tracks_grad(x):
-        return _PsumFn.apply(x, axes)
-    return _psum(x, axes)
+        return _PsumFn.apply(x, axes, group)
+    return _psum(x, axes, group)
 
 
 def psum_scatter(x: torch.Tensor, axes: Axis, *,
-                 scatter_dimension: int = 0) -> torch.Tensor:
+                 scatter_dimension: int = 0, group: Optional[int] = None
+                 ) -> torch.Tensor:
     """Group sum, split along local ``scatter_dimension``: member *i* gets
     piece *i* (tiled).  Gradient: ``all_gather`` of the cotangent."""
     if _tracks_grad(x):
-        return _PsumScatterFn.apply(x, axes, scatter_dimension)
-    return _psum_scatter(x, axes, scatter_dimension)
+        return _PsumScatterFn.apply(x, axes, scatter_dimension, group)
+    return _psum_scatter(x, axes, scatter_dimension, group)
 
 
 def pmax(x: torch.Tensor, axes: Axis) -> torch.Tensor:
@@ -242,11 +290,11 @@ def pmax(x: torch.Tensor, axes: Axis) -> torch.Tensor:
     return out
 
 
-def _psum_scatter(x: torch.Tensor, axes: Axis, scatter_dimension: int
-                  ) -> torch.Tensor:
+def _psum_scatter(x: torch.Tensor, axes: Axis, scatter_dimension: int,
+                  group: Optional[int] = None) -> torch.Tensor:
     mesh = active_mesh()
     ax = _local(scatter_dimension, x)
-    g = mesh.to_groups(x, axes)
+    g = _groups(mesh, x, axes, group)
     G, n = g.shape[:2]
     local = list(x.shape[1:])
     if local[ax] % n:
@@ -255,8 +303,8 @@ def _psum_scatter(x: torch.Tensor, axes: Axis, scatter_dimension: int
     s = _group_sum(g, x.dtype)
     pieces = s.reshape([G] + local[:ax] + [n, local[ax] // n]
                        + local[ax + 1:]).movedim(ax + 1, 1)
-    out = mesh.from_groups(pieces, axes).contiguous()
-    _note("reduce-scatter", axes, out)
+    out = _ungroup(mesh, pieces, axes).contiguous()
+    _note("reduce-scatter", axes, out, group)
     return out
 
 

@@ -127,12 +127,25 @@ def test_flash_attention_matches_reference(B, Tq, Tkv, nq, kv, hd, window,
     np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
 
 
-def test_flash_attention_refuses_head_shards():
-    q = torch.zeros(1, 4, 4, 8)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        attn.flash_attention(q, q, q, H=8)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        attn.flash_attention(q, q, q, kv_total=2)
+@pytest.mark.parametrize("nq,kv,H,kv_total,q_hoff,kv_hoff,q_off", [
+    (4, 2, 8, 4, 4, 2, 0),      # head_tp rank 1 of 2, kv sharded
+    (3, 3, 6, 3, 3, 0, 0),      # kv replicated, rank 1's map 1, 2, 2
+    (2, 2, 8, 2, 6, 0, 8),      # kv replicated, map 1, 1; q_offset
+])
+def test_flash_attention_refuses_head_shards(nq, kv, H, kv_total, q_hoff,
+                                             kv_hoff, q_off):
+    """Head-parallel shards (the name predates their port): the shard's kv
+    map, the kernel's own or expanded per q head, against the
+    reference's."""
+    rng = np.random.default_rng(4)
+    jq, tq = _pair(rng, (2, 8, nq, 16))
+    jk, tk = _pair(rng, (2, 8 + q_off, kv, 16))
+    jv, tv = _pair(rng, (2, 8 + q_off, kv, 16))
+    kw = dict(causal=True, window=None, q_offset=q_off, q_head_offset=q_hoff,
+              kv_head_offset=kv_hoff, H=H, kv_total=kv_total)
+    want = jattn.flash_attention(jq, jk, jv, **kw)
+    got = attn.flash_attention(tq, tk, tv, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
 
 
 def test_kv_head_map_and_attn_flops_match_reference():
@@ -278,12 +291,21 @@ def test_init_params_keeps_the_reference_tree_and_rules():
 
 
 def test_unported_parts_raise_naming_their_roadmap_item():
-    # the tensor-parallel half of item 13 still raises; its FSDP + bridge
-    # half is ported (tests/test_torch_train*.py hold it to the reference)
-    with pytest.raises(NotImplementedError, match="tp half.*item 13"):
-        ParallelCtx(tp_axis="model", tp=2)
-    with pytest.raises(NotImplementedError, match="tp half.*item 13"):
-        meta.model_defs(configs.get_config("qwen3-0.6b"), 2, 1, "hier")
+    # training at tp > 1 is ported (tests/test_torch_train_tp*.py hold it
+    # to the reference); serving at tp > 1 waits for items 15 and 17
+    tctx = ParallelCtx(tp_axis="model", tp=2)
+    qcfg = configs.get_config("qwen3-0.6b")
+    assert meta.model_defs(qcfg, 2, 1, "hier")["units"]["b0"]["attn"][
+        "wq"].tp_dim == 1
+    with pytest.raises(NotImplementedError, match="items 15 and 17"):
+        meta.model_defs(qcfg, 2, 1, "hier", serve=True)
+    tm = build(qcfg.reduced(), tctx, device="cpu")
+    with pytest.raises(NotImplementedError, match="items 15 and 17"):
+        tm.prefill_fn(None, None, 8)
+    with pytest.raises(NotImplementedError, match="items 15 and 17"):
+        tm.cache_init(1, 8)
+    with pytest.raises(ValueError, match="tp_axis"):
+        ParallelCtx(tp=2)
     assert ParallelCtx(fsdp_axes=("data",)).prefetch == 0
     grp = ParamGroup(CTX, {"w": torch.ones(2)}, {"w": meta.PMeta((2,))})
     assert grp.unshard().state == "in_flight"

@@ -227,9 +227,13 @@ def test_ctx_axes_and_communicators_match_reference(label):
                     (jc.fast_axis, jc.slow_axis)
         tc, jc = t.comm, j.comm
         assert (tc.fast_axis, tc.slow_axis) == (jc.fast_axis, jc.slow_axis)
-    with pytest.raises(NotImplementedError, match="tp half.*item 13"):
-        cluster_ctx(VirtualCluster(pods=2, chips=4, fast_axis=("dp", "tp"),
-                                   fast_shape=(2, 2), device="cpu"))
+    # the factored fast tier: its last axis is tensor-parallel
+    jvc = JVC(pods=2, chips=4, fast_axis=("dp", "tp"), fast_shape=(2, 2))
+    vc = VirtualCluster.from_label("2x(2x2)", device="cpu")
+    for mode in ("hier", "naive"):
+        j, t = jcluster_ctx(jvc, mode=mode), cluster_ctx(vc, mode=mode)
+        assert (t.tp_axis, t.tp, t.fsdp_axes, t.dp_axes, t.pod_axis) == \
+            (j.tp_axis, j.tp, j.fsdp_axes, j.dp_axes, j.pod_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -416,10 +420,17 @@ def test_param_specs_and_fsdp_dims_match_reference(data, mode):
     jab = jmeta.abstract_params(jd, jcfg, js)
     for a, b in zip(T.leaves(ab), jax.tree.leaves(jab)):
         assert a.device.type == "meta" and tuple(a.shape) == b.shape
-    with pytest.raises(NotImplementedError, match="tp half.*item 13"):
-        meta.model_defs(cfg, 2, data, mode)
-    with pytest.raises(NotImplementedError, match="tp half.*item 13"):
-        meta.param_specs(td, cfg, tp_axis="model", fsdp_axis="data")
+    # tp = 2: the tp dims and the specs over both axes (train layout)
+    jd = jmeta.model_defs(jcfg, 2, data, mode)
+    td = meta.model_defs(cfg, 2, data, mode)
+    jl = jax.tree.leaves(jd, is_leaf=lambda x: isinstance(x, jmeta.PMeta))
+    assert [(m.tp_dim, m.fsdp_dim) for m in T.leaves(td)] == \
+        [(m.tp_dim, m.fsdp_dim) for m in jl]
+    js = jmeta.param_specs(jd, jcfg, tp_axis="model", fsdp_axis="data")
+    ts = meta.param_specs(td, cfg, tp_axis="model", fsdp_axis="data")
+    assert [_spec_tuple(s) for s in T.leaves(ts)] == [
+        _spec_tuple(s) for s in jax.tree.leaves(
+            js, is_leaf=lambda x: isinstance(x, JP))]
 
 
 def test_shared_buffer_helpers_match_reference():
