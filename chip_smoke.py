@@ -145,26 +145,48 @@ its recompute rule on finite operands whose dk overflows.
    one a tp rank a layer at the shapes phase 2 checked (Tq 256 at its
    q_offset against Tkv 2048).
 
+13. the train runtime (after phase 12), every op deterministic
+   (``torch.use_deterministic_algorithms``, cuBLAS's workspace fixed
+   before CUDA starts): (a) ``train_elastic``'s runtime on ``qwen3-0.6b``
+   at full width cut to 2 layers, hier on 2x4 with the step graph, 8 x
+   2048, saves every 2 steps, pod 1 lost at step 3 of 6 — one recovery 2x4
+   -> 1x4 restored at step 2, the retune sources, the state held once per
+   node before and after (C1), the trajectory from step 2 ``==``
+   ``reference_run`` on 1x4 from step 2, and a save and restore of the
+   final state timed (bytes, ms) and restored bit for bit; (b) phase 11
+   (a)'s full-depth step, 3 steps each under ``()``, ``prefetch``,
+   ``overlap`` and ``stepgraph``: step ms and tokens/s, prefetch and
+   stepgraph losses and gnorms ``==`` eager's, overlap's within rtol 2e-4
+   / 5e-3; (c) ``python -m repro_torch.bench --families step_time`` on 2x4
+   and ``2x(2x2)``: every case's link record (the warm-up and each timed
+   rep) equal to its inventory, the median per step per scheme; (d) the
+   launcher's ``--ckpt`` at 2 layers: 4 steps straight, then 2 steps and
+   a resumed run to 4 whose steps 3-4 losses ``==`` the straight run's.
+
 Phase 2 holds the flash forward and backward kernels at phase 12's shapes
 too: (8, 2048, 8 q / 4 kv, 128) and (2, 256, 36 q / 4 kv, 128) against
 2048 keys at q_offset 256 and 1792.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
 phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
-12 (a)) and read just after; the JSON's flash rows sum the main paths that
-launch them.  The recompute counters (the non-finite rule's, and the
-flash backward's) are zeroed before phase 3 and must read 0 after phase
-12.  The line
+12 (a), and each of phase 13's runs) and read just after; the JSON's flash
+rows sum the main paths that launch them.  The recompute counters (the
+non-finite rule's, and the flash backward's) are zeroed before phase 3
+and must read 0 after phase 13.  The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # phase 9's requests: HYBRID_PER_LENGTH prompts of each length.  The
@@ -307,14 +329,6 @@ def bounds_text(b: dict) -> str:
 def _map(fn, tree):
     return {k: _map(fn, v) for k, v in tree.items()} \
         if isinstance(tree, dict) else fn(tree)
-
-
-def _leaves_with_path(tree, path=()):
-    """(path, leaf) pairs of a nested dict, keys sorted."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree)
-                for x in _leaves_with_path(tree[k], path + (k,))]
-    return [(path, tree)]
 
 
 def _tensors(tree):
@@ -525,8 +539,6 @@ def collectives_bench(dev, g, *, sweep_elems, elems: int, big: int,
     table; (c) async gathers against eager ones, the torn-handle rule and
     the overlap of a gather with the panel kernel; (d) the step graph on a
     gradient record of ``tree`` (leaf path -> per-rank shape) on 2x4."""
-    import tempfile
-
     import torch
     from repro_torch.analysis import traffic
     from repro_torch.bench import __main__ as bench_cli
@@ -698,6 +710,9 @@ def collectives_bench(dev, g, *, sweep_elems, elems: int, big: int,
 
 
 def main() -> int:
+    # phase 13 runs under deterministic algorithms; cuBLAS needs its
+    # workspace fixed before CUDA starts for that
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -706,6 +721,7 @@ def main() -> int:
         __file__)), "src"))
     import numpy as np
     from repro_torch.analysis import traffic
+    from repro_torch.analysis.state_rule import state_close
     from repro_torch.apps import bpmf, summa
     from repro_torch.bench import suites
     from repro_torch.comm import Communicator, tuning
@@ -723,6 +739,10 @@ def main() -> int:
     from repro_torch.models import ParallelCtx, build
     from repro_torch.models import meta
     from repro_torch.models.attention import attn_flops
+    from repro_torch.bench import __main__ as bench_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime.elastic import (ElasticRuntime, FaultEvent,
+                                             FaultPlan, reference_run)
     from repro_torch.runtime.steps import make_cluster_train_step
     from repro_torch.serving.live_tuning import LiveTuner
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
@@ -1696,12 +1716,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     tcfg = get_config("qwen3-0.6b")
 
-    def train_setup(cfg, vc, mode, params):
+    def train_setup(cfg, vc, mode, params, opts=()):
         """The bundle and its laid-out state from global ``params``, with
         the device bytes of params / m / v as the card's allocator reports
         them (``traffic.device_bytes``)."""
         bundle = make_cluster_train_step(cfg, vc, mode=mode, lr=3e-4,
-                                         clip=1.0, global_batch=8)
+                                         clip=1.0, global_batch=8,
+                                         opts=opts)
         specs = bundle.state_specs
         on_card = vc.device.type == "cuda"
         mem = (lambda: traffic.device_bytes(dev)) if on_card \
@@ -1751,48 +1772,6 @@ def main() -> int:
         if bad:
             raise AssertionError(f"{what}: {bad} of {want.numel()} elements "
                                  f"outside rtol {rtol} atol {atol}")
-
-    def state_close(got, want, what, steps):
-        """The updated state of two runs of the same steps.
-
-        m and v (the gradients the steps saw) per leaf within rtol 2e-4
-        and an atol of 2e-5 of that leaf's largest |m| / v, so a small
-        element is held as tightly as the gradient's rounding allows.
-        Every updated param within rtol 2e-4 atol 2e-5, but for elements
-        where AdamW's update is ill-conditioned: sqrt(v_hat) below 100 eps,
-        where d update / d m = 1 / (sqrt(v_hat) + eps) ~ 1e8 turns a
-        gradient rounding of 1e-7 of the leaf's largest into a tenth of
-        the update.  Those are excused, as their m and v were held above.
-        Returns the excused count, the element count and the worst
-        |diff| / tolerance of m and v."""
-        c2 = 1.0 - 0.95 ** steps
-        excused, total, worst = 0, 0, {"m": 0.0, "v": 0.0}
-        for grp in ("m", "v"):
-            for (path, a_), (_, b_) in zip(_leaves_with_path(got[grp]),
-                                           _leaves_with_path(want[grp])):
-                a_, b_ = a_.to(b_.device).float(), b_.float()
-                atol = 2e-5 * b_.abs().max().item()
-                ratio = ((a_ - b_).abs() / (atol + 2e-4 * b_.abs())
-                         ).nan_to_num(nan=0.0, posinf=float("inf"))
-                worst[grp] = max(worst[grp], ratio.max().item())
-                close(a_, b_, 2e-4, atol, f"{what} {grp} {'/'.join(path)} "
-                      f"(atol 2e-5 of the leaf's largest)")
-        for (path, a_), (_, b_), (_, vb) in zip(
-                *(_leaves_with_path(t) for t in (
-                    got["params"], want["params"], want["v"]))):
-            total += b_.numel()
-            bad = (a_.to(b_.device) - b_).abs() > 2e-5 + 2e-4 * b_.abs()
-            if not bad.any():
-                continue
-            ill = (vb[bad] / c2).sqrt() < 100 * 1e-8
-            if not bool(ill.all()):
-                raise AssertionError(
-                    f"{what} params {'/'.join(path)}: {int(bad.sum())} "
-                    f"elements outside rtol 2e-4 atol 2e-5, "
-                    f"{int((~ill).sum())} of them where AdamW's update is "
-                    f"well conditioned")
-            excused += int(bad.sum())
-        return excused, total, worst
 
     # (a) the main path: full width and depth, hier on 2x4, 8 x 2048
     vc = VirtualCluster(pods=2, chips=4, device=dev)
@@ -1853,7 +1832,8 @@ def main() -> int:
         close(torch.tensor(r_n["gnorm"]), torch.tensor(r_h["gnorm"]), 5e-3, 0,
               "hier vs naive gnorm")
     excused, total, worst = state_close(n_["state"], h["state"],
-                                        "hier vs naive", len(batches))
+                                        len(batches),
+                                        "hier vs naive")
     per_node = {m_: sum(o_["bytes"].values()) / vc.pods
                 for m_, o_ in out.items()}
     c1 = per_node["naive"] / per_node["hier"]
@@ -1895,8 +1875,8 @@ def main() -> int:
           0, "card vs CPU loss")
     close(torch.tensor(res["cuda"][1]), torch.tensor(res["cpu"][1]), 5e-3,
           0, "card vs CPU gnorm")
-    excused, total, worst = state_close(res["cuda"][2], res["cpu"][2],
-                                        "card vs CPU", 1)
+    excused, total, worst = state_close(res["cuda"][2], res["cpu"][2], 1,
+                                        "card vs CPU")
     print(f"[train] card vs CPU, hier 2x4, 2 layers, 8 x 128, one step: "
           f"loss {res['cuda'][0]:.6f} vs {res['cpu'][0]:.6f}, gnorm "
           f"{res['cuda'][1]:.6f} vs {res['cpu'][1]:.6f}, m and v per leaf "
@@ -1997,7 +1977,8 @@ def main() -> int:
         close(torch.tensor(r_n["gnorm"]), torch.tensor(r_h["gnorm"]), 5e-3, 0,
               "tp hier vs naive gnorm")
     excused, total, worst = state_close(n_["state"], h["state"],
-                                        "tp hier vs naive", len(batches))
+                                        len(batches),
+                                        "tp hier vs naive")
     c1 = {g_: n_["bytes"][g_] / h["bytes"][g_] for g_ in h["bytes"]}
     print(f"[train] hier vs naive, 2x(2x2), 2 layers, 2 steps: loss "
           f"{[r['loss'] for r in h['rows']]} vs "
@@ -2035,8 +2016,8 @@ def main() -> int:
           0, "tp card vs CPU loss")
     close(torch.tensor(res["cuda"][1]), torch.tensor(res["cpu"][1]), 5e-3,
           0, "tp card vs CPU gnorm")
-    excused, total, worst = state_close(res["cuda"][2], res["cpu"][2],
-                                        "tp card vs CPU", 1)
+    excused, total, worst = state_close(res["cuda"][2], res["cpu"][2], 1,
+                                        "tp card vs CPU")
     print(f"[train] card vs CPU, hier 2x(2x2), 2 layers, 8 x 128, one step: "
           f"loss {res['cuda'][0]:.6f} vs {res['cpu'][0]:.6f}, gnorm "
           f"{res['cuda'][1]:.6f} vs {res['cpu'][1]:.6f}, m and v per leaf "
@@ -2102,13 +2083,216 @@ def main() -> int:
         + tp_launches["flash_attention (forward)"])
     launches["flash_attention_bwd"] += tp_launches["flash_attention_bwd"]
 
+    # -- 13. the train runtime: elastic recovery, schedules, bench, --ckpt ----
+    # every op of these runs deterministic (torch raises on one that is
+    # not), so a recovered or resumed run can be held bit for bit
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    rt_launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+    def take_launches(what, fwd=None, bwd=None):
+        fwd = kflash.launches if fwd is None else fwd
+        bwd = kbwd.launches if bwd is None else bwd
+        print(f"[runtime] {what}: flash_attention launches {fwd}, "
+              f"flash_attention_bwd {bwd}")
+        if fwd <= 0 or bwd <= 0:
+            raise AssertionError(f"{what} never launched the flash kernels")
+        rt_launches["flash_attention"] += fwd
+        rt_launches["flash_attention_bwd"] += bwd
+
+    cfg13 = dataclasses.replace(tcfg, n_layers=2)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    try:
+        # (a) a pod lost at step 3 of 6, saves every 2 steps: qwen3-0.6b at
+        # full width, 2 layers, hier 2x4 with the step graph, 8 x 2048
+        el_kw = dict(opts=("stepgraph",), global_batch=8, seq=2048,
+                     lr=3e-4, save_every=2, seed=11)
+        ck_el = os.path.join(scratch, "elastic")
+        vc = VirtualCluster(pods=2, chips=4, device=dev)
+        kflash.launches = kbwd.launches = 0
+        t0 = time.perf_counter()
+        rt = ElasticRuntime(cfg13, vc, ckpt_dir=ck_el, plan=FaultPlan(
+            (FaultEvent.pod_loss(3, pod=1),)), **el_kw)
+        rep = rt.run(6)
+        torch.cuda.synchronize()
+        el_s = time.perf_counter() - t0
+        take_launches("elastic run")
+        if len(rep.recoveries) != 1:
+            raise AssertionError(f"{len(rep.recoveries)} recoveries")
+        rec = rep.recoveries[0]
+        if (rec.old_label, rec.new_label, rec.restored_step) != \
+                ("2x4", "1x4", 2) or sorted(rep.losses) != list(range(6)):
+            raise AssertionError(f"recovery {rec} losses {rep.losses}")
+        print(f"[runtime] elastic: qwen3-0.6b 2 layers hier stepgraph 8 x "
+              f"2048, pod 1 lost at step 3: {rec.old_label} -> "
+              f"{rec.new_label} (signature {rec.old_signature} -> "
+              f"{rec.new_signature}), restored step {rec.restored_step}, "
+              f"stale saves dropped {list(rec.stale_dropped)}; retune "
+              f"sources {rec.retune.sources}: "
+              + ", ".join(f"{f_} e{e_} -> {r_.scheme} ({r_.source})"
+                          for f_, e_, r_ in rec.retune.rows)
+              + f"; 6 steps + recovery in {el_s:.1f} s")
+        # C1: every laid-out state holds the logical state once per node
+        logical = sum(t_.numel() * t_.element_size() for g_ in (
+            "params", "m", "v") for t_ in _tensors(
+            rt.bundle.abstract_state()[g_]))
+        copies = {label: b_ / (logical * VirtualCluster.from_label(
+            label, device="cpu").pods) for label, b_ in rep.layouts}
+        print(f"[runtime] state per node over the logical state (params, "
+              f"m, v: {logical / 1e9:.4f} GB): {copies}")
+        if any(c_ != 1.0 for c_ in copies.values()):
+            raise AssertionError(f"state copies per node {copies} != 1.0")
+        # the oracle: a run that starts on 1x4 at the restored step
+        ref = reference_run(cfg13, vc.without_pod(1), ckpt_dir=ck_el,
+                            from_step=rec.restored_step, steps=6, **el_kw)
+        same = [rep.losses[i_] == ref.losses[i_] for i_ in sorted(
+            ref.losses)]
+        print(f"[runtime] recovered losses "
+              f"{[rep.losses[i_] for i_ in sorted(rep.losses)]}; "
+              f"reference_run on 1x4 from step 2 "
+              f"{[ref.losses[i_] for i_ in sorted(ref.losses)]}: "
+              f"bit-identical {all(same)}")
+        if sorted(ref.losses) != [2, 3, 4, 5] or not all(same):
+            raise AssertionError("the recovered trajectory is not "
+                                 "bit-identical to reference_run's")
+        del ref
+        # save and restore of the final state (1x4), timed, bit for bit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.ckpt.save(100, rt.bundle.host_state(rep.state), blocking=True,
+                     copy=False)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ck_bytes = os.path.getsize(os.path.join(ck_el, "step_00000100",
+                                                "shard_0.npz"))
+        t0 = time.perf_counter()
+        back, _ = rt.ckpt.restore(rt.bundle.abstract_state(), step=100,
+                                  layout=rt.bundle.layout_state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(
+                _tensors(back), _tensors(rep.state))):
+            raise AssertionError("restored state differs from the saved")
+        print(f"[runtime] checkpoint of the 1x4 state: {ck_bytes} bytes "
+              f"({ck_bytes / 1e9:.3f} GB); save {save_ms:.0f} ms (device "
+              f"to host and write, blocking), restore {restore_ms:.0f} ms "
+              f"(read and lay out); restored state bit-identical")
+        del rt, rep, back
+        shutil.rmtree(ck_el)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) phase 11 (a)'s full-depth step under each schedule
+        params = meta.init_params(model_defs, tcfg, torch.Generator(
+            device=dev).manual_seed(11), dev)
+        batches = train_batches(tcfg, 2048, 3)
+        sched = {}
+        for opts in ((), ("prefetch",), ("overlap",), ("stepgraph",)):
+            name = "+".join(opts) or "eager"
+            bundle, state, _ = train_setup(tcfg, vc, "hier", params,
+                                           opts=opts)
+            kflash.launches = kbwd.launches = 0
+            state, rows = run_steps(bundle, state, batches,
+                                    f"qwen3-0.6b full depth hier 2x4 "
+                                    f"8x2048 {name}")
+            take_launches(f"{name} run")
+            sched[name] = rows
+            del bundle, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params, batches
+        for name, rows in sched.items():
+            ms = sum(r_["ms"] for r_ in rows[1:]) / (len(rows) - 1)
+            print(f"[runtime] schedule {name}: step (steps 2-3) {ms:.1f} ms "
+                  f"{8 * 2048 / ms * 1e3:.1f} tokens/s, losses "
+                  f"{[r_['loss'] for r_ in rows]}")
+            for r_, e_ in zip(rows, sched["eager"]):
+                if name in ("prefetch", "stepgraph") and (
+                        r_["loss"] != e_["loss"]
+                        or r_["gnorm"] != e_["gnorm"]):
+                    raise AssertionError(f"{name} is not bit-identical to "
+                                         f"eager: {r_} vs {e_}")
+                close(torch.tensor(r_["loss"]), torch.tensor(e_["loss"]),
+                      2e-4, 0, f"{name} vs eager loss")
+                close(torch.tensor(r_["gnorm"]), torch.tensor(e_["gnorm"]),
+                      5e-3, 0, f"{name} vs eager gnorm")
+        print("[runtime] prefetch and stepgraph losses and gnorms == "
+              "eager's; overlap within rtol 2e-4 / 5e-3")
+
+        # (c) the step_time bench family on 2x4 and 2x(2x2)
+        st_out = os.path.join(scratch, "step_time.json")
+        if bench_cli.main(["--families", "step_time", "--topologies",
+                           "2x4,2x(2x2)-pod.dp.tp", "--reps", "5",
+                           "--out", st_out]) != 0:
+            raise AssertionError("the step_time bench failed")
+        with open(st_out) as f:
+            st_rep = json.load(f)
+        for c_ in st_rep["cases"]:
+            names = {ch["name"] for ch in c_["checks"]}
+            if not {"link/fast", "link/slow", "link/fast/timed",
+                    "link/slow/timed"} <= names or not c_["ok"] or \
+                    c_["timing"]["mode"] != "eager":
+                raise AssertionError(f"step_time case {c_['name']}")
+            print(f"[runtime] step_time {c_['topology']} e{c_['elems']} "
+                  f"{c_['scheme']}: median {c_['timing']['median_us']:.1f} "
+                  f"us (iqr {c_['timing']['iqr_us']:.1f}, "
+                  f"{c_['timing']['reps']} eager reps, CUDA events); link "
+                  f"bytes per chip fast "
+                  f"{c_['record']['fast_link_bytes_per_chip']:.0f} slow "
+                  f"{c_['record']['slow_link_bytes_per_chip']:.0f} == the "
+                  f"inventory")
+
+        # (d) the launcher's --ckpt loop: 4 steps straight, and 2 steps
+        # then a resumed run to 4
+        ckpt_launches = [0, 0]
+
+        def launch(steps, ck):
+            """One launcher run (it zeroes the launch counts first)."""
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main([
+                    "--arch", "qwen3-0.6b", "--layers", "2", "--seq",
+                    "2048", "--steps", str(steps), "--save-every", "2",
+                    "--seed", "11", "--ckpt", ck])
+            out = buf.getvalue()
+            if rc != 0:
+                raise AssertionError(f"launcher rc {rc}: {out}")
+            ckpt_launches[0] += kflash.launches
+            ckpt_launches[1] += kbwd.launches
+            return out, {ln.split()[2]: float(ln.split()[4])
+                         for ln in out.splitlines()
+                         if ln.startswith("[train] step ")}
+
+        _, whole = launch(4, os.path.join(scratch, "whole"))
+        shutil.rmtree(os.path.join(scratch, "whole"))
+        _, first = launch(2, os.path.join(scratch, "resumed"))
+        out, second = launch(4, os.path.join(scratch, "resumed"))
+        take_launches("--ckpt runs", *ckpt_launches)
+        print(f"[runtime] --ckpt: uninterrupted losses {whole}; stopped "
+              f"at 2 {first}, resumed ('resumed from step 2' "
+              f"{'[train] resumed from step 2' in out}) {second}")
+        if sorted(second) != ["3", "4"] or any(
+                second[k_] != whole[k_] for k_ in second) or \
+                "[train] resumed from step 2" not in out:
+            raise AssertionError("the resumed --ckpt run differs from the "
+                                 "uninterrupted one")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(scratch, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phase] train runtime {time.perf_counter() - t_phase:.1f} s")
+    launches["flash_attention"] += rt_launches["flash_attention"]
+    launches["flash_attention_bwd"] += rt_launches["flash_attention_bwd"]
+
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
-    print(f"[nonfinite] tiles recomputed over phases 3-12: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-13: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")

@@ -106,14 +106,20 @@ def timed_call(fn: Callable[[], object], device: torch.device, *,
 
 class Captured:
     """A body made ready to time: captured in a CUDA graph when the device
-    allows it, else called eagerly.  ``mode`` / ``note`` say which."""
+    allows it and the caller does not pass ``capture=False`` (with its
+    reason as ``note``), else called eagerly.  ``mode`` / ``note`` say
+    which."""
 
-    def __init__(self, body: Callable[[], object], device: torch.device):
+    def __init__(self, body: Callable[[], object], device: torch.device,
+                 *, capture: bool = True, note: str = ""):
         self.device = device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.mode, self.note = "eager", ""
         self._body = body
         if device.type != "cuda":
+            return
+        if not capture:           # the caller's reason goes in the note
+            self.note = note
             return
         graph = torch.cuda.CUDAGraph()
         try:

@@ -4,8 +4,9 @@ Every case is one (family, scheme, topology, message size, dtype) cell:
 
 * families — ``allgather``, ``broadcast``, ``psum``, ``reduce_scatter``,
   ``allgatherv`` (irregularly populated nodes, paper Figs 4/10) and
-  ``alltoall``; ``step_time`` and ``serving`` are the train-step and
-  decode-step families, not ported yet;
+  ``alltoall``; ``step_time`` is the whole-train-step family
+  (``bench.step_time``, self-sized per cluster, timed eagerly);
+  ``serving``, the decode-step family, is not ported yet;
 * schemes  — whatever the ``repro_torch.comm`` registry declares for the
   family, dispatched through a ``Communicator``; a scheme whose tunable grid
   is empty for a cell (its tiling divisor does not divide ``elems`` on that
@@ -37,10 +38,12 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.traffic import link_bytes
 from repro_torch.bench import runner
 from repro_torch.comm import Communicator, registry
 from repro_torch.core.plans import CollectiveTraffic
 from repro_torch.substrate import VirtualCluster, default_matrix
+from repro_torch.substrate.collectives import recording
 
 ELEM_DTYPE = "float32"  # recorded per case: the tuning table keys by dtype
 
@@ -100,6 +103,9 @@ class BenchCase:
     tunable_grid: tuple = ({},)
     populations: Optional[tuple] = None      # allgatherv only
     dtype: str = ELEM_DTYPE
+    #: why the case is timed eagerly instead of captured (a whole train
+    #: step); empty: captured in a CUDA graph on the card
+    eager: str = ""
 
     @property
     def topology(self) -> str:
@@ -281,9 +287,10 @@ def allgatherv_cases(vc, max_elems, populations=None, on_skip=None,
 
 
 def step_time_cases(vc, elems=None, on_skip=None, schemes=None):
-    raise NotImplementedError(
-        "the step_time bench family (bench/step_time.py) times the train "
-        "step, not ported yet: ROADMAP Queue 1 item 14")
+    """Bridge to ``bench.step_time``: whole-train-step cases, self-sized
+    per cluster (``elems`` unused)."""
+    from repro_torch.bench import step_time as st
+    return st.step_time_cases(vc, on_skip=on_skip, schemes=schemes)
 
 
 def serving_cases(vc, elems=None, on_skip=None, schemes=None):
@@ -326,6 +333,9 @@ def build_cases(*, clusters: Optional[Sequence[VirtualCluster]] = None,
                          f"pick from {list(_FAMILY_BUILDERS)}")
     for dt in dtypes:
         _dtype(dt)
+    if "step_time" in families:
+        from repro_torch.bench import step_time  # noqa: F401  registers
+        # its schemes before the scheme-name validation below
     if schemes is not None:
         if "auto" in schemes:
             raise ValueError(
@@ -434,19 +444,30 @@ def run_suite(cases: Sequence[BenchCase], *, reps: int = 30,
                     call = bound_call(case.cluster, body, args)
                     entries.append(_Entry(
                         case=case, cand=cand,
-                        call=runner.Captured(call, case.cluster.device),
+                        call=runner.Captured(
+                            call, case.cluster.device,
+                            capture=not case.eager, note=case.eager),
                         record=record, checks=checks,
                         inner=runner.calibrate_inner(warm_s, min_rep_s)))
             # phase 2 — interleaved round-robin timing over the cell
             rng = random.Random(0x5EED)
             samples: list[list[float]] = [[] for _ in entries]
             order = list(range(len(entries)))
+            timed_links: list[list] = [[] for _ in entries]
             for _ in range(reps):
                 rng.shuffle(order)
                 for i in order:
                     e = entries[i]
-                    samples[i].append(runner.timed_call(
-                        e.call, e.case.cluster.device, inner=e.inner))
+                    if e.call.graph is not None or not validate:
+                        samples[i].append(runner.timed_call(
+                            e.call, e.case.cluster.device, inner=e.inner))
+                        continue
+                    # an eager rep re-runs the body: its own traffic record
+                    # is held to the case's expectation too
+                    with recording() as rec:
+                        samples[i].append(runner.timed_call(
+                            e.call, e.case.cluster.device, inner=e.inner))
+                    timed_links[i].append(link_bytes(rec))
         finally:
             for e in entries:
                 e.call.release()
@@ -458,6 +479,10 @@ def run_suite(cases: Sequence[BenchCase], *, reps: int = 30,
                 for i, e in enumerate(entries) if e.case is case]
             best = min(tuned, key=lambda t: t[1].median_us)
             checks = list(best[3])
+            for i, e in enumerate(entries):
+                if e.case is case and e.cand is best[0]:
+                    checks.extend(V.timed_link_checks(case, timed_links[i],
+                                                      e.inner, e.cand))
             for cand, _, _, cand_checks in tuned:
                 if cand is best[0]:
                     continue

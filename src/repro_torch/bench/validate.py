@@ -172,6 +172,27 @@ def inspect_case(case: BenchCase, body, args: tuple,
     return meas, checks
 
 
+def timed_link_checks(case: BenchCase, links: Sequence[tuple],
+                      inner: int = 1, opts: Optional[dict] = None
+                      ) -> list[Check]:
+    """The traffic record of every eagerly timed rep (``links``: its priced
+    (fast, slow) bytes, over ``inner`` calls) against the case's expected
+    links: the rep farthest from each is the measured value.  A captured
+    case replays a graph and records nothing (no checks)."""
+    if not links:
+        return []
+    exp = expected_links(case, opts)
+    out = []
+    for k, tier in enumerate(("fast", "slow")):
+        got = [ln[k] / inner for ln in links]
+        worst = max(got, key=lambda x: abs(x - exp[k]))
+        out.append(Check(
+            f"link/{tier}/timed", exp[k], worst,
+            f"per-rank {tier} link bytes of each of the {len(links)} timed "
+            "reps' own records (the one farthest from the expectation)"))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Tuning-table winner cross-check
 # ---------------------------------------------------------------------------

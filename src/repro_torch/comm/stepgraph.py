@@ -45,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import pathlib
 from typing import Any, Hashable, Optional, Sequence
 
 import torch
@@ -538,19 +539,73 @@ class GraphRecorder:
 
 
 # ---- the schedule artifact --------------------------------------------------
+#: where ``python -m repro_torch.comm.stepgraph`` writes by default (never the
+#: reference's root ``SCHEDULE_stepgraph.json``)
+ARTIFACT = pathlib.Path(__file__).resolve().parents[1] / "artifacts" \
+    / "SCHEDULE_stepgraph_h100.json"
+
+
 def schedule_reports(matrix=None, configs=None) -> list[dict]:
-    """One schedule ``report()`` per (model config, topology) of the
-    ``step_time`` train step — that step is not ported yet."""
-    raise NotImplementedError(
-        "schedule_reports traces the step_time train step "
-        "(bench/step_time.py, runtime/steps.py), not ported yet: ROADMAP "
-        "Queue 1 item 14")
+    """One schedule ``report()`` per (model config, topology): run the
+    ``step_time`` bench body (``runtime.steps.make_step_bench``) once with
+    the ``stepgraph`` opt and collect what the optimizer did to its
+    recorded graph under the active tuning table.  The schedule depends on
+    the graph and the table, not on the device, so the default matrix is
+    stacked on the CPU (reduced configs: a fraction of a second each)."""
+    from repro_torch.bench.step_time import STEP_CONFIGS
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.steps import make_step_bench
+    from repro_torch.substrate.cluster import default_matrix
+
+    rows = []
+    for vc in (matrix if matrix is not None
+               else default_matrix(device="cpu")):
+        for cfg_name in (configs or STEP_CONFIGS):
+            cfg = get_config(cfg_name).reduced()
+            sink: list[dict] = []
+            body, _, _, make_args, elems = make_step_bench(
+                cfg, vc, opts=("stepgraph",), unroll=cfg.n_units,
+                schedule_sink=sink)
+            with vc.bind():
+                body(*make_args())
+            rows.append({"config": cfg_name, "topology": vc.label,
+                         "pods": vc.pods, "chips": vc.chips,
+                         "elems": elems, **sink[-1]})
+    return rows
 
 
 def _main(argv=None) -> int:
-    """``python -m repro_torch.comm.stepgraph`` would emit the schedule
-    artifact from ``schedule_reports``."""
-    schedule_reports()
+    """Emit the port's schedule artifact — the record of the optimizer's
+    rewrite of the ``step_time`` step over the standard topology matrix,
+    under the active tuning table (the committed
+    ``artifacts/TUNING_h100.json`` unless ``REPRO_TORCH_TUNING_TABLE``
+    names another), checked by ``bench.gates``:
+
+        python -m repro_torch.comm.stepgraph [--out PATH]
+    """
+    import argparse
+    import json
+
+    from repro_torch.comm import tuning
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.comm.stepgraph")
+    ap.add_argument("--out", default=str(ARTIFACT))
+    args = ap.parse_args(argv)
+    reports = schedule_reports()
+    table = tuning.default_table_path()
+    doc = {
+        "schema": SCHEMA_VERSION,
+        "generated_by": "python -m repro_torch.comm.stepgraph",
+        "torch_version": torch.__version__,
+        "tuning_table": table.name if table.exists() else None,
+        "reports": reports,
+    }
+    with open(args.out, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+    n_topo = len({r["topology"] for r in reports})
+    print(f"repro_torch.comm.stepgraph: wrote {args.out} "
+          f"({len(reports)} schedules over {n_topo} topologies)")
     return 0
 
 

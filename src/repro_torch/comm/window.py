@@ -109,7 +109,9 @@ class SharedWindow:
         the node's reduce-scatter store with the sum over the node's ranks
         already taken by the batch the run folds together."""
         self._check_clean()
-        return node_read(self.shard, self.axis, lead=self.lead)
+        out = node_read(self.shard, self.axis, lead=self.lead)
+        coll.note_window_read(out, self.shard.shape[self.lead], self.lead)
+        return out
 
     def read_rank_order(self) -> torch.Tensor:
         """Full buffer in SMP (pod, local_rank) rank order; needs the

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         [--reduced] --topology 2x4|2x(2x2) --mode hier|naive --steps N \\
-        --batch B --seq T [--device cuda|cpu] [--opts prefetch,stepgraph]
+        --batch B --seq T [--device cuda|cpu] [--opts prefetch,stepgraph] \\
+        [--ckpt DIR --save-every N]
 
 Builds ``runtime.steps.make_cluster_train_step`` on a stacked
 ``VirtualCluster`` (``--topology``: ``PODSxCHIPS``, or ``PODSx(DPxTP)``
@@ -11,29 +12,34 @@ production layout) on one device, draws the parameters from ``--seed`` on
 that device, lays the state out (hier: one copy per node, sharded over its
 store ranks; naive: a replica per store rank; each tp rank its shard) and
 drives ``--steps`` steps over ``data/synthetic.py``'s stream.  It prints
-one line per step — loss, gnorm, the step's milliseconds (host clock
-around work that ends in a synchronize) and tokens/s — then the training
-state's device bytes by group (params / m / v / grads) and, on the card,
-the flash-attention kernel's forward and backward launch counts.
+one line per step — the loss (in full), gnorm, the step's milliseconds
+(host clock around work that ends in a synchronize) and tokens/s — then the
+training state's device bytes by group (params / m / v / grads) and, on
+the card, the flash-attention kernel's forward and backward launch
+counts.
 ``--reduced`` is the arch's ``reduced()`` config (``--n-layers``,
-``--d-model``).  ``--ckpt`` (the checkpointer and the train loop) is ROADMAP
-Queue 1 item 14 and raises.
+``--d-model``); ``--layers N`` cuts the arch to N layers at its full
+width.  The steps run through ``runtime.train_loop.train``: with
+``--ckpt DIR`` it saves the logical state every ``--save-every`` steps and
+at the end, and a rerun resumes from the newest intact step with the data
+stream fast-forwarded, so an interrupted and resumed run gives the same
+losses as an uninterrupted one.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
+import dataclasses
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import tree as T
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.synthetic import DataConfig
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import flash_attention_bwd as kflash_bwd
-from repro_torch.models.meta import not_ported
 from repro_torch.runtime.steps import make_cluster_train_step
+from repro_torch.runtime.train_loop import train
 from repro_torch.substrate import VirtualCluster
 
 
@@ -52,6 +58,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--d-model", type=int, default=64)
     ap.add_argument("--n-layers", type=int, default=2)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch to this many layers at its full "
+                         "width (without --reduced)")
     ap.add_argument("--topology", default="2x4",
                     help="PODSxCHIPS or PODSx(DPxTP), stacked on the one "
                          "device")
@@ -66,15 +75,16 @@ def main(argv=None) -> int:
                          "overlap)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory: resume from its newest "
+                         "intact step, save every --save-every steps")
+    ap.add_argument("--save-every", type=int, default=50)
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise not_ported("checkpointing and the train loop "
-                         "(checkpoint/checkpointer.py, runtime/train_loop.py)",
-                         14)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=args.n_layers, d_model=args.d_model)
+    elif args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is visible "
@@ -84,28 +94,31 @@ def main(argv=None) -> int:
     bundle = make_cluster_train_step(cfg, vc, mode=args.mode, lr=args.lr,
                                      clip=args.clip,
                                      global_batch=args.batch, opts=opts)
-    state = bundle.init_layout_state(args.seed)
-    stream = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                    global_batch=args.batch, seed=args.seed))
     print(f"[train] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}) "
           f"{args.mode} on {vc.label} ({args.device}), global batch "
           f"{args.batch} x {args.seq} tokens, lr {args.lr}, opts "
-          f"{list(opts)}")
+          f"{list(opts)}"
+          + (f", checkpoints in {args.ckpt} every {args.save_every} steps"
+             if args.ckpt else ""))
     kflash.launches = kflash_bwd.launches = 0
-    for i in range(args.steps):
-        batch = bundle.layout_batch(stream.next_batch())
-        sync = torch.cuda.synchronize if dev.type == "cuda" else (
-            lambda: None)
-        sync()
-        t0 = time.perf_counter()
-        state, metrics = bundle.step(state, batch)
-        loss = float(metrics["loss"][0])
-        gnorm = float(metrics["gnorm"][0])
-        sync()
-        ms = (time.perf_counter() - t0) * 1e3
-        tokens = args.batch * args.seq
-        print(f"[train] step {i + 1} loss {loss:.6f} gnorm {gnorm:.6f} "
-              f"step {ms:.1f} ms {tokens / ms * 1e3:.1f} tokens/s")
+    tokens = args.batch * args.seq
+
+    def log_step(i, metrics):
+        ms = metrics["seconds"] * 1e3
+        # the loss in full (repr), so two runs' lines compare exactly
+        print(f"[train] step {i + 1} loss {float(metrics['loss'][0])!r} "
+              f"gnorm {float(metrics['gnorm'][0]):.6f} step {ms:.1f} ms "
+              f"{tokens / ms * 1e3:.1f} tokens/s")
+
+    rep = train(bundle, steps=args.steps,
+                data_cfg=DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch,
+                                    seed=args.seed),
+                ckpt_dir=args.ckpt, save_every=args.save_every, log_every=0,
+                seed=args.seed, on_step=log_step)
+    if rep.resumed_from:
+        print(f"[train] resumed from step {rep.resumed_from}")
+    state = rep.state
     sizes = state_bytes(state, bundle.stats.get("grad_bytes", 0))
     tp = bundle.model.ctx.tp
     copies = (f"{vc.pods} node copies" if args.mode == "hier"

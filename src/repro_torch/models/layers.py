@@ -153,7 +153,7 @@ def unembed_xent_rows(x: torch.Tensor, labels: torch.Tensor,
     total = torch.zeros(xg.shape[:-2], dtype=torch.float32, device=x.device)
     count = torch.zeros(xg.shape[:-2], dtype=torch.float32, device=x.device)
     # the chunk's collectives re-run in the backward's recompute
-    fn = keep_mesh(_chunk_nll) if ctx.tp_axis else _chunk_nll
+    fn = keep_mesh(_chunk_nll)
     for t0 in range(0, T, chunk):
         args = (xg[..., t0:t0 + chunk, :], labels[..., t0:t0 + chunk],
                 mask[..., t0:t0 + chunk], unemb, softcap, ldt, ctx)

@@ -248,12 +248,12 @@ def _unembed_weight(cfg, ctx, defs, params):
 
 def _remat(fn, ctx):
     """``fn`` rematerialised in the backward (the reference's
-    ``jax.checkpoint``) when gradients are being recorded; with a tp axis
-    the recompute re-runs the tp collectives under the mesh bound here."""
+    ``jax.checkpoint``) when gradients are being recorded; the recompute
+    runs under the mesh and traffic record bound here (its tp collectives,
+    its window reads)."""
     def run(*args):
         if torch.is_grad_enabled():
-            f = keep_mesh(fn) if ctx.tp_axis else fn
-            return checkpoint(f, *args, use_reentrant=False)
+            return checkpoint(keep_mesh(fn), *args, use_reentrant=False)
         return fn(*args)
     return run
 

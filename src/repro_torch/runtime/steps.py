@@ -55,9 +55,10 @@ each tp shard once and naive once per store rank: C1 naive/hier is the
 store size, not ``chips``.  The grad norm divides a tp-replicated leaf's
 square by ``tp`` as well.
 
-``make_train_step`` / ``make_ctx`` need the production mesh (ROADMAP Queue
-1 item 17) and ``make_step_bench`` the step-time bench (item 14); they
-raise.
+``make_step_bench`` is the ``step_time`` bench family's body: the same
+step over flattened state, returning loss, grad norm and a parameter
+checksum.  ``make_train_step`` / ``make_ctx`` need the production mesh
+(ROADMAP Queue 1 item 17); they raise.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.analysis.traffic import device_bytes
@@ -76,8 +78,10 @@ from repro_torch.core import tree as T
 from repro_torch.models.meta import not_ported
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import Model, _loss, build
-from repro_torch.optim.adamw import adamw_init, adamw_update_, per_rank
+from repro_torch.optim.adamw import (adamw_init, adamw_update,
+                                     adamw_update_, per_rank)
 from repro_torch.substrate.cluster import Mesh, P, bind_mesh
+from repro_torch.substrate.collectives import muted
 
 
 def make_ctx(*args, **kwargs):
@@ -86,10 +90,6 @@ def make_ctx(*args, **kwargs):
 
 def make_train_step(*args, **kwargs):
     raise not_ported("the production-mesh train step (launch/mesh.py)", 17)
-
-
-def make_step_bench(*args, **kwargs):
-    raise not_ported("the step-time bench body (bench/step_time.py)", 14)
 
 
 def cluster_ctx(vc, *, mode: str = "hier", compute_dtype=torch.float32,
@@ -163,6 +163,23 @@ class TrainStepBundle:
         return self.vc.layout({"tokens": torch.as_tensor(batch["tokens"])},
                               self.batch_spec)
 
+    def abstract_state(self) -> dict:
+        """The global state's shapes and dtypes as ``meta``-device tensors
+        (the reference's ``eval_shape`` of ``init_state``): a checkpoint
+        restore's template, with nothing drawn."""
+        params = self.model.abstract_params(self.state_specs["params"])
+        return {"params": params, "m": params, "v": params,
+                "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+    def host_state(self, state: dict) -> dict:
+        """Laid-out state -> the global state on the CPU, one leaf at a
+        time, so the card never holds a second copy of the whole state —
+        what a checkpoint saves."""
+        mesh = self.vc.mesh
+        out = [mesh.unlayout(t, spec).cpu() for t, spec in zip(
+            T.leaves(state), T.leaves(self.state_specs))]
+        return T.unflatten(state, out)
+
 
 def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
                   stats: dict):
@@ -219,8 +236,11 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
                for w, win, u in zip(leaves, window, units)]
         # the store ranks' rows (their tp ranks hold the same rows)
         rows = tokens[a:a + n:t].reshape((-1,) + tuple(tokens.shape[2:]))
+        # every domain runs the same program: the traffic record keeps the
+        # first one's collectives as each rank's
         with torch.enable_grad(), (bind_mesh(mesh) if tp
-                                   else contextlib.nullcontext()):
+                                   else contextlib.nullcontext()), (
+                muted() if a else contextlib.nullcontext()):
             nll, count = _loss(cfg, ctx, defs, T.unflatten(params, dom),
                                {"tokens": rows}, rows=True)
             got = torch.autograd.grad(nll.sum(), dom, allow_unused=True)
@@ -241,6 +261,63 @@ def _units_flags(tree, under_units: bool = False):
         return {k: _units_flags(v, under_units or k == "units")
                 for k, v in tree.items()}
     return under_units
+
+
+def _bridge_and_clip(ctx: ParallelCtx, world, node, grads, loss_sum, cnt,
+                     meta_leaves, data: int, clip: float, *,
+                     stats_scheme: str = "auto", schedule_sink=None):
+    """The step after the backward: the world allreduce of the loss and
+    token partials, the gradient bridge (``ParallelCtx.reduce_grads``;
+    with the ``stepgraph`` opt all of it recorded into one graph and run as
+    the optimized schedule, whose ``report()`` goes to ``schedule_sink``),
+    the per-token mean, the global grad norm and the clip.  The gradients
+    are the step's own buffers, scaled in place.  ``stats_scheme="auto"``
+    is the train step's (``scheme="auto"`` under ``result="replicated"``,
+    never bucketed); the step bench pins ``"naive"``, as the reference's
+    does, so its program is one fixed schedule per topology.  Returns the
+    gradient leaves, the global loss and token sums and the grad norm."""
+    auto = stats_scheme == "auto"
+    stat_kw = dict(result="replicated") if auto else dict(
+        scheme=stats_scheme)
+    if ctx.stepgraph:
+        rec = world.record()
+        rec_kw = dict(scheme="auto", result="replicated",
+                      bucketable=False) if auto else dict(
+            scheme=stats_scheme)
+        rl = rec.allreduce(loss_sum, axes=world.axes, key="loss", **rec_kw)
+        rc = rec.allreduce(cnt, axes=world.axes, key="cnt", **rec_kw)
+        grads = ctx.reduce_grads(grads, meta_leaves, recorder=rec)
+        res = rec.run()
+        if schedule_sink is not None:
+            schedule_sink.append(res.report())
+        loss_g, cnt_g = res[rl], res[rc]
+        grads = res.resolve(grads)
+    else:
+        loss_g = world.allreduce(loss_sum, **stat_kw)
+        cnt_g = world.allreduce(cnt, **stat_kw)
+        grads = ctx.reduce_grads(grads, meta_leaves)
+    gl = T.leaves(grads)     # the step's own buffers: in place
+    del grads
+    for g in gl:
+        g.div_(per_rank(cnt_g, g))
+    # global grad norm: each leaf weighted by 1/replication over the node
+    # tier (tp ranks and store ranks), so every element counts once;
+    # node-local, since the pods hold identical gradients after the bridge
+    gsq = torch.zeros_like(loss_g)
+    for g, meta in zip(gl, meta_leaves):
+        repl = 1.0
+        if meta.tp_dim is None and ctx.tp_axis:
+            repl *= ctx.tp
+        if meta.fsdp_dim is None or ctx.mode != "hier":
+            repl *= data
+        gsq = gsq + torch.sum(torch.square(g.float()),
+                              dim=tuple(range(1, g.dim()))) / repl
+    gsq = node.allreduce(gsq, **stat_kw)
+    gnorm = torch.sqrt(gsq)
+    scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    for g in gl:
+        g.mul_(per_rank(scale, g))
+    return gl, loss_g, cnt_g, gnorm
 
 
 def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
@@ -279,47 +356,12 @@ def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
 
     def body(state, batch):
         params = state["params"]
-        grads, loss_sum, cnt = _domain_grads(cfg, ctx, defs, params,
-                                             batch["tokens"], data, stats)
+        # the gradients passed on, not held: the bridge frees them as it goes
         with torch.no_grad():
-            if ctx.stepgraph:
-                rec = world.record()
-                rl = rec.allreduce(loss_sum, axes=world.axes, scheme="auto",
-                                   result="replicated", bucketable=False,
-                                   key="loss")
-                rc = rec.allreduce(cnt, axes=world.axes, scheme="auto",
-                                   result="replicated", bucketable=False,
-                                   key="cnt")
-                grads = ctx.reduce_grads(grads, meta_leaves, recorder=rec)
-                res = rec.run()
-                loss_g, cnt_g = res[rl], res[rc]
-                grads = res.resolve(grads)
-            else:
-                loss_g = world.allreduce(loss_sum, result="replicated")
-                cnt_g = world.allreduce(cnt, result="replicated")
-                grads = ctx.reduce_grads(grads, meta_leaves)
-            gl = T.leaves(grads)     # the step's own buffers: in place
-            del grads
-            for g in gl:
-                g.div_(per_rank(cnt_g, g))
-            # global grad norm: each leaf weighted by 1/replication over the
-            # node tier (tp ranks and store ranks), so every element counts
-            # once; node-local, since the pods hold identical gradients
-            # after the bridge
-            gsq = torch.zeros_like(loss_g)
-            for g, meta in zip(gl, meta_leaves):
-                repl = 1.0
-                if meta.tp_dim is None and ctx.tp_axis:
-                    repl *= ctx.tp
-                if meta.fsdp_dim is None or ctx.mode != "hier":
-                    repl *= data
-                gsq = gsq + torch.sum(torch.square(g.float()),
-                                      dim=tuple(range(1, g.dim()))) / repl
-            gsq = node.allreduce(gsq, result="replicated")
-            gnorm = torch.sqrt(gsq)
-            scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-            for g in gl:
-                g.mul_(per_rank(scale, g))
+            gl, loss_g, cnt_g, gnorm = _bridge_and_clip(
+                ctx, world, node, *_domain_grads(
+                    cfg, ctx, defs, params, batch["tokens"], data, stats),
+                meta_leaves, data, clip)
             step = state["step"] + 1
             metrics = {"loss": loss_g / cnt_g, "gnorm": gnorm,
                        "tokens": cnt_g}
@@ -338,3 +380,81 @@ def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
 
     return TrainStepBundle(fn=smapped, step=step, state_specs=state_specs,
                            batch_spec=bspec, model=model, vc=vc, stats=stats)
+
+
+def make_step_bench(cfg: ModelConfig, vc, *, opts=(), unroll: int = 1,
+                    lr: float = 3e-4, weight_decay: float = 0.1,
+                    clip: float = 1.0, global_batch: int = 8, seq: int = 32,
+                    seed: int = 0, schedule_sink=None):
+    """Whole-train-step bench body for one cluster (the reference's): the
+    forward + backward, the gradient bridge and AdamW, as a
+    ``repro_torch.bench`` case.
+
+    Returns ``(body, in_specs, out_specs, make_args, elems)``.  ``body``
+    takes the state FLATTENED into top-level stacked ``(R, *local)``
+    arguments (``core.tree.leaves`` order of ``{"params", "m", "v",
+    "step"}`` under ``in_specs``) and the stacked tokens last, and returns
+    three stacked replicated f32 values: the loss, the grad norm and a
+    checksum of the updated parameters (which keeps the whole update in the
+    step).  It is pure: AdamW runs out of place, so the same arguments can
+    be fed again.  ``make_args()`` draws the parameters from ``seed`` and a
+    deterministic token stream (the reference's Knuth multiplicative hash
+    of position), laid out on the cluster's device.  ``elems`` is the
+    model's global parameter element count.  The step is hier; the scalar
+    stats are pinned to the flat ``naive`` scheme.  ``unroll`` is the
+    reference's scan unroll and does not change the port's Python loop.
+    With the ``stepgraph`` opt, ``schedule_sink`` (a list) receives each
+    run's schedule ``report()``."""
+    del unroll
+    ctx = cluster_ctx(vc, opts=opts)
+    sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+    data = math.prod(sizes[a] for a in ctx.fsdp_axes)
+    model = build(cfg, ctx, data=data, device=vc.device)
+    defs = model.defs
+    pspecs = model.param_specs(tp_axis=ctx.tp_axis,
+                               fsdp_axis=ctx.fsdp_axes[0]
+                               if ctx.fsdp_axes else None)
+    state_specs = {"params": pspecs, "m": pspecs, "v": pspecs, "step": P()}
+    bspec = P(ctx.dp_axes)
+    meta_leaves = T.leaves(defs)
+    world = Communicator.from_cluster(vc)
+    node = world.split_type_shared()
+    stats: dict = {}
+
+    def body(*args):
+        state = T.unflatten(state_specs, list(args[:-1]))
+        params = state["params"]
+        with torch.no_grad():
+            gl, loss_g, cnt_g, gnorm = _bridge_and_clip(
+                ctx, world, node, *_domain_grads(
+                    cfg, ctx, defs, params, args[-1], data, stats),
+                meta_leaves, data, clip, stats_scheme="naive",
+                schedule_sink=schedule_sink)
+            new_params, _, _ = adamw_update(
+                params, T.unflatten(params, gl), state["m"], state["v"],
+                state["step"] + 1, lr=lr, weight_decay=weight_decay)
+            csum = torch.zeros_like(loss_g)
+            for leaf in T.leaves(new_params):
+                csum = csum + torch.sum(leaf.float(),
+                                        dim=tuple(range(1, leaf.dim())))
+            csum = world.allreduce(csum, scheme="naive")
+        return loss_g / cnt_g, gnorm, csum
+
+    in_specs = tuple(T.leaves(state_specs)) + (bspec,)
+    out_specs = (P(), P(), P())
+
+    def make_args():
+        params = model.init_params(seed)
+        m, v = adamw_init(params)
+        state = {"params": params, "m": m, "v": v,
+                 "step": torch.zeros((), dtype=torch.int32)}
+        toks = (np.arange(global_batch * (seq + 1), dtype=np.uint32)
+                * np.uint32(2654435761)) % np.uint32(cfg.vocab)
+        tokens = torch.from_numpy(
+            toks.astype(np.int32).reshape(global_batch, seq + 1))
+        return tuple(vc.layout(x, spec) for x, spec in zip(
+            T.leaves(state) + [tokens], in_specs))
+
+    elems = sum(math.prod(t.shape) for t in T.leaves(
+        model.abstract_params(pspecs)))
+    return body, in_specs, out_specs, make_args, elems

@@ -132,8 +132,10 @@ class Mesh:
 
     def layout(self, x, spec: "P") -> torch.Tensor:
         """Global tensor -> stacked ``(R, *local)``: rank *r* gets its
-        block under ``spec`` (a copy per rank, on the mesh's device)."""
-        x = torch.as_tensor(x)
+        block under ``spec`` (a copy per rank, on the mesh's device).  A
+        host tensor moves to the device whole first, so the per-rank
+        blocks are device copies, not strided host-to-device ones."""
+        x = torch.as_tensor(x, device=self.device)
         blocks = self._blocks(tuple(x.shape), spec)
         local = tuple(s.stop - s.start for s in blocks[0])
         out = torch.empty((self.num_ranks,) + local, dtype=x.dtype,

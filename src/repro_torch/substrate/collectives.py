@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import math
 from typing import Iterator, Optional
 
 import torch
@@ -71,6 +72,40 @@ def recording() -> Iterator[list[CollectiveRecord]]:
         yield rec
     finally:
         _RECORD.reset(token)
+
+
+@contextlib.contextmanager
+def muted() -> Iterator[None]:
+    """Record nothing inside: for a run that repeats, on other ranks, the
+    work a record already holds per rank (a model run once per memory
+    domain records its first domain's)."""
+    token = _RECORD.set(None)
+    try:
+        yield
+    finally:
+        _RECORD.reset(token)
+
+
+def note_window_read(out: torch.Tensor, n: int, lead: int = 0) -> None:
+    """Record a read of one node's shared window (``SharedWindow.read_node``:
+    its ``n`` members' shards joined into one buffer ``out``, behind
+    ``lead`` leading dims of one window each) as what it stands for on a
+    node of ``n`` ranks: each rank's all-gather of the full buffer and,
+    once ``out``'s gradient is computed, the transpose — each rank's
+    reduce-scatter of its shard.  On one card the read is a view and moves
+    nothing; the record prices the read as the reference's program runs
+    it."""
+    rec = _RECORD.get()
+    if rec is None or n <= 1:
+        return
+    per_rank = out.numel() // max(1, math.prod(out.shape[:lead]))
+    full = per_rank * out.element_size()
+    rec.append(CollectiveRecord(op="all-gather", tier="fast", group=n,
+                                out_bytes=full, messages=n - 1))
+    if out.requires_grad:
+        store = CollectiveRecord(op="reduce-scatter", tier="fast", group=n,
+                                 out_bytes=full // n, messages=n - 1)
+        out.register_hook(lambda g: rec.append(store))
 
 
 def _note(op: str, axes: Axis, out: torch.Tensor,
@@ -174,11 +209,12 @@ def _psum(x: torch.Tensor, axes: Axis, group: Optional[int] = None
 
 
 class _Replay:
-    """The mesh and traffic record a collective ran under, restored around
-    its backward (which autograd may run on another thread)."""
+    """The mesh (``None`` where none is bound) and traffic record a
+    collective or a rematerialised block ran under, restored around its
+    backward (which autograd may run on another thread)."""
 
     def __init__(self):
-        self.mesh, self.rec = active_mesh(), _RECORD.get()
+        self.mesh, self.rec = _MESH.get(), _RECORD.get()
 
     def __enter__(self):
         self._tokens = (_MESH.set(self.mesh), _RECORD.set(self.rec))

@@ -90,8 +90,6 @@ def test_cases_match_reference_build_cases(dtypes):
 
 
 def test_unported_families_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        suites.build_cases(clusters=(VC22,), families=("step_time",))
     with pytest.raises(NotImplementedError, match="item 15"):
         suites.build_cases(clusters=(VC22,), families=("serving",))
     with pytest.raises(ValueError, match="auto"):

@@ -625,7 +625,10 @@ def test_flash_autograd_route_and_refusals(cuda):
 
 def test_cluster_train_step_on_the_card_matches_the_cpu(cuda):
     """The reduced qwen3-0.6b's hier step on 2x4: the card (the flash kernel
-    and its backward) against the CPU (the plain version's autograd)."""
+    and its backward) against the CPU (the plain version's autograd): loss
+    rtol 2e-4, gnorm 5e-3, the state under ``PERF.md`` §2's rule with at
+    most 1e-5 of the params excused."""
+    from repro_torch.analysis.state_rule import state_close
     from repro_torch.core import tree as T
     from repro_torch.kernels import flash_attention_bwd as kbwd
     from repro_torch.runtime.steps import make_cluster_train_step
@@ -650,11 +653,46 @@ def test_cluster_train_step_on_the_card_matches_the_cpu(cuda):
         state, met = bundle.step(state, bundle.layout_batch(
             {"tokens": toks}))
         res[dev.type] = (float(met["loss"][0]), float(met["gnorm"][0]),
-                         T.leaves(T.tree_map(lambda t: t.cpu(),
-                                             bundle.unlayout_state(state))))
+                         T.tree_map(lambda t: t.cpu(),
+                                    bundle.unlayout_state(state)))
         if dev.type == "cuda":
             assert kbwd.launches > before
-    (lg, gg, pg), (lc, gc, pc) = res["cuda"], res["cpu"]
+    (lg, gg, sg), (lc, gc, sc) = res["cuda"], res["cpu"]
     assert abs(lg - lc) <= 2e-4 * abs(lc) and abs(gg - gc) <= 5e-3 * gc
-    for a, b in zip(pg, pc):
-        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    # PERF.md §2's rule: m and v per leaf, the params but for elements
+    # where AdamW's update is ill-conditioned, which must be few
+    excused, total, _ = state_close(sg, sc, 1, "card vs CPU")
+    assert excused <= 1e-5 * total, (excused, total)
+
+
+def test_elastic_pod_loss_on_the_card_is_bit_identical(cuda, tmp_path):
+    """The reduced qwen3-0.6b (2 layers, d 64) hier on 2x4 on the card: a
+    pod lost at step 3, saves every 2 steps — one recovery 2x4 -> 1x4
+    restored at step 2, its trajectory ``==`` a run started on 1x4 at step
+    2, under deterministic algorithms; the flash kernels ran."""
+    import os
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.runtime.elastic import (FaultEvent, FaultPlan,
+                                             reference_run)
+    from repro_torch.runtime.train_loop import train_elastic
+    cfg = get_config("qwen3-0.6b").reduced(n_layers=2, d_model=64,
+                                           n_heads=4)
+    vc = VirtualCluster(pods=2, chips=4, device=cuda)
+    kw = dict(save_every=2, global_batch=8, seq=64)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = (kflash.launches, kbwd.launches)
+        rep = train_elastic(cfg, vc, steps=6, ckpt_dir=str(tmp_path),
+                            plan=FaultPlan((FaultEvent.pod_loss(3, pod=1),)),
+                            **kw)
+        assert kflash.launches > before[0] and kbwd.launches > before[1]
+        ref = reference_run(cfg, vc.without_pod(1), ckpt_dir=str(tmp_path),
+                            from_step=2, steps=6, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (rec,) = rep.recoveries
+    assert (rec.old_label, rec.new_label, rec.restored_step) == \
+        ("2x4", "1x4", 2)
+    assert sorted(ref.losses) == [2, 3, 4, 5]
+    assert all(rep.losses[s] == ref.losses[s] for s in ref.losses)

@@ -334,9 +334,53 @@ def test_gather_dedup_only_within_one_epoch():
     assert res.report()["gather"] == {"before_issues": 3, "after_issues": 2}
 
 
-def test_schedule_reports_wait_for_the_train_step():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        stepgraph.schedule_reports()
+def test_schedule_reports_match_the_reference():
+    """``schedule_reports`` traces the ``step_time`` step's recorded graph
+    per (config, topology): under the same table (the reference's
+    committed one, and none) every row equals the reference's but for the
+    schema string — the step records the same graph and the optimizer
+    rewrites it the same way (no reference part is a bucket of one here,
+    so ROADMAP Queue 3's bucket-of-one rule does not bite)."""
+    ptable, jtable = _tables()
+    with tuning.use_table(ptable), jtuning.use_table(jtable):
+        got = stepgraph.schedule_reports()
+        want = jsg.schedule_reports()
+    assert [(r["config"], r["topology"]) for r in got] == \
+        [(r["config"], r["topology"]) for r in want]
+    for g, w in zip(got, want):
+        assert all(b["count"] > 1 for b in w["buckets"])
+        assert g == dict(w, schema=stepgraph.SCHEMA_VERSION)
+
+
+def test_committed_schedule_artifact_is_current_and_passes_the_checks():
+    """The committed ``artifacts/SCHEDULE_stepgraph_h100.json`` is what
+    ``python -m repro_torch.comm.stepgraph`` emits under the committed H100
+    table (under no table at all the rows are the reference's too), and
+    passes ``bench.gates`` and the reference's
+    ``scripts/check_schedule_report.py`` (its report checks, with the
+    schema string relabelled: the port's reports carry their own)."""
+    import importlib.util
+    doc = json.loads(stepgraph.ARTIFACT.read_text())
+    assert doc["schema"] == stepgraph.SCHEMA_VERSION
+    assert doc["tuning_table"] == "TUNING_h100.json"
+    with tuning.use_table(tuning.TuningTable.load(
+            stepgraph.ARTIFACT.parent / "TUNING_h100.json")):
+        assert stepgraph.schedule_reports() == doc["reports"]
+    with tuning.use_table(None), jtuning.use_table(None):
+        got, want = stepgraph.schedule_reports(configs=("starcoder2-7b",)), \
+            jsg.schedule_reports(configs=("starcoder2-7b",))
+    assert got == [dict(w, schema=stepgraph.SCHEMA_VERSION) for w in want]
+    assert gates.schedule_failures(doc) == []
+    spec = importlib.util.spec_from_file_location(
+        "check_schedule_report", ROOT / "scripts" / "check_schedule_report.py")
+    check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check)
+    for r in doc["reports"]:
+        assert check.check_report(dict(r, schema=check.SCHEMA),
+                                  f"{r['config']}@{r['topology']}") == []
+    assert any(r["allreduce"]["after_messages"]
+               < r["allreduce"]["before_messages"]
+               for r in doc["reports"] if r["pods"] > 1)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@
 that does not divide the data-parallel ranks is replicated, as the
 reference's is; the global ``fn`` (the reference's smap'd form) and the
 laid-out, donated ``step`` compute the same step; hier holds one copy of
-the state per node (a quarter of naive's on 2x4); and the launcher runs on
-the CPU.  The parity matrix against the reference is
+the state per node (a quarter of naive's on 2x4); the launcher runs on the
+CPU; and ``--ckpt`` / ``runtime.train_loop.train`` resume an interrupted
+run to the uninterrupted run's losses and state.  The parity matrix against the reference is
 ``tests/test_torch_train.py``.
 """
 
@@ -114,7 +115,56 @@ def test_train_launcher_runs_on_the_cpu():
     assert "state bytes: params" in out.stdout
 
 
-def test_train_launcher_refuses_checkpoints():
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train.main(["--reduced", "--device", "cpu", "--ckpt", "/tmp/x"])
+def _launch(*args):
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys; from repro_torch.launch.train "
+         "import main; sys.exit(main(sys.argv[1:]))", *args],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def test_train_launcher_resumes_from_checkpoints(tmp_path, capsys):
+    """``--ckpt``: a run stopped after 2 steps (saved at step 2) and rerun
+    to 4 resumes from step 2 and prints steps 3-4 with the losses of an
+    uninterrupted 4-step run, digit for digit (the launcher prints the
+    loss in full).  The resume runs in a CLI subprocess, the others
+    in-process."""
+    from repro_torch.launch import train as launcher
+    base = ["--reduced", "--device", "cpu", "--seq", "16", "--save-every",
+            "2"]
+    ck = str(tmp_path / "ck")
+    assert launcher.main(base + ["--steps", "4", "--ckpt",
+                                 str(tmp_path / "w")]) == 0
+    assert launcher.main(base + ["--steps", "2", "--ckpt", ck]) == 0
+    whole = capsys.readouterr().out.split("checkpoints in " + ck)[0]
+    resumed = _launch(*base, "--steps", "4", "--ckpt", ck)
+    assert "[train] resumed from step 2" in resumed
+
+    def losses(text):
+        return {ln.split()[2]: ln.split()[4] for ln in text.splitlines()
+                if ln.startswith("[train] step ")}
+    got, want = losses(resumed), losses(whole)
+    assert sorted(got) == ["3", "4"] and sorted(want) == ["1", "2", "3", "4"]
+    assert all(got[s] == want[s] for s in got)
+
+
+def test_train_loop_resumed_equals_uninterrupted(tmp_path):
+    """``runtime.train_loop.train`` stopped at step 3 (saved every 3) and
+    re-entered to 5: its losses and final laid-out state ``torch.equal``
+    the uninterrupted run's."""
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.runtime.train_loop import train
+    _, cfg = _cfgs()
+    bundle = make_cluster_train_step(
+        cfg, VirtualCluster(pods=2, chips=4, device="cpu"), global_batch=8)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
+    kw = dict(data_cfg=dcfg, save_every=3, log_every=0, seed=3)
+    whole = train(bundle, steps=5, ckpt_dir=str(tmp_path / "w"), **kw)
+    first = train(bundle, steps=3, ckpt_dir=str(tmp_path / "r"), **kw)
+    second = train(bundle, steps=5, ckpt_dir=str(tmp_path / "r"), **kw)
+    assert second.resumed_from == 3
+    assert first.losses + second.losses == whole.losses
+    for a, b in zip(T.leaves(second.state), T.leaves(whole.state)):
+        assert torch.equal(a, b)

@@ -27,6 +27,7 @@ from repro import configs as jconfigs
 from repro.runtime.steps import make_cluster_train_step as jmake
 from repro.substrate import VirtualCluster as JVC
 from repro_torch import configs
+from repro_torch.analysis.state_rule import state_close as _state_close
 from repro_torch.convert import (train_state_from_reference,
                                  train_state_to_reference)
 from repro_torch.core import tree as T
@@ -61,24 +62,6 @@ def _leaves_with_path(tree, path=()):
         return [x for k in sorted(tree)
                 for x in _leaves_with_path(tree[k], path + (k,))]
     return [(path, np.asarray(tree))]
-
-
-def _state_close(got, want, steps, what):
-    """``PERF.md`` §2's rule: m and v per leaf, the params but for the
-    elements where AdamW's update is ill-conditioned."""
-    for grp in ("m", "v"):
-        for (path, a), (_, b) in zip(_leaves_with_path(got[grp]),
-                                     _leaves_with_path(want[grp])):
-            np.testing.assert_allclose(
-                a, b, rtol=2e-4, atol=2e-5 * np.abs(b).max(),
-                err_msg=f"{what} {grp} {path}")
-    c2 = 1.0 - 0.95 ** steps
-    for (path, a), (_, b), (_, vb) in zip(
-            *(_leaves_with_path(t) for t in (got["params"], want["params"],
-                                             want["v"]))):
-        bad = np.abs(a - b) > 2e-5 + 2e-4 * np.abs(b)
-        assert (np.sqrt(vb[bad] / c2) < 1e-6).all(), \
-            f"{what} params {path}: {int(bad.sum())} elements out"
 
 
 @pytest.mark.parametrize("case", list(CASES))
