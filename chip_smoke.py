@@ -163,16 +163,41 @@ its recompute rule on finite operands whose dk overflows.
    launcher's ``--ckpt`` at 2 layers: 4 steps straight, then 2 steps and
    a resumed run to 4 whose steps 3-4 losses ``==`` the straight run's.
 
+14. serving on the stacked cluster (after phase 13): ``qwen3-0.6b`` at
+   full width and depth, f32, seeded weights, ``serve_fsdp`` (every serve
+   weight once per node in the window store), run once per memory domain
+   — (a) hier on 2x4: 8 prompts of 224-2016 tokens prefilled once per node
+   (the flash kernel; 2 x 28 x 8 launches), then 32 decode steps at
+   per-slot positions with ``model.decode_fn`` (sync) and with
+   ``RecordedDecoder``: every step's logits and the final cache
+   ``torch.equal``, one schedule with one gather per fsdp leaf, step p50 /
+   p99 and tokens/s, prefill ms, the stored weights (one copy per node)
+   and a recorded step's peak bytes against the node buffers; the serve
+   layout read back by ``materialize_params_on_mesh`` (exact, no bridge
+   bytes), and the single-device decode on those params giving the same
+   tokens (and ``greedy_generate``'s for prompt 0) with logits within 1e-4
+   relative; (b) the same on ``2x(2x2)`` (tp 2: head_tp prefill into the
+   T-sharded cache, split-K decode), its tokens equal (a)'s, logits within
+   1e-4 relative, one profiled step's tp collectives; (c) naive against
+   hier on 2x4 at s_max 1024: weight bytes per node C1 = 4.0 exactly and
+   two decode steps' logits agree; (d) 2 layers, card against CPU on 2x4
+   and ``2x(2x2)``: prefill and two decode steps within 1e-4 relative;
+   (e) ``python -m repro_torch.bench --families serving`` over
+   ``default_matrix()``: 10 cases, every link record (warm-up and each
+   timed rep) equal to its inventory, the load model's tokens/s and p50 /
+   p99 printed as traffic-check output; (f) ``materialize_params_on_mesh``
+   on 2x4, 4x2 and ``2x(2x2)``: the node buffer exact, no slow-link bytes.
+
 Phase 2 holds the flash forward and backward kernels at phase 12's shapes
 too: (8, 2048, 8 q / 4 kv, 128) and (2, 256, 36 q / 4 kv, 128) against
 2048 keys at q_offset 256 and 1792.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
 phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
-12 (a), and each of phase 13's runs) and read just after; the JSON's flash
-rows sum the main paths that launch them.  The recompute counters (the
-non-finite rule's, and the flash backward's) are zeroed before phase 3
-and must read 0 after phase 13.  The line
+12 (a), each of phase 13's runs and phase 14's prefills) and read just
+after; the JSON's flash rows sum the main paths that launch them.  The
+recompute counters (the non-finite rule's, and the flash backward's) are
+zeroed before phase 3 and must read 0 after phase 14.  The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -530,6 +555,402 @@ def decode_both(m_g, m_c, p_g, p_c, cache_g, cache_c, logits_g, pos: int,
     if not max(errs.values()) <= 1e-4:
         raise AssertionError(f"card vs CPU decode: {errs}")
     return errs
+
+
+# phase 14's prompts: 8 lengths 224 .. 2016 (256 k - 32), so 32 decode
+# steps end at position 2047 of an s_max of 2048; even, so tp 2 splits them
+SERVE_CLUSTER_LENGTHS = tuple(256 * k - 32 for k in range(1, 9))
+SERVE_CLUSTER_SMAX, SERVE_CLUSTER_STEPS = 2048, 32
+
+
+def serve_cluster_phase(dev, scratch: str) -> int:
+    """Phase 14: serving on the stacked cluster (``ClusterModel``), at
+    ``qwen3-0.6b``'s full width and depth.  Returns the flash-attention
+    launches of its runs (each zeroed just before and read just after)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.analysis import traffic
+    from repro_torch.analysis.profile import TP_RANGES, profile_run
+    from repro_torch.bench import __main__ as bench_cli
+    from repro_torch.comm import Communicator, SharedWindow
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import ParallelCtx, build
+    from repro_torch.runtime.steps import cluster_ctx
+    from repro_torch.models.domains import NodeCache
+    from repro_torch.serving.engine import (greedy_generate,
+                                            materialize_params_on_mesh)
+    from repro_torch.serving.recorded import RecordedDecoder
+    from repro_torch.substrate import VirtualCluster
+    from repro_torch.substrate.cluster import P
+    from repro_torch.substrate.collectives import recording
+
+    cfg = get_config("qwen3-0.6b")
+    lengths, S, steps = (SERVE_CLUSTER_LENGTHS, SERVE_CLUSTER_SMAX,
+                         SERVE_CLUSTER_STEPS)
+    nb = len(lengths)
+    single = build(cfg, ParallelCtx.single(), device=dev)
+    params = single.init_params(14)
+    w_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
+    rows = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=max(lengths),
+                                  global_batch=nb, seed=5)).next_batch()[
+        "tokens"]
+    prompts = [rows[i, :n].astype(np.int32) for i, n in enumerate(lengths)]
+    launches = 0
+
+    def model_on(vc, mode="hier", c=cfg):
+        ctx = cluster_ctx(vc, mode=mode, opts=("serve_fsdp",))
+        sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+        return build(c, ctx, data=math.prod(sizes[a] for a in
+                                            ctx.fsdp_axes), device=dev)
+
+    def specs(m, serve):
+        ctx = m.ctx
+        return m.param_specs(serve=serve, tp_axis=ctx.tp_axis,
+                             fsdp_axis=ctx.fsdp_axes[0] if ctx.fsdp_axes
+                             else None)
+
+    def clone(cache):
+        return NodeCache(T.tree_map(lambda t: t.clone(), dict(cache)),
+                         cache.domains)
+
+    def prefill_slots(m, vc, p, ps):
+        """Every prompt through the cluster prefill (one run per domain,
+        the flash kernel), into its slot of one NodeCache; the first
+        tokens and the prefill ms."""
+        cache = m.cache_init(nb, S)
+        first = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, pr in enumerate(ps):
+            toks = torch.from_numpy(np.concatenate([pr, pr[-1:]])[None])
+            c, lg = m.prefill_fn(p, {"tokens": vc.layout(toks, P())}, S)
+            cache.copy_row(c, 0, i)
+            first.append(lg[0, 0, 0])
+            del c
+        torch.cuda.synchronize()
+        return cache, torch.stack(first), (time.perf_counter() - t0) * 1e3
+
+    def decode_loop(decode, p, cache, vc, first, n):
+        """``n`` greedy decode steps of every slot at its own position;
+        every step's logits rows (cloned), the step times (ms)."""
+        tok, pos = first.argmax(-1), torch.tensor(lengths)
+        out, ms = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, lg = decode(p, cache, vc.layout(tok[:, None].int(), P()),
+                               vc.layout(pos, P()))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(lg[0, :, 0].clone())
+            tok, pos = out[-1].argmax(-1), pos + 1
+        return out, ms, cache
+
+    def report(label, ms):
+        tail = ms[1:]
+        print(f"[serve-cluster] {label}: decode step p50 "
+              f"{1e3 * pct(tail, 0.5):.0f} us p99 {1e3 * pct(tail, 0.99):.0f}"
+              f" us (steps 2-{len(ms)}; step 1 {ms[0]:.1f} ms), "
+              f"{nb * len(tail) / sum(tail) * 1e3:.1f} tokens/s")
+
+    def serve_on(label):
+        """(a) / (b): prefill, then the sync and the recorded decode from
+        the same cache, on one cluster; returns what (a) and (b) compare."""
+        nonlocal launches
+        vc = VirtualCluster.from_label(label, device=dev)
+        m = model_on(vc)
+        with vc.bind():
+            train = vc.layout(params, specs(m, False))
+            kflash.launches = 0
+            cache, first, pre_ms = prefill_slots(m, vc, train, prompts)
+            fl = kflash.launches
+            del train
+            want_fl = vc.pods * cfg.n_layers * nb
+            print(f"[serve-cluster] {label} hier: prefill of {nb} prompts "
+                  f"({lengths[0]}-{lengths[-1]} tokens, one run per node) "
+                  f"{pre_ms:.1f} ms; flash_attention launches {fl} "
+                  f"({vc.pods} nodes x {cfg.n_layers} layers x {nb})")
+            if fl != want_fl:
+                raise AssertionError(f"prefill launches {fl} != {want_fl}")
+            launches += fl
+            base = traffic.device_bytes(dev)
+            serve = vc.layout(params, specs(m, True))
+            stored = traffic.device_bytes(dev) - base
+            # one copy per node; at tp > 1 the serve layout replicates the
+            # attention weights over the tp ranks (every head on each)
+            tp = m.ctx.tp if m.ctx.tp_axis else 1
+            want_stored = vc.pods * sum(
+                t.numel() * t.element_size() * (tp if mt.tp_dim is None
+                                                else 1)
+                for t, mt in zip(T.leaves(params), T.leaves(m.serve_defs)))
+            sync, s_ms, c_sync = decode_loop(m.decode_fn, serve,
+                                             clone(cache), vc, first, steps)
+            report(f"{label} sync", s_ms)
+            dec = RecordedDecoder(m)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            rec, r_ms, c_rec = decode_loop(dec, serve, cache, vc, first,
+                                           steps)
+            peak = torch.cuda.max_memory_allocated(dev) - held
+            report(f"{label} recorded", r_ms)
+            same = all(torch.equal(a, b) for a, b in zip(sync, rec)) and \
+                all(torch.equal(a, b) for a, b in zip(
+                    T.leaves(dict(c_sync)), T.leaves(dict(c_rec))))
+            (sched,) = dec.schedules.values()
+            n_g = sum(n.family == "gather" for n in sched.graph.nodes)
+            n_fsdp = sum(mt.fsdp_dim is not None
+                         for mt in T.leaves(m.serve_defs))
+            print(f"[serve-cluster] {label}: recorded == sync (every "
+                  f"step's logits and the final cache, torch.equal) {same};"
+                  f" schedule built once, replayed {steps - 1} times, "
+                  f"gathers {n_g} (fsdp leaves {n_fsdp})")
+            print(f"[serve-cluster] {label}: stored weights "
+                  f"{stored / 1e9:.3f} GB ({stored / w_bytes:.2f} x "
+                  f"{w_bytes / 1e9:.3f} GB: one copy per node"
+                  f"{', attention per tp rank' if tp > 1 else ''}); a "
+                  f"recorded step's peak above the held state "
+                  f"{peak / 1e9:.3f} GB (the node buffers: "
+                  f"{want_stored / 1e9:.3f} GB; a copy per rank would be "
+                  f"{vc.num_devices * w_bytes / 1e9:.3f} GB)")
+            if not same or n_g != n_fsdp or len(dec.schedules) != 1:
+                raise AssertionError(f"{label}: recorded differs from sync "
+                                     f"or gathers {n_g} != {n_fsdp}")
+            if stored != want_stored or peak > want_stored + 2 ** 30:
+                raise AssertionError(f"{label}: stored {stored}, recorded "
+                                     f"step peak {peak}")
+            tp_ms = None
+            if m.ctx.tp_axis:
+                c_p = clone(c_rec)
+                tok = vc.layout(rec[-1].argmax(-1)[:, None].int(), P())
+                pos = vc.layout(torch.tensor(lengths) + steps - 1, P())
+                r = profile_run(lambda: m.decode_fn(serve, c_p, tok, pos),
+                                ranges=TP_RANGES)
+                tp_ms = sum(r["ranges"].values())
+                print(f"[serve-cluster] {label}: one sync decode step "
+                      f"profiled: wall {r['wall_ms']:.1f} ms, device busy "
+                      f"{r['busy_ms']:.1f} ms ({100 * r['busy_share']:.1f}"
+                      f"%); tp collectives {tp_ms:.3f} ms "
+                      f"({ {k: round(v, 3) for k, v in r['ranges'].items()} })")
+                del c_p
+            del serve, cache, c_sync, c_rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        return sync, first
+
+    t_a = time.perf_counter()
+    logits_a, first_a = serve_on("2x4")
+    tokens_a = torch.stack([r.argmax(-1) for r in logits_a])
+
+    # (a) against the single-device decode on materialize_params_on_mesh's
+    # params (the serve layout's windows read back on the cluster)
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    m = model_on(vc)
+    comm = Communicator.from_cluster(vc)
+    with vc.bind():
+        lay = vc.layout(params, specs(m, True))
+    flat, metas = T.leaves(lay), T.leaves(m.serve_defs)
+    units = [k_ == "units" for k_ in sorted(lay) for _ in T.leaves(lay[k_])]
+    win_leaves = []
+    for t, mt, u in zip(flat, metas, units):
+        ax = mt.fsdp_dim + int(u)     # the rank-major stack along the axis
+        glob = t.movedim(0, ax).flatten(ax, ax + 1)
+        win_leaves.append(SharedWindow(comm, glob, axis=ax, epoch=1))
+    del lay, flat
+    with recording() as rec_m:
+        mat = materialize_params_on_mesh(T.unflatten(params, win_leaves),
+                                         vc)
+    del win_leaves
+    exact = all(torch.equal(a, b) for a, b in zip(T.leaves(mat),
+                                                  T.leaves(params)))
+    fast, slow = traffic.link_bytes(rec_m)
+    print(f"[serve-cluster] materialize_params_on_mesh of the 2x4 serve "
+          f"layout: node buffers == the params {exact}; link bytes per "
+          f"chip fast {fast:.0f} slow {slow:.0f}")
+    if not exact or slow != 0:
+        raise AssertionError("materialize_params_on_mesh is not exact or "
+                             "crossed the bridge")
+    cache1 = single.cache_init(nb, S)
+    first1 = []
+    for i, pr in enumerate(prompts):
+        toks = torch.from_numpy(np.concatenate([pr, pr[-1:]])[None]).to(dev)
+        c, lg = single.prefill_fn(mat, {"tokens": toks}, S)
+        for a, b in zip(T.leaves(cache1), T.leaves(c)):
+            a.select(1, i).copy_(b.select(1, 0))
+        first1.append(lg[0, 0])
+        del c
+    first1 = torch.stack(first1)
+    tok, pos, worst = first1.argmax(-1), torch.tensor(lengths, device=dev), \
+        rel_err(first_a, first1)
+    toks1 = []
+    for i in range(steps):
+        cache1, lg = single.decode_fn(mat, cache1, tok[:, None].int(), pos)
+        row = lg[:, 0]
+        worst = max(worst, rel_err(logits_a[i], row))
+        toks1.append(row.argmax(-1))
+        tok, pos = toks1[-1], pos + 1
+    same_tok = torch.equal(torch.stack(toks1).cpu(), tokens_a.cpu())
+    gen = greedy_generate(single, mat, prompts[0][None], max_new=steps,
+                          s_max=S)
+    gen_ok = np.array_equal(gen.tokens[0][1:],
+                            tokens_a[:-1, 0].cpu().numpy())
+    print(f"[serve-cluster] 2x4 vs the single-device decode on those "
+          f"params: tokens equal {same_tok} (greedy_generate of prompt 0: "
+          f"{gen_ok}); logits rel_err <= {worst:.3g} (prefill and "
+          f"{steps} steps)")
+    if not (same_tok and gen_ok) or worst > 1e-4:
+        raise AssertionError("the cluster decode differs from the "
+                             "single-device one")
+    del mat, cache1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the factored cluster: tp 2, head_tp prefill, split-K decode
+    logits_b, _ = serve_on("2x(2x2)")
+    tokens_b = torch.stack([r.argmax(-1) for r in logits_b])
+    worst_b = max(rel_err(a, b) for a, b in zip(logits_b, logits_a))
+    print(f"[serve-cluster] 2x(2x2) vs 2x4: tokens equal "
+          f"{torch.equal(tokens_a, tokens_b)}, logits rel_err <= "
+          f"{worst_b:.3g}")
+    if not torch.equal(tokens_a, tokens_b) or worst_b > 1e-4:
+        raise AssertionError("tp 2 serving differs from tp 1")
+    print(f"[phase] serve cluster (a)-(b) {time.perf_counter() - t_a:.1f} s")
+
+    # (c) naive against hier on 2x4 at s_max 1024: weight C1 and decode
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    pos = torch.arange(nb)
+    tok = torch.from_numpy(rows[:, :1].astype(np.int32))
+    got, held = {}, {}
+    for mode in ("hier", "naive"):
+        m = model_on(vc, mode)
+        with vc.bind():
+            base = traffic.device_bytes(dev)
+            lay = vc.layout(params, specs(m, True))
+            held[mode] = (traffic.device_bytes(dev) - base) / vc.pods
+            cache = m.cache_init(nb, 1024)
+            outs = []
+            for i in range(2):
+                cache, lg = m.decode_fn(lay, cache, vc.layout(tok, P()),
+                                        vc.layout(pos + i, P()))
+                outs.append(lg[0].clone())
+                tok = lg[0, :, 0].argmax(-1)[:, None].int().cpu()
+            got[mode] = (outs, cache.domains.count)
+            tok = torch.from_numpy(rows[:, :1].astype(np.int32))
+            del lay, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    c1 = held["naive"] / held["hier"]
+    worst_c = max(rel_err(a, b) for a, b in zip(got["naive"][0],
+                                                got["hier"][0]))
+    print(f"[serve-cluster] naive vs hier on 2x4, s_max 1024: weight bytes "
+          f"per node {held['naive'] / 1e9:.3f} / {held['hier'] / 1e9:.3f} "
+          f"GB, C1 naive/hier {c1} (chips {vc.chips}); caches "
+          f"{got['naive'][1]} / {got['hier'][1]} (one per rank / per "
+          f"node); 2 decode steps' logits rel_err {worst_c:.3g}")
+    if c1 != vc.chips or worst_c > 1e-4:
+        raise AssertionError(f"serving C1 {c1} != {vc.chips} or naive "
+                             f"differs from hier")
+
+    # (d) card against CPU at 2 layers, hier on 2x4 and 2x(2x2): a check
+    # run, so its flash launches stay out of the main path's count
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = {k_: v for k_, v in params.items() if k_ != "units"}
+    p2["units"] = T.tree_map(lambda t: t[:2], params["units"])
+    toks2 = torch.from_numpy(rows[1:3, :257].astype(np.int32))
+    for label in ("2x4", "2x(2x2)"):
+        res = []                        # the card's logits, then the CPU's
+        for d_ in (dev, torch.device("cpu")):
+            vc = VirtualCluster.from_label(label, device=d_)
+            ctx = cluster_ctx(vc, opts=("serve_fsdp",))
+            sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+            m = build(cfg2, ctx, data=sizes[ctx.fsdp_axes[0]], device=d_)
+            pp = T.tree_map(lambda t: t.to(d_), p2)
+            kflash.launches = 0
+            with vc.bind():
+                cache, lg = m.prefill_fn(vc.layout(pp, specs(m, False)),
+                                         {"tokens": vc.layout(toks2, P())},
+                                         512)
+                sp = vc.layout(pp, specs(m, True))
+                outs, pos = [lg[0].cpu()], torch.tensor([256, 256])
+                for _ in range(2):
+                    tok = outs[-1][:, 0].argmax(-1)[:, None].int()
+                    cache, lg = m.decode_fn(sp, cache, vc.layout(tok, P()),
+                                            vc.layout(pos, P()))
+                    outs.append(lg[0].cpu())
+                    pos = pos + 1
+            if d_.type == "cuda":
+                card_fl = kflash.launches
+            res.append(outs)
+            del cache, sp, pp
+        errs = [rel_err(a, b) for a, b in zip(*res)]
+        print(f"[serve-cluster] card vs CPU, {label} hier, 2 layers: "
+              f"prefill 2 x 256 and 2 decode steps, logits rel_err "
+              f"{[f'{e:.3g}' for e in errs]}; the card run's "
+              f"flash_attention launches {card_fl} (not in the kernels "
+              f"line)")
+        if max(errs) > 1e-4:
+            raise AssertionError(f"{label}: card differs from the CPU")
+        if card_fl != vc.pods * cfg2.n_layers:
+            raise AssertionError(f"{label}: card prefill launches {card_fl}"
+                                 f" != {vc.pods * cfg2.n_layers}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the serving bench family over default_matrix(): a traffic check
+    out = os.path.join(scratch, "serving.json")
+    if bench_cli.main(["--families", "serving", "--reps", "5",
+                       "--out", out]) != 0:
+        raise AssertionError("the serving bench failed")
+    with open(out) as f:
+        rep = json.load(f)
+    if len(rep["cases"]) != 10:
+        raise AssertionError(f"{len(rep['cases'])} serving cases, not 10")
+    for c_ in rep["cases"]:
+        names = {ch["name"] for ch in c_["checks"]}
+        if not {"link/fast", "link/slow", "link/fast/timed",
+                "link/slow/timed"} <= names or not c_["ok"] or \
+                c_["timing"]["mode"] != "eager":
+            raise AssertionError(f"serving case {c_['name']}")
+        sv = c_["serving"]
+        print(f"[serve-cluster] serving {c_['topology']} {c_['scheme']}: "
+              f"link bytes per chip fast "
+              f"{c_['record']['fast_link_bytes_per_chip']:.0f} slow "
+              f"{c_['record']['slow_link_bytes_per_chip']:.0f} == the "
+              f"inventory (warm-up and {c_['timing']['reps']} timed reps); "
+              f"traffic-check output, not results: median "
+              f"{c_['timing']['median_us']:.1f} us, load model "
+              f"{sv['tokens_per_s']:.1f} tokens/s, p50 / p99 "
+              f"{sv['p50_token_ms']:.3f} / {sv['p99_token_ms']:.3f} ms")
+
+    # (f) materialize_params_on_mesh on 2x4, 4x2 and 2x(2x2) on the card
+    for label in ("2x4", "4x2", "2x(2x2)"):
+        vc = VirtualCluster.from_label(label, device=dev)
+        comm = Communicator.from_cluster(vc)
+        emb = params["embed"]
+        w = torch.cat([emb] * vc.pods)          # pod-replicated windows
+        buf = torch.arange(24.0, device=dev).reshape(8, 3)
+        with recording() as rec_f:
+            got_f = materialize_params_on_mesh(
+                {"embed": SharedWindow(comm, w, axis=0, epoch=1),
+                 "toy": SharedWindow(comm, torch.cat([buf] * vc.pods),
+                                     axis=0, epoch=1)}, vc)
+        fast, slow = traffic.link_bytes(rec_f)
+        ok = torch.equal(got_f["embed"], emb) and \
+            torch.equal(got_f["toy"], buf)
+        print(f"[serve-cluster] materialize_params_on_mesh {label}: node "
+              f"buffers exact {ok} (embed {tuple(emb.shape)}, a toy "
+              f"(8, 3)); link bytes per chip fast {fast:.0f} slow {slow:.0f}")
+        if not ok or slow != 0:
+            raise AssertionError(f"materialize_params_on_mesh {label}")
+        del w, got_f
+    del params, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def collectives_bench(dev, g, *, sweep_elems, elems: int, big: int,
@@ -2286,13 +2707,25 @@ def main() -> int:
     launches["flash_attention"] += rt_launches["flash_attention"]
     launches["flash_attention_bwd"] += rt_launches["flash_attention_bwd"]
 
+    # -- 14. serving on the stacked cluster ------------------------------------
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        sc_launches = serve_cluster_phase(dev, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    print(f"[serve-cluster] flash_attention launches in phase 14: "
+          f"{sc_launches}")
+    launches["flash_attention"] += sc_launches
+    print(f"[phase] serve cluster {time.perf_counter() - t_phase:.1f} s")
+
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
-    print(f"[nonfinite] tiles recomputed over phases 3-13: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-14: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")

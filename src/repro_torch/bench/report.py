@@ -10,8 +10,9 @@ Structure (``repro_torch.bench/v1``):
   topology, pods, chips, elems, dtype), ``timing`` (median / mean / min /
   max / iqr / p50 / p99 us, reps, inner, ``mode``: ``graph`` for CUDA-graph
   replays or ``eager``, ``clock``), ``traffic`` (the plans model),
-  ``record`` (the substrate's link bytes and the measured resident bytes)
-  and the per-case ``checks``;
+  ``record`` (the substrate's link bytes and the measured resident bytes),
+  the per-case ``checks`` and, in a ``serving`` case only, ``serving``
+  (the load model's tokens/s and per-token p50 / p99 at the median);
 * ``cross_checks[]`` — the C1 resident-memory invariants across schemes;
 * ``validation`` — the verdict (``ok: true`` in a written file: a mismatch
   raises before the report is written).
@@ -37,7 +38,7 @@ from repro_torch.bench.suites import CaseResult, SuiteResult
 
 def case_record(r: CaseResult) -> dict:
     c = r.case
-    return {
+    rec = {
         "name": c.name,
         "csv_name": c.csv_name,
         "family": c.family,
@@ -57,6 +58,12 @@ def case_record(r: CaseResult) -> dict:
         "autotune": r.autotune,
         "ok": all(ch.ok for ch in r.checks),
     }
+    if c.family == "serving":
+        # the open-loop Poisson load model priced by the measured step
+        # median: tokens/s and p50 / p99 per-token latency per topology
+        from repro_torch.bench.serving import serving_metrics
+        rec["serving"] = serving_metrics(r.timing.median_us)
+    return rec
 
 
 def copies_per_node(r: CaseResult) -> int:

@@ -6,7 +6,7 @@ Every case is one (family, scheme, topology, message size, dtype) cell:
   ``allgatherv`` (irregularly populated nodes, paper Figs 4/10) and
   ``alltoall``; ``step_time`` is the whole-train-step family
   (``bench.step_time``, self-sized per cluster, timed eagerly);
-  ``serving``, the decode-step family, is not ported yet;
+  ``serving`` the decode-step family (``bench.serving``, the same);
 * schemes  — whatever the ``repro_torch.comm`` registry declares for the
   family, dispatched through a ``Communicator``; a scheme whose tunable grid
   is empty for a cell (its tiling divisor does not divide ``elems`` on that
@@ -294,9 +294,10 @@ def step_time_cases(vc, elems=None, on_skip=None, schemes=None):
 
 
 def serving_cases(vc, elems=None, on_skip=None, schemes=None):
-    raise NotImplementedError(
-        "the serving bench family (bench/serving.py) is not ported yet: "
-        "ROADMAP Queue 1 item 15")
+    """Bridge to ``bench.serving``: continuous-batching decode-step cases,
+    self-sized per cluster (``elems`` unused)."""
+    from repro_torch.bench import serving as sv
+    return sv.serving_cases(vc, on_skip=on_skip, schemes=schemes)
 
 
 _FAMILY_BUILDERS = {
@@ -336,6 +337,9 @@ def build_cases(*, clusters: Optional[Sequence[VirtualCluster]] = None,
     if "step_time" in families:
         from repro_torch.bench import step_time  # noqa: F401  registers
         # its schemes before the scheme-name validation below
+    if "serving" in families:
+        from repro_torch.bench import serving  # noqa: F401  registers
+        # sync / recorded before the scheme-name validation below
     if schemes is not None:
         if "auto" in schemes:
             raise ValueError(

@@ -80,6 +80,7 @@ class CollectiveNode:
     result: Optional[str] = None    # result-class constraint for dispatch
     bucketable: bool = False
     epoch: int = 0                  # gather only: the window's issue epoch
+    node: bool = False              # gather only: read as node buffers
 
 
 class CollectiveGraph:
@@ -91,7 +92,8 @@ class CollectiveGraph:
     def add(self, *, family: str, key: Hashable, axes: Sequence[str],
             dtype: str, shape: Sequence[int], elem_bytes: int,
             scheme: str = "naive", result: Optional[str] = None,
-            bucketable: bool = False, epoch: int = 0) -> int:
+            bucketable: bool = False, epoch: int = 0,
+            node: bool = False) -> int:
         nid = len(self._nodes)
         elems = int(math.prod(shape)) if shape else 1
         self._nodes.append(CollectiveNode(
@@ -99,7 +101,7 @@ class CollectiveGraph:
             dtype=str(dtype), shape=tuple(int(d) for d in shape),
             elems=elems, nbytes=elems * elem_bytes, pos=nid,
             scheme=scheme, result=result, bucketable=bucketable,
-            epoch=epoch))
+            epoch=epoch, node=node))
         return nid
 
     @property
@@ -404,7 +406,8 @@ def apply_schedule(comm, schedule: Schedule, values: dict) -> dict:
                 issued.append(("single", idx, red))
             else:                         # gather (already deduped)
                 handle = AsyncCollectiveHandle.issue(
-                    "allgather", values[idx], stream=side, event=False)
+                    "allgather", values[idx], stream=side, event=False,
+                    node=nodes[idx].node)
                 issued.append(("gather", idx, handle))
         event = side.record_event() if side is not None else None
 
@@ -508,19 +511,24 @@ class GraphRecorder:
         self._values[nid] = x
         return Deferred(nid)
 
-    def gather(self, window, *, key: Hashable) -> Deferred:
+    def gather(self, window, *, key: Hashable, node: bool = False
+               ) -> Deferred:
         """Record a gather (read) of a ``SharedWindow``.  ``key`` is the
         window's stable identity: repeated gathers of the same key in the
         same epoch dedup to one issue; a fence bumps the epoch and keeps
-        both."""
+        both.  ``node=True`` resolves to the node buffers
+        (``SharedWindow.read_node``: one per window behind its ``lead``
+        dims) instead of every rank's copy.  The node records one rank's
+        shard shape."""
         from repro_torch.comm import primitives as p
         from repro_torch.comm.tuning import dtype_name
         shard = window.shard
         nid = self.graph.add(
             family="gather", key=key,
             axes=tuple(p._axes(window.comm.fast_axis)),
-            dtype=dtype_name(shard.dtype), shape=tuple(shard.shape[1:]),
-            elem_bytes=shard.element_size(), epoch=window.epoch)
+            dtype=dtype_name(shard.dtype),
+            shape=tuple(shard.shape[window.lead + 1:]),
+            elem_bytes=shard.element_size(), epoch=window.epoch, node=node)
         self._values[nid] = window
         return Deferred(nid)
 

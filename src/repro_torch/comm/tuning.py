@@ -55,17 +55,20 @@ MEASURED_ON = ("every rank of a topology stacked on one card: the winners "
 
 #: Per-family defaults when nothing can be measured or modeled (no static
 #: pods/chips counts): ``shared`` for the window families, ``hier`` for
-#: alltoall; ``naive`` under a ``replicated`` constraint.
+#: alltoall, ``prefetch`` / ``sync`` for the ``step_time`` / ``serving``
+#: bench families; ``naive`` under a ``replicated`` constraint.
 FALLBACK = {
     None: {"allgather": "shared", "broadcast": "shared", "psum": "shared",
            "reduce_scatter": "shared", "allgatherv": "shared",
-           "alltoall": "hier"},
+           "alltoall": "hier", "step_time": "prefetch",
+           "serving": "sync"},
     "shared": {"allgather": "shared", "broadcast": "shared",
                "psum": "shared", "reduce_scatter": "shared",
                "allgatherv": "shared"},
     "replicated": {"allgather": "naive", "broadcast": "naive",
                    "psum": "naive", "reduce_scatter": "naive",
-                   "allgatherv": "naive", "alltoall": "hier"},
+                   "allgatherv": "naive", "alltoall": "hier",
+                   "step_time": "prefetch", "serving": "sync"},
 }
 
 

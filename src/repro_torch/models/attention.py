@@ -28,8 +28,14 @@ two modes, chosen per arch by head divisibility:
   each rank's gathered K / V takes its own cotangent, which the gather's
   transpose (the reduce-scatter) sums as the reference's does.
 
-Split-K decode over a T-sharded cache (serving at tp > 1) waits for ROADMAP
-Queue 1 items 15 and 17.
+Serving at tp > 1 splits the decode cache along T: prefill hands each tp
+rank the full-T, all-heads K / V of a layer (``attn_block(return_kv=True)``:
+in ``head_tp`` the tp-sharded kv heads are gathered first), the model cuts
+its rank's S/tp chunk of the cache from it, and decode (every head on every
+tp rank) attends over the local chunk and merges the partial softmaxes
+across tp: ``pmax_tp`` of the row max, ``psum_tp`` of the sums and of p·v
+(split-K); ``cache_write`` stores the new token only on the tp rank that
+owns its slot.
 """
 
 from __future__ import annotations
@@ -41,7 +47,6 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm, rope
-from repro_torch.models.meta import TP_SERVE, not_ported
 from repro_torch.models.parallel import ParallelCtx
 
 NEG = -1e30
@@ -141,11 +146,9 @@ def attn_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
                cfg, *, mode: str, window: Optional[int], t_offset: int = 0,
                return_kv: bool = False):
     """x_sp: (B, T/tp, d) per rank (stacked with a tp axis).  Returns the
-    new x (and this layer's (k, v) when ``return_kv`` — used by prefill to
-    build the cache, at tp = 1)."""
-    if return_kv and ctx.tp_axis:
-        raise not_ported("prefill into a T-sharded cache at tp > 1",
-                         TP_SERVE)
+    new x (and, with ``return_kv``, this layer's (k, v) for the prefill
+    cache: (B, T, kv, hd), every kv head over the full T on every tp
+    rank)."""
     H, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     eps = cfg.norm_eps
     T_loc = x_sp.shape[-2]
@@ -193,6 +196,8 @@ def attn_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
     else:
         out = x_sp + ctx.mm(o, wo)
     if return_kv:
+        if mode == "head_tp" and kv_loc != kv:     # tp-sharded kv heads
+            k, v = ctx.gather_tp(k, 2), ctx.gather_tp(v, 2)
         return out, (k, v)
     return out
 
@@ -205,16 +210,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, ctx: ParallelCtx, *, pos, H: int,
                      window: Optional[int] = None,
                      ring: bool = False) -> torch.Tensor:
-    """q: (B, 1, H, hd); k/v_cache: (B, S, kv, hd).  ``pos``: current
-    position — a scalar shared by the batch, or a (B,) vector of per-slot
-    positions (continuous batching over heterogeneous sequence lengths).
-    ``ring``: the cache is a ring buffer of size ``window`` (global kv index
-    = pos - window + 1 .. pos, stored mod window).  GQA groups the q heads
-    of each kv head (no repeat of the cache)."""
-    B, _, nH, hd = q.shape
-    S, kv = k_cache.shape[1], k_cache.shape[2]
+    """q: (..., B, 1, H, hd) (every head on every tp rank); k/v_cache:
+    (..., B, S/tp, kv, hd), each rank's chunk of the T-sharded cache (the
+    leading dims are the stacked tp ranks; none without a tp axis).
+    ``pos``: current global position — a scalar shared by the batch, or a
+    (B,) vector of per-slot positions (continuous batching over
+    heterogeneous sequence lengths).  ``ring``: the cache is a ring buffer
+    of size ``window`` (global kv index = pos - window + 1 .. pos, stored
+    mod window).  GQA groups the q heads of each kv head (no repeat of the
+    cache).  Split-K: each rank scores its chunk, the row max is
+    ``pmax_tp``'d and the exponent sums and p·v are ``psum_tp``'d (no-ops
+    without a tp axis)."""
+    *lead, B, _, nH, hd = q.shape
+    S_loc, kv = k_cache.shape[-3], k_cache.shape[-2]
     scale = 1.0 / math.sqrt(hd)
-    slot = torch.arange(S, device=q.device)
+    base = torch.as_tensor(ctx.tp_rank, device=q.device) * S_loc
+    slot = base.reshape(*lead, 1, 1) \
+        + torch.arange(S_loc, device=q.device)             # (..., 1, S_loc)
     pos = torch.as_tensor(pos, device=q.device)
     if pos.dim() == 1:                   # per-slot positions: (B, 1)
         pos = pos[:, None]
@@ -224,33 +236,44 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         gidx = pos - ((pos - slot) % W)
         valid = (gidx >= 0) & (gidx <= pos) & (pos - gidx < W)
     else:
-        gidx = slot
-        valid = gidx <= pos
+        valid = slot <= pos
         if window is not None:
-            valid &= (pos - gidx) < window
+            valid &= (pos - slot) < window                 # (..., B|1, S_loc)
 
-    qg = q.float().reshape(B, kv, nH // kv, hd) * scale     # h = kv*G + g
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
-    mask = valid if valid.dim() == 2 else valid[None]       # (B | 1, S)
-    s = torch.where(mask[:, None, None, :], s,
+    qg = q.float().reshape(*lead, B, kv, nH // kv, hd) * scale  # h = kv*G+g
+    s = torch.einsum("...bkgd,...bskd->...bkgs", qg, k_cache.float())
+    s = torch.where(valid[..., None, None, :], s,
                     torch.full((), NEG, device=q.device))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    out = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(B, 1, nH, hd).to(q.dtype)
+    m = ctx.pmax_tp(s.amax(dim=-1))
+    p = torch.exp(s - m[..., None])
+    l_ = ctx.psum_tp(p.sum(dim=-1))
+    o = ctx.psum_tp(torch.einsum("...bkgs,...bskd->...bkgd", p,
+                                 v_cache.float()))
+    out = o / l_[..., None].clamp_min(1e-30)
+    return out.reshape(*lead, B, 1, nH, hd).to(q.dtype)
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor, ctx: ParallelCtx, *,
                 pos, window: Optional[int] = None) -> torch.Tensor:
-    """Write (B, 1, kv, hd) into the (B, S, kv, hd) cache at position
-    ``pos`` — a shared scalar or a (B,) vector of per-slot positions (ring
-    buffer when ``window``; as in the reference at tp = 1, a position past
-    the cache lands at ``pos mod S``).  Unlike the reference, which returns
-    a new array, the write is in place (one row per slot instead of a copy
-    of the cache); the cache is returned."""
-    B, S = cache.shape[:2]
+    """Write ``new`` (..., B, 1, kv, hd) into the T-sharded (..., B, S/tp,
+    kv, hd) cache at global position ``pos`` — a shared scalar or a (B,)
+    vector of per-slot positions (ring buffer when ``window``).  Every tp
+    rank computes the same ``new``; only the rank that owns the slot
+    (``pos // (S/tp)``) stores it.  As in the reference, a position past
+    the cache lands at ``pos mod S`` at tp = 1 and is stored nowhere at
+    tp > 1.  Unlike the reference, which returns a new array, the write is
+    in place (one row per slot instead of a copy of the cache); the cache
+    is returned."""
+    B, S_loc = cache.shape[-4], cache.shape[-3]
     pos = torch.as_tensor(pos, device=cache.device).expand(B)
     gpos = pos % window if window is not None else pos
+    owner = gpos // S_loc
+    local = gpos - owner * S_loc
     rows = torch.arange(B, device=cache.device)
-    cache[rows, gpos % S] = new[:, 0].to(cache.dtype)
+    new = new[..., 0, :, :].to(cache.dtype)                 # (..., B, kv, hd)
+    if ctx.tp_axis:
+        hit = ctx.tp_rank[:, None] == owner                 # (R, B)
+        new = torch.where(hit[..., None, None], new,
+                          cache[..., rows, local, :, :])
+    cache[..., rows, local, :, :] = new
     return cache

@@ -185,11 +185,13 @@ def unembed_xent(x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
 
 def decode_logits(x: torch.Tensor, unemb: torch.Tensor, ctx: ParallelCtx, *,
                   softcap: Optional[float] = None) -> torch.Tensor:
-    """x: (B, 1, d) -> full-vocab f32 logits (B, 1, V)."""
-    logits = x.float() @ unemb.float()
+    """x: (B, 1, d) -> full-vocab f32 logits (B, 1, V); with a tp axis the
+    vocab shards' logits are all-gathered, so every tp rank holds the full
+    row."""
+    logits = ctx.mm(x.float(), unemb.float())
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    return logits
+    return ctx.gather_tp(logits, logits.dim() - 2)
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +221,8 @@ def ffn(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx, *,
 
 def ffn_decode(x: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx, *,
                act: str, eps: float) -> torch.Tensor:
-    """Decode-shape FFN: one token per sequence."""
+    """Decode-shape FFN: one token per sequence, no token gather (the
+    token is replicated over tp); column / row parallel with one
+    ``psum_tp``."""
     return x + ctx.psum_tp(_ffn_body(x, p, meta, ctx, act=act, eps=eps,
                                      gather=False))

@@ -16,9 +16,12 @@ RG-LRU shard their hidden width, the embed and unembed their vocab);
 store ranks — the node's shared window — picked by ``_resolve_fsdp``;
 ``param_specs`` gives the port's ``P`` tree the cluster step lays the state
 out with, and ``abstract_params`` the shapes on the ``meta`` device (no
-memory).  Serve-time defs at tp > 1 (with split-K and 2-D decode) wait for
-ROADMAP Queue 1 items 15 and 17; the ``mlstm`` / ``slstm`` blocks and the
-MoE channel mix for item 16.
+memory).  Serve-time defs (``serve=True``) replicate the attention weights
+over tp (decode computes every head on every tp rank and splits the cache
+along T instead); the ``serve_fsdp`` opt keeps every serve weight in the
+node store.  The 2-D decode layout (``decode2d``) waits for ROADMAP Queue 1
+item 17; the ``mlstm`` / ``slstm`` blocks and the MoE channel mix for item
+16.
 """
 
 from __future__ import annotations
@@ -44,15 +47,10 @@ class PMeta:
     dtype: torch.dtype = torch.float32
 
 
-def not_ported(what: str, item) -> NotImplementedError:
-    """``item``: a Queue 1 item number, or a phrase such as "items 15 and
-    17"."""
-    where = f"item {item}" if isinstance(item, int) else item
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """``item``: the ROADMAP Queue 1 item that ports ``what``."""
     return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                               f"{where}")
-
-
-TP_SERVE = "items 15 and 17"
+                               f"item {item}")
 
 
 def _resolve_fsdp(meta: PMeta, data: int, mode: str, serve: bool,
@@ -80,18 +78,29 @@ def attn_mode_for(cfg: ModelConfig, tp: int) -> str:
     return "head_tp" if cfg.n_heads % tp == 0 else "cp"
 
 
+def decode2d_groups(cfg: ModelConfig, tp: int):
+    """(g_h, g_s) factorization of the tp axis for 2-D decode attention:
+    g_h head groups (dividing H and kv) x g_s seq groups; None where the
+    arch cannot use it (g_h would be 1)."""
+    g_h = math.gcd(math.gcd(cfg.n_heads, cfg.n_kv), tp)
+    if g_h <= 1 or tp % g_h:
+        return None
+    return g_h, tp // g_h
+
+
 # ---------------------------------------------------------------------------
 # Per-block param/meta definitions
 # ---------------------------------------------------------------------------
 
 def attn_defs(cfg: ModelConfig, tp: int, serve: bool,
               opts=frozenset()) -> dict[str, PMeta]:
-    if serve and tp != 1:
-        raise not_ported("serve-time attention weights at tp > 1 (split-K "
-                         "and 2-D decode)", TP_SERVE)
+    if serve and "decode2d" in opts and decode2d_groups(cfg, tp):
+        raise not_ported("the 2-D decode layout (decode2d, "
+                         "relayout_attn_decode2d)", 17)
     d, H, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     mode = attn_mode_for(cfg, tp)
     if serve:
+        # decode: every tp rank computes all heads (the cache is T-sharded)
         q_tp = kv_tp = o_tp = None
     else:
         # head_tp shards the q / out heads and the kv heads when they
@@ -164,9 +173,6 @@ def model_defs(cfg: ModelConfig, tp: int, data: int, mode: str,
                serve: bool = False, opts=frozenset()) -> dict:
     """Full meta tree.  'units' metas describe PER-LAYER shapes (they get a
     stacked leading dim at materialization)."""
-    if serve and tp != 1:
-        raise not_ported("the serve-time parameter tree at tp > 1",
-                         TP_SERVE)
     d = cfg.d_model
     defs: dict = {
         "embed": PMeta((cfg.vocab_padded, d), tp_dim=0),

@@ -356,6 +356,15 @@ class ParallelCtx:
         with record_function("tp::rs_tokens"):
             return coll.psum_scatter(x, self.tp_axis, scatter_dimension=dim)
 
+    def gather_tp(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather the tp shards along a local dim (the vocab of the
+        decode logits, the kv heads of a prefill cache).  Gradient: the
+        reduce-scatter."""
+        if not self.tp_axis:
+            return x
+        with record_function("tp::gather_tp"):
+            return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True)
+
     def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
         if not self.tp_axis:
             return x

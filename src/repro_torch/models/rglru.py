@@ -38,15 +38,17 @@ def _conv_state(x_br: torch.Tensor, K: int) -> torch.Tensor:
     activations), left-padded with zeros — the conv's own padding — when
     the prompt is shorter than that.  (The reference returns the short
     tail, which no (B, K-1, dr) cache takes.)"""
-    tail = x_br[:, -(K - 1):]
-    return F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
+    tail = x_br[..., -(K - 1):, :]
+    return F.pad(tail, (0, 0, K - 1 - tail.shape[-2], 0))
 
 
 def rglru_block(x_sp, p, meta, ctx: ParallelCtx, cfg, *,
                 state: dict | None = None, decode: bool = False,
                 return_state: bool = False):
     """x_sp: (B, T/tp, d) per rank (stacked with a tp axis) or (B, 1, d)
-    decode."""
+    decode.  The decode state (``h`` (B, dr/tp), ``conv`` (B, K-1, dr/tp))
+    is each tp rank's channel shard: decode's only collective is the
+    ``psum_tp`` of the output projection."""
     eps = cfg.norm_eps
     nd = x_sp.dim()
     h_in = rms_norm(x_sp, ctx.at(ctx.gather_w(p["ln"], meta["ln"].fsdp_dim),
@@ -61,9 +63,9 @@ def rglru_block(x_sp, p, meta, ctx: ParallelCtx, cfg, *,
 
     conv_w = ctx.gather_w(p["conv"], meta["conv"].fsdp_dim)  # (dr/tp, K)
     if decode:
-        xin = torch.cat([state["conv"], x_br], dim=1)
-        xc = causal_conv1d(xin, conv_w)[:, -1:]
-        new_conv = xin[:, 1:]
+        xin = torch.cat([state["conv"], x_br], dim=-2)
+        xc = causal_conv1d(xin, conv_w)[..., -1:, :]
+        new_conv = xin[..., 1:, :]
     else:
         xc = causal_conv1d(x_br, conv_w)
 
@@ -78,14 +80,14 @@ def rglru_block(x_sp, p, meta, ctx: ParallelCtx, cfg, *,
     gx = beta * i * xc.float()
 
     if decode:
-        h_new = torch.exp(log_a[:, 0]) * state["h"] + gx[:, 0]
-        h_seq = h_new[:, None]
+        h_new = torch.exp(log_a[..., 0, :]) * state["h"] + gx[..., 0, :]
+        h_seq = h_new.unsqueeze(-2)
         new_state = {"h": h_new, "conv": new_conv}
     else:
         h_seq = rglru_scan(log_a, gx)                        # (B, T, dr)
         new_state = None
         if return_state:
-            new_state = {"h": h_seq[:, -1].clone(),
+            new_state = {"h": h_seq[..., -1, :].clone(),
                          "conv": _conv_state(x_br, cfg.conv_kernel)}
 
     o = h_seq.to(hg.dtype) * y_gate

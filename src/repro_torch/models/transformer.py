@@ -26,9 +26,18 @@ vocab-parallel embedding reduce-scatters into the (B, T/tp, d) residual
 stream of each rank, every block gathers its tokens in and scatters them
 out, attention picks ``head_tp`` or ``cp`` per arch
 (``meta.attn_mode_for``), and the loss is the vocab-parallel
-``unembed_xent``.  Serving at tp > 1 (prefill into a T-sharded cache,
-split-K decode) waits for ROADMAP Queue 1 items 15 and 17: its entry
-points raise.
+``unembed_xent``.  Serving at tp > 1: prefill runs that same layout and
+writes each rank's S/tp chunk of the cache (``_state_to_cache``), decode
+runs the serve defs (attention weights replicated over tp, every head on
+every rank) with split-K attention over the T-sharded cache, the tp-sharded
+ffn and the vocab-parallel embedding and logits; an ``rglru`` block's
+recurrent state stays sharded over tp along its channels.
+
+On a cluster ctx (one with a node communicator: ``runtime.steps.
+cluster_ctx``) the entry points ``prefill_fn`` / ``decode_fn`` /
+``cache_init`` take the cluster's stacked ``(R, ...)`` parameters and run
+the model once per memory domain: ``build`` returns a ``ClusterModel``
+there (``models.domains``); the functions here are one domain's run.
 
 Decode updates the cache in place and returns the same cache tree:
 attention blocks write each slot's new position
@@ -38,28 +47,29 @@ state is copied over its old one.
 
 from __future__ import annotations
 
-from typing import Any
-
 import dataclasses
+from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tree as T
 from repro_torch.models import meta as M
 from repro_torch.models.attention import (attn_block, cache_write,
                                           decode_attention)
+from repro_torch.models.domains import (Domains, NodeCache, domain_params,
+                                        domain_run)
 from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
                                        rms_norm, rope_decode, sinusoidal_pe,
                                        unembed_xent, unembed_xent_rows)
-from repro_torch.models.meta import TP_SERVE
 from repro_torch.models.meta import not_ported as _not_ported
 from repro_torch.models.parallel import (ParallelCtx, ParamGroup,
                                          prefetch_walk)
+from repro_torch.models.rglru import rglru_block, rglru_state_init
 from repro_torch.substrate.collectives import keep_mesh
 
 XENT_CHUNK = 512
-from repro_torch.models.rglru import rglru_block, rglru_state_init
 
 
 class Model(torch.nn.Module):
@@ -84,21 +94,14 @@ class Model(torch.nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return M.init_params(self.defs, self.cfg, gen, self.device)
 
-    def _serving(self):
-        """The serve-time defs; at tp > 1 serving raises (items 15, 17)."""
-        if self.serve_defs is None:
-            raise _not_ported("serving at tp > 1 (prefill into a T-sharded "
-                              "cache, split-K decode)", TP_SERVE)
-        return self.serve_defs
-
     def param_specs(self, *, serve: bool = False, tp_axis=None,
                     fsdp_axis="data") -> dict:
-        defs = self._serving() if serve else self.defs
+        defs = self.serve_defs if serve else self.defs
         return M.param_specs(defs, self.cfg, tp_axis=tp_axis,
                              fsdp_axis=fsdp_axis)
 
     def abstract_params(self, specs, *, serve: bool = False) -> dict:
-        defs = self._serving() if serve else self.defs
+        defs = self.serve_defs if serve else self.defs
         return M.abstract_params(defs, self.cfg, specs)
 
     # ---- entry points ------------------------------------------------------
@@ -107,16 +110,84 @@ class Model(torch.nn.Module):
         return _loss(self.cfg, self.ctx, self.defs, params, batch)
 
     def prefill_fn(self, params, batch, s_max: int, *, unroll: int = 1):
-        self._serving()
+        """Prefill runs in the TRAIN parallel layout (``defs``)."""
         return _prefill(self.cfg, self.ctx, self.defs, params, batch, s_max)
 
     def decode_fn(self, params, cache, token, pos, *, unroll: int = 1):
-        return _decode(self.cfg, self.ctx, self._serving(), params, cache,
+        """Decode runs the serve layout (``serve_defs``)."""
+        return _decode(self.cfg, self.ctx, self.serve_defs, params, cache,
                        token, pos)
 
     def cache_init(self, B_loc: int, s_max: int) -> dict:
-        self._serving()
         return _cache_init(self.cfg, self.ctx, B_loc, s_max, self.device)
+
+
+class ClusterModel(Model):
+    """The model on a cluster ctx (one with a node communicator:
+    ``runtime.steps.cluster_ctx``; ``opts=("serve_fsdp",)`` keeps every
+    serve weight in the node store, the paper's C1 layout applied to
+    inference).  ``prefill_fn`` / ``decode_fn`` / ``cache_init`` take the
+    cluster's stacked ``(R, ...)`` parameters (laid out under
+    ``param_specs``: the train specs for prefill, the serve specs for
+    decode) and the batch stacked per rank, replicated (the reference's
+    ``P()`` token and position specs), and run the single-device model once
+    per memory domain (``models.domains``).  The batch is replicated, so a
+    domain takes its first member's rows (no folding); logits come back
+    stacked per rank; the decode cache is a ``NodeCache``, one per
+    domain."""
+
+    def prefill_fn(self, params, batch, s_max: int, *, unroll: int = 1):
+        """``batch["tokens"]`` ``(R, B, T+1)``.  Returns the ``NodeCache``
+        and the stacked last-token logits ``(R, B, 1, V)``."""
+        lay = Domains.of(self.ctx)
+        tokens = torch.as_tensor(batch["tokens"])
+        cache, logits = None, []
+        for d in range(lay.count):
+            dom = domain_params(self.ctx, lay, self.defs, params, d)
+            with domain_run(self.ctx, lay, d, tokens.device):
+                c, lg = _prefill(self.cfg, self.ctx, self.defs, dom,
+                                 {"tokens": tokens[d * lay.members]}, s_max)
+            if cache is None:
+                cache = T.tree_map(lambda x: x.new_empty(
+                    (lay.count,) + tuple(x.shape)), c)
+            for dst, src in zip(T.leaves(cache), T.leaves(c)):
+                dst[d].copy_(src)
+            logits.append(lg)
+            del c
+        return NodeCache(cache, lay), lay.to_ranks(logits)
+
+    def decode_fn(self, params, cache, token, pos, *, unroll: int = 1,
+                  reads: Optional[list] = None):
+        """``token`` ``(R, B, 1)`` and ``pos`` ``(R,)`` / ``(R, B)``
+        replicated, ``cache`` the ``NodeCache`` (updated in place and
+        returned).  ``reads``: per parameter leaf (``core.tree`` order) its
+        node buffers from ``domains.node_window(...).read_node()``, or
+        ``None`` — the recorded decoder's pre-read weights
+        (``serving.recorded``), run with ``fsdp_axes=()``."""
+        if not isinstance(cache, NodeCache):
+            raise TypeError("decode on the cluster takes the NodeCache of "
+                            "model.cache_init / model.prefill_fn")
+        lay = Domains.of(self.ctx)
+        run_ctx = self.ctx if reads is None \
+            else dataclasses.replace(self.ctx, fsdp_axes=())
+        token, pos = torch.as_tensor(token), torch.as_tensor(pos)
+        logits = []
+        for d in range(lay.count):
+            dom = domain_params(self.ctx, lay, self.serve_defs, params, d,
+                                reads)
+            a = d * lay.members
+            with domain_run(self.ctx, lay, d, token.device):
+                _, lg = _decode(self.cfg, run_ctx, self.serve_defs, dom,
+                                cache.domain(d), token[a], pos[a])
+            logits.append(lg)
+        return cache, lay.to_ranks(logits)
+
+    def cache_init(self, B_loc: int, s_max: int) -> NodeCache:
+        """Zero decode caches, one per memory domain."""
+        lay = Domains.of(self.ctx)
+        one = _cache_init(self.cfg, self.ctx, B_loc, s_max, self.device)
+        return NodeCache(T.tree_map(lambda x: x.new_zeros(
+            (lay.count,) + tuple(x.shape)), one), lay)
 
 
 def build(cfg: ModelConfig, ctx: ParallelCtx, data: int = 1,
@@ -124,8 +195,9 @@ def build(cfg: ModelConfig, ctx: ParallelCtx, data: int = 1,
     defs = M.model_defs(cfg, ctx.tp, data, ctx.mode, serve=False,
                         opts=ctx.opts)
     serve_defs = M.model_defs(cfg, ctx.tp, data, ctx.mode, serve=True,
-                              opts=ctx.opts) if ctx.tp == 1 else None
-    return Model(cfg, ctx, defs, serve_defs, device)
+                              opts=ctx.opts)
+    cls = Model if ctx.comm is None else ClusterModel
+    return cls(cfg, ctx, defs, serve_defs, device)
 
 
 def _unit(tree: dict, u: int) -> dict:
@@ -178,20 +250,21 @@ def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
     window = cfg.window if kind == "local" else None
     H, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     pa, ma = p["attn"], mt["attn"]
-    h = rms_norm(x, ctx.gather_w(pa["ln"], ma["ln"].fsdp_dim), cfg.norm_eps)
+    h = rms_norm(x, ctx.at(ctx.gather_w(pa["ln"], ma["ln"].fsdp_dim),
+                           x.dim()), cfg.norm_eps)
     wq = ctx.gather_w(pa["wq"], ma["wq"].fsdp_dim)
     wkv = ctx.gather_w(pa["wkv"], ma["wkv"].fsdp_dim)
     wo = ctx.gather_w(pa["wo"], ma["wo"].fsdp_dim)
-    B, _, d = x.shape
-    q = (h @ wq).reshape(B, 1, H, hd)
-    kvp = (h @ wkv.reshape(d, -1)).reshape(B, 1, 2, kv, hd)
-    k_new, v_new = kvp[:, :, 0], kvp[:, :, 1]
+    lead = tuple(x.shape[:-2])                  # (B,) / (tp, B) stacked
+    q = ctx.mm(h, wq).reshape(lead + (1, H, hd))
+    kvp = ctx.mm(h, wkv.flatten(-2)).reshape(lead + (1, 2, kv, hd))
+    k_new, v_new = kvp[..., 0, :, :], kvp[..., 1, :, :]
     if cfg.qk_norm:
-        q = rms_norm(q, ctx.gather_w(pa["q_norm"], ma["q_norm"].fsdp_dim),
-                     cfg.norm_eps)
-        k_new = rms_norm(k_new, ctx.gather_w(pa["k_norm"],
-                                             ma["k_norm"].fsdp_dim),
-                         cfg.norm_eps)
+        q = rms_norm(q, ctx.at(ctx.gather_w(
+            pa["q_norm"], ma["q_norm"].fsdp_dim), q.dim()), cfg.norm_eps)
+        k_new = rms_norm(k_new, ctx.at(ctx.gather_w(
+            pa["k_norm"], ma["k_norm"].fsdp_dim), k_new.dim()),
+            cfg.norm_eps)
     if cfg.pos == "rope":
         rdt = ctx.compute_dtype if ctx.has("bf16_rope") else None
         q = rope_decode(q, pos, cfg.rope_theta, rdt)
@@ -200,7 +273,9 @@ def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
     vc = cache_write(state["v"], v_new, ctx, pos=pos, window=window)
     o = decode_attention(q, kc, vc, ctx, pos=pos, H=H, window=window,
                          ring=window is not None)
-    x = x + o.reshape(B, 1, H * hd) @ wo
+    # q / kv / o are replicated over tp (split-K merged them), so the
+    # output projection is the same on every tp rank: no collective
+    x = x + ctx.mm(o.reshape(lead + (1, H * hd)), wo)
     x = _mix(kind, x, p, mt, ctx, cfg, serve=True)
     return x, {"k": kc, "v": vc}
 
@@ -316,9 +391,20 @@ def _state_to_cache(cfg, ctx, st, T: int, s_max: int, kind: str,
     ``s_max`` along the time axis ``tdim`` — or, for a window, the ring of
     the last ``W = min(window, s_max)`` positions, slot s holding position
     g = T-W + ((s - (T-W)) mod W), zero-filled where g < 0 (those slots are
-    masked out of decode attention, but must not hold NaN)."""
+    masked out of decode attention, but must not hold NaN).  With a tp axis
+    (the stacked ranks' axis just before the batch, ``tdim - 2``) every
+    rank's full-T state is cut to its own S/tp chunk of that layout."""
     if kind not in ("attn", "local"):
         return st
+    if ctx.tp_axis:
+        rdim = tdim - 2
+        full = _state_to_cache(cfg, dataclasses.replace(
+            ctx, tp_axis=None, tp=1), st, T, s_max, kind, tdim)
+        S_loc = ctx.shard(full["k"].shape[tdim])
+        return {n: torch.stack([
+            a.select(rdim, i).narrow(tdim - 1, r * S_loc, S_loc)
+            for i, r in enumerate(ctx.tp_ranks())], dim=rdim)
+            for n, a in full.items()}
     window = cfg.window if kind == "local" else None
     if window is None and T > s_max:
         raise ValueError(f"a {T}-token prefill does not fit a cache of "
@@ -345,17 +431,22 @@ def _state_to_cache(cfg, ctx, st, T: int, s_max: int, kind: str,
 
 
 def _cache_init(cfg, ctx, B_loc: int, s_max: int, device) -> dict:
-    """Zero caches; every leaf its own tensor (decode writes in place)."""
+    """Zero caches; every leaf its own tensor (decode writes in place).
+    With a tp axis every leaf has the stacked tp ranks' axis after the unit
+    dim: an attention leaf each rank's S/tp chunk (tp, B, S/tp, kv, hd), an
+    ``rglru`` leaf its channel shard."""
+    tp = (ctx.tp,) if ctx.tp_axis else ()
+
     def one(kind, lead=()):
-        if kind == "rglru":
+        if kind == "rglru":              # each tp rank's channel shard
             st = rglru_state_init(cfg, B_loc, ctx, ctx.compute_dtype, device)
-            return {n: a.new_zeros(lead + tuple(a.shape))
+            return {n: a.new_zeros(lead + tp + tuple(a.shape))
                     for n, a in st.items()}
         if kind not in ("attn", "local"):
             raise _not_ported(f"the {kind} block's decode state", 16)
         window = cfg.window if kind == "local" else None
         S = min(window, s_max) if window else s_max
-        shape = lead + (B_loc, S, cfg.n_kv, cfg.head_dim)
+        shape = lead + tp + (B_loc, ctx.shard(S), cfg.n_kv, cfg.head_dim)
         return {n: torch.zeros(shape, dtype=ctx.compute_dtype, device=device)
                 for n in ("k", "v")}
 
@@ -386,21 +477,25 @@ def _prefill(cfg, ctx, defs, params, batch, s_max: int):
         x, rem_states[key] = _block_train(k, x, params["rem"][key],
                                           defs["rem"][key], ctx, cfg,
                                           return_state=True)
-    x = rms_norm(x, ctx.gather_w(params["final_ln"],
-                                 defs["final_ln"].fsdp_dim), cfg.norm_eps)
+    x = rms_norm(x, ctx.at(ctx.gather_w(params["final_ln"],
+                                        defs["final_ln"].fsdp_dim), x.dim()),
+                 cfg.norm_eps)
+    # the last token lives on the last tp rank's chunk: gather it first
+    last = ctx.ag_tokens(x)[..., -1:, :] if ctx.tp_axis else x[:, -1:]
     w_un = _unembed_weight(cfg, ctx, defs, params)
-    logits = decode_logits(x[:, -1:], w_un, ctx, softcap=cfg.logit_softcap)
+    logits = decode_logits(last, w_un, ctx, softcap=cfg.logit_softcap)
 
+    tdim = 3 if ctx.tp_axis else 2          # (U, [tp,] B, T, ...)
     cache = {"units": {}}
     for i, k in enumerate(cfg.pattern):
         key = f"b{i}"
         stacked = {n: torch.stack([st[n] for st in states[key]])
                    for n in states[key][0]}
         cache["units"][key] = _state_to_cache(cfg, ctx, stacked, T, s_max,
-                                              k, tdim=2)
+                                              k, tdim=tdim)
     if cfg.remainder_kinds:
         cache["rem"] = {key: _state_to_cache(cfg, ctx, rem_states[key], T,
-                                             s_max, k)
+                                             s_max, k, tdim=tdim - 1)
                         for key, k in zip(rem_states, cfg.remainder_kinds)}
     return cache, logits
 
@@ -420,7 +515,10 @@ def _decode(cfg, ctx, defs, params, cache, token, pos):
     Returns (cache, logits (B, 1, V)); the cache is updated in place."""
     emb = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
     pos = torch.as_tensor(pos, device=emb.device)
-    x = embed(torch.as_tensor(token, device=emb.device), emb, ctx)
+    token = torch.as_tensor(token, device=emb.device)
+    if ctx.tp_axis and token.dim() == 2:      # every tp rank's copy
+        token = token.expand((emb.shape[0],) + tuple(token.shape))
+    x = embed(token, emb, ctx)
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.pos == "sinusoidal":
@@ -443,7 +541,8 @@ def _decode(cfg, ctx, defs, params, cache, token, pos):
         x, new = _block_decode(k, x, params["rem"][key], defs["rem"][key],
                                state, ctx, cfg, pos=pos)
         _store_state(state, new)
-    x = rms_norm(x, ctx.gather_w(params["final_ln"],
-                                 defs["final_ln"].fsdp_dim), cfg.norm_eps)
+    x = rms_norm(x, ctx.at(ctx.gather_w(params["final_ln"],
+                                        defs["final_ln"].fsdp_dim), x.dim()),
+                 cfg.norm_eps)
     w_un = _unembed_weight(cfg, ctx, defs, params)
     return cache, decode_logits(x, w_un, ctx, softcap=cfg.logit_softcap)

@@ -75,6 +75,7 @@ from repro_torch.analysis.traffic import device_bytes
 from repro_torch.comm import Communicator
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as T
+from repro_torch.models.domains import domain_view, units_flags
 from repro_torch.models.meta import not_ported
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import Model, _loss, build
@@ -202,7 +203,7 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
     n = s * t
     leaves = T.leaves(params)
     metas = T.leaves(defs)
-    units = T.leaves(_units_flags(params))
+    units = T.leaves(units_flags(params))
     window = [s > 1 and m.fsdp_dim is not None for m in metas]
     on_card = tokens.device.type == "cuda"
     base = device_bytes(tokens.device) if on_card else 0
@@ -213,13 +214,6 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
     loss = torch.zeros(R, dtype=torch.float32, device=tokens.device)
     cnt = torch.zeros(R, dtype=torch.float32, device=tokens.device)
     mesh = Mesh((ctx.tp_axis,), (t,), (), tokens.device) if tp else None
-
-    def to_domain(w, win, u):
-        x = w.reshape((s, t) + tuple(w.shape[1:]))
-        x = x.movedim(0, 1) if win else x[0]        # (t, s, ..) / (t, ..)
-        if u:                                       # the unit dim first
-            x = x.movedim(2 if win else 1, 0)
-        return x if tp else x.squeeze(1 if u else 0)
 
     def from_domain(g, win, u, dst):
         if not tp:
@@ -232,7 +226,8 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
             dst[:t].copy_(g)
 
     for a in range(0, R, n):
-        dom = [to_domain(w[a:a + n], win, u).detach().requires_grad_(True)
+        dom = [domain_view(w[a:a + n], s, t, win, u, tp).detach()
+               .requires_grad_(True)
                for w, win, u in zip(leaves, window, units)]
         # the store ranks' rows (their tp ranks hold the same rows)
         rows = tokens[a:a + n:t].reshape((-1,) + tuple(tokens.shape[2:]))
@@ -253,14 +248,6 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
         cnt[a:a + n] = count.reshape(t, s, -1).sum(dim=2).T.reshape(n)
         del got, nll, dom
     return T.unflatten(params, grads), loss, cnt
-
-
-def _units_flags(tree, under_units: bool = False):
-    """A tree of bools: whether each leaf is stacked on the unit dim."""
-    if isinstance(tree, dict):
-        return {k: _units_flags(v, under_units or k == "units")
-                for k, v in tree.items()}
-    return under_units
 
 
 def _bridge_and_clip(ctx: ParallelCtx, world, node, grads, loss_sum, cnt,

@@ -3,7 +3,9 @@
 The generation driver of the single-device engine: the prompts are
 prefilled in one batch, then decoded a token per step at a shared position.
 The continuous-batching scheduler (``serving.scheduler``) is the serving
-path proper; this is its solo reference.  There is no jit to cache: the
+path proper; this is its solo reference.  ``materialize_params`` hands it
+one-rank windows; ``materialize_params_on_mesh`` reads a multi-rank
+window's node buffer on the cluster that owns it.  There is no jit to cache: the
 reference's ``compiled_serve_fns`` has no counterpart, and ``model.prefill_fn``
 / ``model.decode_fn`` are called as they are.
 """
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm import SharedWindow
+from repro_torch.substrate.cluster import P
 
 
 def materialize_params(params):
@@ -32,16 +35,63 @@ def materialize_params(params):
         return {k: materialize_params(v) for k, v in params.items()}
     if not isinstance(params, SharedWindow):
         return params
-    if params.dirty:
-        raise ValueError(
-            "refusing to serve from a dirty SharedWindow: a store "
-            "opened an epoch that was never closed — fence() it first")
+    _check_clean(params)
     if params.comm.chips != 1:
         raise ValueError(
             f"params contain a {params.comm.chips or 'unknown'}-way "
-            "SharedWindow; the single-device engine reads only one-rank "
-            "windows (the multi-card read is ROADMAP Queue 1 item 17)")
+            "SharedWindow; materialize it on the mesh "
+            "(materialize_params_on_mesh) before handing state to the "
+            "single-device engine")
     return params.shard
+
+
+def _check_clean(window: SharedWindow) -> None:
+    if window.dirty:
+        raise ValueError(
+            "refusing to serve from a dirty SharedWindow: a store "
+            "opened an epoch that was never closed — fence() it first")
+
+
+def materialize_params_on_mesh(params, cluster, *, scheme: str = "auto"):
+    """The multi-rank companion of ``materialize_params``: read every
+    node-window leaf back into a full private tensor by gathering its
+    shards on the cluster that owns them.
+
+    ``cluster`` is the ``repro_torch.substrate.VirtualCluster`` whose mesh
+    matches each window's communicator; a leaf's ``shard`` is the GLOBAL
+    rank-major stack of the per-rank window shards along ``leaf.axis`` (the
+    layout ``VirtualCluster.smap`` hands a body under that spec).  The
+    gather dispatches through the window's own communicator (``scheme``,
+    ``"auto"`` by default: the tuning table or the closed forms pick),
+    constrained to the replicated class so the engine receives plain
+    tensors.  A multi-pod window is pod-replicated — every pod holds the
+    same node copy — so it is read through the node tier
+    (``split_type_shared``), never a bridge collective, and the NODE
+    buffer comes back.  A one-rank window unwraps as it is; a dirty window
+    is refused, and so is one whose communicator has no static
+    ``pods`` / ``chips`` counts."""
+    if isinstance(params, dict):
+        return {k: materialize_params_on_mesh(v, cluster, scheme=scheme)
+                for k, v in params.items()}
+    if not isinstance(params, SharedWindow):
+        return params
+    _check_clean(params)
+    comm, axis = params.comm, params.axis
+    if comm.chips == 1:
+        return params.shard
+    if comm.pods is None or comm.chips is None:
+        raise ValueError(
+            "materialize_params_on_mesh needs windows with static "
+            "pods/chips counts (construct their Communicator via "
+            "from_cluster/from_topology)")
+    node = comm.split_type_shared() if comm.slow_axis is not None else comm
+
+    def body(shard):
+        return node.allgather(shard, scheme=scheme, axis=axis,
+                              result="replicated")
+
+    spec = P(*((None,) * axis + (cluster.axis_names,)))
+    return cluster.smap(body, in_specs=(spec,), out_specs=P())(params.shard)
 
 
 @dataclasses.dataclass

@@ -92,14 +92,18 @@ class ContinuousBatchingScheduler:
         self._decode = decode_fn if decode_fn is not None \
             else model.decode_fn
         # live-tuning feed: decode-step latencies land in the same
-        # (family="serving", topo, dtype, size-bucket) cells the reference's
-        # bench keys — nbytes is the model's parameter byte count in f32,
-        # the scheme label the decode path this engine runs (one card: a
-        # single-rank topology)
+        # (family="serving", topo, dtype, size-bucket) cells the serving
+        # bench family keys — the topology of the model's communicator (a
+        # single rank without one), nbytes the model's parameter byte count
+        # in f32, the scheme label the decode path this engine runs
+        # (``recorded`` for a decoder with ``set_table``)
+        comm = model.ctx.comm
         self._tuner_key = dict(
-            pods=1, chips=1,
+            pods=(comm.pods if comm is not None and comm.pods else 1),
+            chips=(comm.chips if comm is not None and comm.chips else 1),
             nbytes=4 * sum(t.numel() for t in _leaves(self.params)),
-            scheme="sync")
+            scheme=("recorded" if hasattr(self._decode, "set_table")
+                    else "sync"))
 
         # host-side slot map
         self.active = np.zeros(slots, bool)

@@ -90,8 +90,11 @@ def test_cases_match_reference_build_cases(dtypes):
 
 
 def test_unported_families_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        suites.build_cases(clusters=(VC22,), families=("serving",))
+    # every family is ported: serving builds its two schemes' cases (held
+    # to the reference in tests/test_torch_serving_bench.py)
+    cases = suites.build_cases(clusters=(VC22,), families=("serving",))
+    assert sorted(c.scheme for c in cases) == ["recorded", "sync"]
+    assert {c.family for c in cases} == {"serving"}
     with pytest.raises(ValueError, match="auto"):
         suites.build_cases(clusters=(VC22,), schemes=("auto",))
     with pytest.raises(ValueError, match="unknown schemes"):

@@ -27,7 +27,10 @@ The flash backward kernel is held to the autograd of the plain version
 (f32 2e-4, bf16 2e-2 of the largest gradient), its forward with lse to the
 forward without it bit for bit, and the reduced ``qwen3-0.6b``'s hier
 train step on the card to the CPU; the kernels without a backward refuse a
-grad-carrying call.
+grad-carrying call.  Serving on the stacked cluster (``serve_fsdp``, 2x4
+and ``2x(2x2)``, the reduced qwen3-0.6b and the hybrid at tp 2): prefill
+and two decode steps on the card against the CPU within 1e-4 relative, and
+``RecordedDecoder`` bit-identical to the sync decode on the card.
 """
 
 import dataclasses
@@ -696,3 +699,70 @@ def test_elastic_pod_loss_on_the_card_is_bit_identical(cuda, tmp_path):
         ("2x4", "1x4", 2)
     assert sorted(ref.losses) == [2, 3, 4, 5]
     assert all(rep.losses[s] == ref.losses[s] for s in ref.losses)
+
+
+def _serve_run(dev, label, decode=None, steps=2, arch="qwen3-0.6b"):
+    """The reduced ``arch`` (d 128) in the serve_fsdp layout on ``label``:
+    prefill (the train layout) of 2 prompts of 16 tokens, then ``steps``
+    decode steps at per-slot positions; returns every step's logits (the
+    first the prefill's) and the final cache."""
+    from repro_torch.core import tree as T
+    from repro_torch.runtime.steps import cluster_ctx
+    from repro_torch.substrate.cluster import P
+    cfg = get_config(arch).reduced(d_model=128, n_heads=4)
+    vc = VirtualCluster.from_label(label, device=dev)
+    ctx = cluster_ctx(vc, opts=("serve_fsdp",))
+    sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+    model = build(cfg, ctx, data=sizes[ctx.fsdp_axes[0]], device=dev)
+    params = T.tree_map(lambda t: t.to(dev), build(
+        cfg, ParallelCtx.single(), device="cpu").init_params(0))
+    fsdp = ctx.fsdp_axes[0]
+    train = vc.layout(params, model.param_specs(tp_axis=ctx.tp_axis,
+                                                fsdp_axis=fsdp))
+    serve = vc.layout(params, model.param_specs(
+        serve=True, tp_axis=ctx.tp_axis, fsdp_axis=fsdp))
+    toks = torch.randint(0, cfg.vocab, (2, 17),
+                         generator=torch.Generator().manual_seed(2))
+    decode = decode(model) if decode else model.decode_fn
+    with vc.bind():
+        cache, lg = model.prefill_fn(train, {"tokens": vc.layout(toks, P())},
+                                     32)
+        out = [lg[0].cpu()]
+        pos = torch.tensor([16, 16])
+        for _ in range(steps):
+            tok = out[-1].argmax(-1).to(torch.int32)
+            cache, lg = decode(serve, cache, vc.layout(tok, P()),
+                               vc.layout(pos, P()))
+            out.append(lg[0].cpu())
+            pos = pos + 1
+    return out, T.tree_map(lambda t: t.cpu(), dict(cache))
+
+
+@pytest.mark.parametrize("label,arch", [
+    ("2x4", "qwen3-0.6b"), ("2x(2x2)", "qwen3-0.6b"),
+    ("2x(2x2)", "recurrentgemma-9b")])
+def test_cluster_decode_on_the_card_matches_the_cpu(cuda, label, arch):
+    """Prefill (the flash kernel, and the hybrid's lru_scan kernel, on the
+    card; their plain versions on the CPU) and two decode steps on the
+    cluster: logits within 1e-4 relative."""
+    before = (kflash.launches, klru.launches)
+    card, _ = _serve_run(cuda, label, arch=arch)
+    assert kflash.launches > before[0]
+    assert klru.launches > before[1] or arch == "qwen3-0.6b"
+    cpu, _ = _serve_run(torch.device("cpu"), label, arch=arch)
+    for a, b in zip(card, cpu):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.parametrize("label", ["2x4", "2x(2x2)"])
+def test_recorded_decode_on_the_card_is_bit_identical(cuda, label):
+    """RecordedDecoder against the sync decode on the card (the gathers
+    front-loaded on the side stream): logits and cache ``torch.equal``."""
+    from repro_torch.serving.recorded import RecordedDecoder
+    from repro_torch.core import tree as T
+    sync, c_sync = _serve_run(cuda, label, steps=3)
+    rec, c_rec = _serve_run(cuda, label, decode=RecordedDecoder, steps=3)
+    assert all(torch.equal(a, b) for a, b in zip(sync, rec))
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(c_sync),
+                                                 T.leaves(c_rec)))

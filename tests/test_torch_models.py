@@ -37,6 +37,8 @@ from repro_torch.models import ParallelCtx, build, build_by_name, make_batch
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, meta, rglru, xlstm
 from repro_torch.models.parallel import ParamGroup, prefetch_walk
+from repro_torch.core import tree as T
+from repro_torch.substrate.cluster import Mesh, bind_mesh
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 F32_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -291,19 +293,41 @@ def test_init_params_keeps_the_reference_tree_and_rules():
 
 
 def test_unported_parts_raise_naming_their_roadmap_item():
-    # training at tp > 1 is ported (tests/test_torch_train_tp*.py hold it
-    # to the reference); serving at tp > 1 waits for items 15 and 17
+    # training and serving at tp > 1 are ported (tests/test_torch_train_tp*
+    # and tests/test_torch_serving_cluster.py hold them to the reference):
+    # serve defs replicate attention over tp, one domain's prefill at tp 2
+    # writes each rank's S/tp chunk and gives the tp-1 logits; the 2-D
+    # decode layout waits for item 17
     tctx = ParallelCtx(tp_axis="model", tp=2)
     qcfg = configs.get_config("qwen3-0.6b")
     assert meta.model_defs(qcfg, 2, 1, "hier")["units"]["b0"]["attn"][
         "wq"].tp_dim == 1
-    with pytest.raises(NotImplementedError, match="items 15 and 17"):
-        meta.model_defs(qcfg, 2, 1, "hier", serve=True)
-    tm = build(qcfg.reduced(), tctx, device="cpu")
-    with pytest.raises(NotImplementedError, match="items 15 and 17"):
-        tm.prefill_fn(None, None, 8)
-    with pytest.raises(NotImplementedError, match="items 15 and 17"):
-        tm.cache_init(1, 8)
+    sdefs = meta.model_defs(qcfg, 2, 1, "hier", serve=True)
+    assert sdefs["units"]["b0"]["attn"]["wq"].tp_dim is None
+    assert sdefs["units"]["b0"]["ffn"]["w_in"].tp_dim == 2
+    with pytest.raises(NotImplementedError, match="decode2d.*item 17"):
+        meta.model_defs(qcfg, 2, 1, "hier", serve=True,
+                        opts=frozenset({"decode2d"}))
+    tm = build(qcfg.reduced(), dataclasses.replace(
+        tctx, compute_dtype=torch.float32), device="cpu")
+    sm = build(qcfg.reduced(), CTX, device="cpu")
+    params = sm.init_params(0)
+    mesh = Mesh(("model",), (2,), (), torch.device("cpu"))
+    specs = tm.param_specs(tp_axis="model", fsdp_axis=None)
+    # one domain's run: each leaf stacked per tp rank, the unit dim first
+    tparams = {k: T.tree_map(
+        lambda w, s, u=(k == "units"): mesh.layout(w, s).movedim(0, int(u)),
+        params[k], specs[k]) for k in params}
+    batch = make_batch(tm.cfg, 2, 8, device="cpu")
+    with bind_mesh(mesh):
+        cache, lg = tm.prefill_fn(tparams, batch, 16)
+        zero = tm.cache_init(1, 16)
+    _, want = sm.prefill_fn(params, batch, 16)
+    np.testing.assert_allclose(_np(lg[0]), _np(want), **F32_TOL)
+    kv_shape = (tm.cfg.n_units, 2, 2, 8, tm.cfg.n_kv, tm.cfg.head_dim)
+    assert tuple(cache["units"]["b0"]["k"].shape) == kv_shape
+    assert tuple(zero["units"]["b0"]["v"].shape) == kv_shape[:2] + (1,) \
+        + kv_shape[3:]
     with pytest.raises(ValueError, match="tp_axis"):
         ParallelCtx(tp=2)
     assert ParallelCtx(fsdp_axes=("data",)).prefetch == 0
