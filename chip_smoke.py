@@ -188,16 +188,40 @@ its recompute rule on finite operands whose dk overflows.
    p99 printed as traffic-check output; (f) ``materialize_params_on_mesh``
    on 2x4, 4x2 and ``2x(2x2)``: the node buffer exact, no slow-link bytes.
 
+15. the MoE family (after phase 14): ``granite-moe-3b-a800m`` at full
+   width (d 1536, 24 q / 8 kv heads x 64, 40 experts top 8, d_ff_expert
+   512, vocab 49155), f32, seeded weights, capacity 1.25 — (a) hier on
+   2x4 at full depth with ``serve_fsdp``: phase 14's 8 prompts prefilled
+   once per node (2 x 32 x 8 flash launches), 32 greedy decode steps with
+   the sync decode (the dropped share of the routing assignments counted
+   each step) and ``RecordedDecoder``: ``torch.equal`` logits and cache,
+   one gather per node-stored leaf (the experts' d_ff windows included),
+   the stored weights 2.00 node copies, p50 / p99 and tokens/s, one
+   profiled step's MoE block parts; (b) 2 layers, card against CPU: the
+   routing tables first (flipped rows, the smallest top-k margin; if any
+   flip, the card again on the CPU's routing), then a prefill and 4
+   decode steps within 1e-4 relative and one hier train step under
+   ``PERF.md`` §2's rule; (c) naive against hier on 2x4 at 4 layers:
+   weight bytes per node C1 = 4.0 exactly; (d) ``make_cluster_train_step``
+   hier, 8 x 2048, 3 steps on 2x4 (ep 1) and ``2x(2x2)`` (ep 2) at the
+   deepest depth whose state fits (printed with its bytes), one profiled
+   step each (tp collectives with the MoE reduce-scatter, the MoE block's
+   parts), then the training C1 at 2 layers (4.0 on 2x4 with hier vs
+   naive under §2's rule, 2.0 on ``2x(2x2)``).
+
 Phase 2 holds the flash forward and backward kernels at phase 12's shapes
 too: (8, 2048, 8 q / 4 kv, 128) and (2, 256, 36 q / 4 kv, 128) against
-2048 keys at q_offset 256 and 1792.
+2048 keys at q_offset 256 and 1792; and at phase 15's (hd 64): the
+training forward and backward (4, 2048, 24 q / 8 kv, 64) and one
+2016-token prompt's forward, each timed beside SDPA and its bound.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
 phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
-12 (a), each of phase 13's runs and phase 14's prefills) and read just
-after; the JSON's flash rows sum the main paths that launch them.  The
-recompute counters (the non-finite rule's, and the flash backward's) are
-zeroed before phase 3 and must read 0 after phase 14.  The line
+12 (a), each of phase 13's runs, phase 14's prefills and phase 15's
+prefills and training runs) and read just after; the JSON's flash rows
+sum the main paths that launch them.  The recompute counters (the
+non-finite rule's, and the flash backward's) are zeroed before phase 3
+and must read 0 after phase 15.  The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -953,6 +977,522 @@ def serve_cluster_phase(dev, scratch: str) -> int:
     return launches
 
 
+MOE_NAME = "granite-moe-3b-a800m"
+
+
+def moe_phase(dev) -> dict:
+    """Phase 15: the MoE family at ``granite-moe-3b-a800m``'s full width
+    (d 1536, 24 q / 8 kv heads x 64, 40 experts top 8, d_ff_expert 512,
+    f32, seeded weights, ``capacity_factor`` 1.25).  Returns the flash
+    forward / backward launches of its main-path runs (each zeroed just
+    before and read just after)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.analysis import traffic
+    from repro_torch.analysis.profile import (MOE_RANGES, TP_RANGES,
+                                              profile_run)
+    from repro_torch.analysis.state_rule import state_close
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.models import ParallelCtx, build, moe
+    from repro_torch.models.domains import NodeCache
+    from repro_torch.models.meta import store_dim
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.steps import (cluster_ctx,
+                                           make_cluster_train_step)
+    from repro_torch.serving.recorded import RecordedDecoder
+    from repro_torch.substrate import VirtualCluster
+    from repro_torch.substrate.cluster import P
+
+    cfg = get_config(MOE_NAME)
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    lengths, S, steps = (SERVE_CLUSTER_LENGTHS, SERVE_CLUSTER_SMAX,
+                         SERVE_CLUSTER_STEPS)
+    nb = len(lengths)
+    rows = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=max(lengths),
+                                  global_batch=nb, seed=15)).next_batch()[
+        "tokens"]
+    prompts = [rows[i, :n].astype(np.int32) for i, n in enumerate(lengths)]
+    cpu = torch.device("cpu")
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in T.leaves(tree))
+
+    def model_on(vc, c, mode="hier", opts=("serve_fsdp",), d_=dev):
+        ctx = cluster_ctx(vc, mode=mode, opts=opts)
+        sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+        return build(c, ctx, data=math.prod(sizes[a] for a in
+                                            ctx.fsdp_axes), device=d_)
+
+    def specs(m, serve):
+        ctx = m.ctx
+        return m.param_specs(serve=serve, tp_axis=ctx.tp_axis,
+                             fsdp_axis=ctx.fsdp_axes[0] if ctx.fsdp_axes
+                             else None)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def flips(a, b):
+        """Token rows whose top-k expert sets differ between two route
+        records (call order), and the rows compared."""
+        n = tot = 0
+        for x, y in zip(a["idx"], b["idx"]):
+            xs = x.cpu().sort(-1)[0]
+            ys = y.cpu().sort(-1)[0]
+            n += int((xs != ys).any(-1).sum())
+            tot += xs[..., 0].numel()
+        return n, tot
+
+    def margin(rt):
+        return min(float(m_) for m_ in rt["margin"])
+
+    print(f"[moe] {cfg.name}: d {cfg.d_model}, {cfg.n_heads} q / "
+          f"{cfg.n_kv} kv heads x {cfg.head_dim}, {cfg.moe.num_experts} "
+          f"experts top {cfg.moe.top_k}, d_ff_expert "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab} (padded "
+          f"{cfg.vocab_padded}), {cfg.n_layers} layers, capacity_factor "
+          f"{cfg.moe.capacity_factor}, f32")
+
+    # (a) hier serving on 2x4 at full depth, serve_fsdp: phase 14's
+    # workload, the sync decode and RecordedDecoder
+    t_a = time.perf_counter()
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    m = model_on(vc, cfg)
+    params = m.init_params(15)
+    w_bytes = nbytes(params)
+    print(f"[moe] parameters {sum(t.numel() for t in T.leaves(params))} "
+          f"({w_bytes / 1e9:.3f} GB of f32, vocab padding included; "
+          f"config.param_count() {cfg.param_count()})")
+    with vc.bind():
+        train = vc.layout(params, specs(m, False))
+        cache = m.cache_init(nb, S)
+        first = []
+        kflash.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pr in prompts:
+            toks = torch.from_numpy(np.concatenate([pr, pr[-1:]])[None])
+            c, lg = m.prefill_fn(train, {"tokens": vc.layout(toks, P())}, S)
+            cache.copy_row(c, 0, len(first))
+            first.append(lg[0, 0, 0])
+            del c
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        fl = kflash.launches
+        launches["flash_attention"] += fl
+        first = torch.stack(first)
+        del train
+        free()
+        want_fl = vc.pods * cfg.n_layers * nb
+        print(f"[moe] 2x4 hier: prefill of {nb} prompts ({lengths[0]}-"
+              f"{lengths[-1]} tokens, one run per node) {pre_ms:.1f} ms; "
+              f"flash_attention launches {fl} ({vc.pods} nodes x "
+              f"{cfg.n_layers} layers x {nb})")
+        if fl != want_fl:
+            raise AssertionError(f"moe prefill launches {fl} != {want_fl}")
+        base = traffic.device_bytes(dev)
+        serve = vc.layout(params, specs(m, True))
+        stored = traffic.device_bytes(dev) - base
+        del params
+        free()
+
+        def decode_loop(decode, cache_, count):
+            tok, pos = first.argmax(-1), torch.tensor(lengths)
+            out, ms, drop = [], [], []
+            for _ in range(steps):
+                with (moe.routes() if count
+                      else contextlib.nullcontext()) as dr:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    cache_, lg_ = decode(serve, cache_,
+                                         vc.layout(tok[:, None].int(), P()),
+                                         vc.layout(pos, P()))
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t1) * 1e3)
+                if count:
+                    assigned, kept = moe.drops(dr)
+                    drop.append(1 - kept / assigned)
+                out.append(lg_[0, :, 0].clone())
+                tok, pos = out[-1].argmax(-1), pos + 1
+            return out, ms, cache_, drop
+
+        def report(label, ms):
+            tail = ms[1:]
+            print(f"[moe] 2x4 {label}: decode step p50 "
+                  f"{1e3 * pct(tail, 0.5):.0f} us p99 "
+                  f"{1e3 * pct(tail, 0.99):.0f} us (steps 2-{len(ms)}; "
+                  f"step 1 {ms[0]:.1f} ms), "
+                  f"{nb * len(tail) / sum(tail) * 1e3:.1f} tokens/s")
+
+        c_sync = NodeCache(T.tree_map(lambda t: t.clone(), dict(cache)),
+                           cache.domains)
+        sync, s_ms, c_sync, drop = decode_loop(m.decode_fn, c_sync, True)
+        report("sync (routes recorded: a top-k and 2 reductions a layer)",
+               s_ms)
+        print(f"[moe] 2x4: dropped share of the routing assignments per "
+              f"decode step (capacity {cfg.moe.capacity_factor} over the "
+              f"node's gathered 4 x {nb} tokens): "
+              f"{[round(x, 4) for x in drop]}")
+        dec = RecordedDecoder(m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        rec, r_ms, c_rec, _ = decode_loop(dec, cache, False)
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        report("recorded", r_ms)
+        same = all(torch.equal(a, b) for a, b in zip(sync, rec)) and all(
+            torch.equal(a, b) for a, b in zip(T.leaves(dict(c_sync)),
+                                              T.leaves(dict(c_rec))))
+        (sched,) = dec.schedules.values()
+        n_g = sum(n.family == "gather" for n in sched.graph.nodes)
+        n_store = sum(store_dim(mt) is not None
+                      for mt in T.leaves(m.serve_defs))
+        print(f"[moe] 2x4: recorded == sync (every step's logits and the "
+              f"final cache, torch.equal) {same}; schedule built once, "
+              f"replayed {steps - 1} times, gathers {n_g} (node-stored "
+              f"leaves {n_store}, the experts' w_in / w_out along their "
+              f"d_ff included)")
+        print(f"[moe] 2x4: stored weights {stored / 1e9:.3f} GB "
+              f"({stored / w_bytes:.2f} x {w_bytes / 1e9:.3f} GB: one copy "
+              f"per node, expert leaves included); a recorded step's peak "
+              f"above the held state {peak / 1e9:.3f} GB (the node "
+              f"buffers: {stored / 1e9:.3f} GB)")
+        if not same or n_g != n_store or len(dec.schedules) != 1:
+            raise AssertionError(f"moe: recorded differs from sync or "
+                                 f"gathers {n_g} != {n_store}")
+        if stored != vc.pods * w_bytes or peak > stored + 2 ** 31:
+            raise AssertionError(f"moe: stored {stored}, recorded step "
+                                 f"peak {peak}")
+        if not all(torch.isfinite(x).all() for x in sync):
+            raise AssertionError("moe: non-finite decode logits")
+        # one sync decode step under the profiler: the MoE block's parts
+        c_p = NodeCache(T.tree_map(lambda t: t.clone(), dict(c_rec)),
+                        cache.domains)
+        tok = vc.layout(rec[-1].argmax(-1)[:, None].int(), P())
+        pos = vc.layout(torch.tensor(lengths) + steps, P())
+        r = profile_run(lambda: m.decode_fn(serve, c_p, tok, pos),
+                        ranges=MOE_RANGES)
+        moe_ms = sum(r["ranges"].values())
+        print(f"[moe] 2x4: one sync decode step profiled: wall "
+              f"{r['wall_ms']:.1f} ms, device busy {r['busy_ms']:.1f} ms "
+              f"({100 * r['busy_share']:.1f}%); MoE block parts "
+              f"{moe_ms:.3f} ms ({100 * moe_ms / r['busy_ms']:.1f}% of busy:"
+              f" { {k: round(v, 3) for k, v in r['ranges'].items()} })")
+        del serve, cache, c_sync, c_rec, c_p, sync, rec
+    free()
+    print(f"[phase] moe (a) {time.perf_counter() - t_a:.1f} s")
+
+    # (b) card against CPU at 2 layers, full width: the routing tables
+    # first (flips and the smallest top-k margin); where any differs, the
+    # card run again on the CPU's routing
+    t_b = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = T.tree_map(lambda t: t.cpu(), model_on(
+        VirtualCluster(pods=2, chips=4, device=dev), cfg2).init_params(16))
+    toks2 = torch.from_numpy(rows[1:3, :257].astype(np.int32))
+    feed = torch.from_numpy(rows[1:3, 257:261].astype(np.int32))
+
+    def serve2(d_, replay=None):
+        vc_d = VirtualCluster(pods=2, chips=4, device=d_)
+        m2 = model_on(vc_d, cfg2, d_=d_)
+        pp = T.tree_map(lambda t: t.to(d_), p2)
+        with vc_d.bind(), moe.routes(replay) as rt:
+            cache, lg = m2.prefill_fn(vc_d.layout(pp, specs(m2, False)),
+                                      {"tokens": vc_d.layout(toks2, P())},
+                                      512)
+            sp = vc_d.layout(pp, specs(m2, True))
+            outs = [lg[0].cpu()]
+            for i in range(4):
+                cache, lg = m2.decode_fn(
+                    sp, cache, vc_d.layout(feed[:, i:i + 1], P()),
+                    vc_d.layout(torch.tensor([256 + i] * 2), P()))
+                outs.append(lg[0].cpu())
+        return outs, {k: [t.cpu() for t in v] for k, v in rt.items()
+                      if k != "replay"}
+
+    def compare_serve(replay):
+        card, rt_card = serve2(dev, replay)
+        errs = [rel_err(a, b) for a, b in zip(card, want)]
+        return card, rt_card, errs
+
+    want, rt_cpu = serve2(cpu)
+    card, rt_card, errs = compare_serve(None)
+    n_flip, n_rows = flips(rt_card, rt_cpu)
+    line = (f"[moe] card vs CPU, 2x4 hier, 2 layers: prefill 2 x 256 and "
+            f"4 decode steps; routing tables: {n_flip} of {n_rows} token "
+            f"rows flipped, smallest top-{cfg.moe.top_k} margin "
+            f"{margin(rt_cpu):.3g}; logits rel_err "
+            f"{[f'{e:.3g}' for e in errs]}")
+    if n_flip:
+        card, _, errs = compare_serve(rt_cpu["idx"])
+        line += f"; on the CPU's routing {[f'{e:.3g}' for e in errs]}"
+    print(line)
+    if max(errs) > 1e-4:
+        raise AssertionError(f"moe serving card vs CPU: {errs}")
+
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                   global_batch=8, seed=7)).next_batch()
+
+    def train2(d_, replay=None):
+        vc_d = VirtualCluster(pods=2, chips=4, device=d_)
+        bundle = make_cluster_train_step(cfg2, vc_d, mode="hier",
+                                         global_batch=8)
+        pp = T.tree_map(lambda t: t.to(d_), p2)
+        m_, v_ = adamw_init(pp)
+        state = bundle.layout_state({"params": pp, "m": m_, "v": v_,
+                                     "step": torch.zeros(
+                                         (), dtype=torch.int32)})
+        with moe.routes(replay) as rt:
+            state, mt = bundle.step(state, bundle.layout_batch(batch))
+        glob = bundle.unlayout_state(state)
+        out = (float(mt["loss"][0]), float(mt["gnorm"][0]),
+               T.tree_map(lambda t: t.cpu(), {g_: glob[g_] for g_ in
+                                              ("params", "m", "v")}))
+        return out, {k: [t.cpu() for t in v] for k, v in rt.items()
+                     if k != "replay"}
+
+    t_cpu, rt_cpu = train2(cpu)
+    t_card, rt_card = train2(dev)
+    n_flip, n_rows = flips(rt_card, rt_cpu)
+    line = (f"[moe] card vs CPU, hier 2x4, 2 layers, 8 x 128, one train "
+            f"step: routing tables {n_flip} of {n_rows} token rows flipped "
+            f"(forward and remat), smallest top-{cfg.moe.top_k} margin "
+            f"{margin(rt_cpu):.3g}")
+    if n_flip:
+        t_card, _ = train2(dev, rt_cpu["idx"])
+        line += "; compared on the CPU's routing"
+    (lg_, gg, sg), (lc, gc_, sc) = t_card, t_cpu
+    if not (abs(lg_ - lc) <= 2e-4 * abs(lc) and abs(gg - gc_) <= 5e-3 * gc_):
+        raise AssertionError(f"moe train card vs CPU: loss {lg_} / {lc}, "
+                             f"gnorm {gg} / {gc_}")
+    excused, total, worst = state_close(sg, sc, 1, "moe card vs CPU")
+    print(line + f": loss {lg_:.6f} vs {lc:.6f}, gnorm {gg:.6f} vs "
+          f"{gc_:.6f}, m and v per leaf within rtol 2e-4 atol 2e-5 of the "
+          f"leaf's largest (worst m {worst['m']:.3g}, v {worst['v']:.3g} of "
+          f"that tolerance), updated params within rtol 2e-4 atol 2e-5 but "
+          f"{excused} of {total} elements where AdamW's update is "
+          f"ill-conditioned")
+    del p2, want, card, t_cpu, t_card
+    free()
+    print(f"[phase] moe (b) {time.perf_counter() - t_b:.1f} s")
+
+    # (c) the weight C1 of MoE serving: naive against hier on 2x4, 4 layers
+    t_c = time.perf_counter()
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    p4 = model_on(vc, cfg4).init_params(17)
+    held, got = {}, {}
+    tok0 = torch.from_numpy(rows[:, :1].astype(np.int32))
+    for mode in ("hier", "naive"):
+        m4 = model_on(vc, cfg4, mode)
+        with vc.bind():
+            base = traffic.device_bytes(dev)
+            lay = vc.layout(p4, specs(m4, True))
+            held[mode] = (traffic.device_bytes(dev) - base) / vc.pods
+            cache = m4.cache_init(nb, 1024)
+            tok, outs = tok0, []
+            with moe.routes() as dr:
+                for i in range(2):
+                    cache, lg = m4.decode_fn(lay, cache, vc.layout(tok, P()),
+                                             vc.layout(torch.arange(nb) + i,
+                                                       P()))
+                    outs.append(lg[0].clone())
+                    tok = lg[0, :, 0].argmax(-1)[:, None].int().cpu()
+            assigned, kept = moe.drops(dr)
+            got[mode] = (outs, cache.domains.count, 1 - kept / assigned)
+            del lay, cache
+        free()
+    c1 = held["naive"] / held["hier"]
+    err_c = max(rel_err(a, b) for a, b in zip(got["naive"][0],
+                                              got["hier"][0]))
+    print(f"[moe] naive vs hier on 2x4, 4 layers, serve_fsdp: weight bytes "
+          f"per node {held['naive'] / 1e9:.3f} / {held['hier'] / 1e9:.3f} GB,"
+          f" C1 naive/hier {c1} (chips {vc.chips}); caches "
+          f"{got['naive'][1]} / {got['hier'][1]}; 2 decode steps' logits "
+          f"rel_err {err_c:.3g} (dropped share naive {got['naive'][2]:.4f},"
+          f" hier {got['hier'][2]:.4f}: naive's capacity counts its rank's "
+          f"{nb} tokens, hier's the node's 4 x {nb}, as in the reference)")
+    if c1 != vc.chips or not all(torch.isfinite(x).all()
+                                 for x in got["naive"][0] + got["hier"][0]):
+        raise AssertionError(f"moe serving C1 {c1} != {vc.chips}")
+    del p4, got
+    free()
+    print(f"[phase] moe (c) {time.perf_counter() - t_c:.1f} s")
+
+    # (d) training with make_cluster_train_step, 8 x 2048 tokens, hier, on
+    # 2x4 (ep 1) and 2x(2x2) (ep 2, tp_ff 1), at the deepest depth whose
+    # state (params, m, v, grads: 2 node copies each) and a domain's
+    # gradient fit beside 16 GiB of transients
+    t_d = time.perf_counter()
+    one = build(dataclasses.replace(cfg, n_layers=1), ParallelCtx.single(),
+                device="meta")
+    lay1 = one.abstract_params(one.param_specs())
+    per_layer = 4 * sum(t.numel() for t in T.leaves(lay1["units"]))
+    rest = 4 * sum(t.numel() for k_, v_ in lay1.items() if k_ != "units"
+                   for t in T.leaves({k_: v_}))
+    free_b = torch.cuda.mem_get_info(dev)[0]
+    L = min(cfg.n_layers, int((free_b - 16 * 2 ** 30 - 9 * rest)
+                              // (9 * per_layer)))
+    cfgL = dataclasses.replace(cfg, n_layers=L)
+    print(f"[moe] training depth {L} of {cfg.n_layers}: per node "
+          f"{(rest + L * per_layer) / 1e9:.3f} GB of params ({per_layer / 1e9:.3f}"
+          f" GB a layer), state x 2 node copies x (params, m, v, grads) "
+          f"{8 * (rest + L * per_layer) / 1e9:.2f} GB of "
+          f"{free_b / 1e9:.1f} GB free (full depth would need "
+          f"{8 * (rest + cfg.n_layers * per_layer) / 1e9:.1f} GB)")
+    batches = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=2048,
+                                     global_batch=8, seed=7))
+    batches = [batches.next_batch() for _ in range(3)]
+    train_rows = {}
+    for label in ("2x4", "2x(2x2)"):
+        vc = VirtualCluster.from_label(label, device=dev)
+        bundle = make_cluster_train_step(cfgL, vc, mode="hier",
+                                         global_batch=8)
+        state = bundle.init_layout_state(18)
+        nb_ = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+        kflash.launches = kbwd.launches = 0
+        ms, losses, drop = [], [], None
+        for i, b_ in enumerate(batches):
+            laid = bundle.layout_batch(b_)
+            with (moe.routes() if i == 0
+                  else contextlib.nullcontext()) as dr:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, mt = bundle.step(state, laid)
+                loss, gnorm = float(mt["loss"][0]), float(mt["gnorm"][0])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            if i == 0:
+                assigned, kept = moe.drops(dr)
+                drop = 1 - kept / assigned
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"moe train {label}: loss {loss}")
+            losses.append(loss)
+            print(f"[train] {cfg.name} {L} layers hier {label} 8x2048 step "
+                  f"{i + 1}: loss {loss:.6f} gnorm {gnorm:.6f} step "
+                  f"{ms[-1]:.1f} ms {8 * 2048 / ms[-1] * 1e3:.1f} tokens/s")
+        fl = {"flash_attention": kflash.launches,
+              "flash_attention_bwd": kbwd.launches}
+        for k_, v_ in fl.items():
+            launches[k_] += v_
+            if v_ <= 0:
+                raise AssertionError(f"moe train {label} never launched {k_}")
+        nb_["grads"] = bundle.stats["grad_bytes"]
+        tp = bundle.model.ctx.tp
+        print(f"[moe] train {label} (tp {tp}, ep x tp_ff "
+              f"{cfg.moe.ep_tp(tp)}): steps 2-3 "
+              f"{sum(ms[1:]) / 2:.1f} ms, "
+              f"{8 * 2048 * 2 / sum(ms[1:]) * 1e3:.1f} tokens/s; dropped "
+              f"share of the assignments in step 1 {drop:.4f}; state "
+              + ", ".join(f"{k_} {v_ / 1e9:.3f} GB" for k_, v_ in nb_.items())
+              + f"; peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.1f}"
+              f" GB; launches flash_attention (forward) "
+              f"{fl['flash_attention']}, flash_attention_bwd "
+              f"{fl['flash_attention_bwd']}")
+        r = profile_run(lambda: bundle.step(state, laid),
+                        ranges=TP_RANGES + MOE_RANGES)
+        tp_ms = sum(v_ for k_, v_ in r["ranges"].items()
+                    if k_.startswith(TP_RANGES))
+        moe_ms = {k_: round(v_, 2) for k_, v_ in r["ranges"].items()
+                  if k_.startswith(MOE_RANGES)}
+        print(f"[moe] train {label}: one step profiled: wall "
+              f"{r['wall_ms']:.1f} ms, device busy {r['busy_ms']:.1f} ms "
+              f"({100 * r['busy_share']:.1f}%); tp collectives (the MoE "
+              f"reduce-scatter included) {tp_ms:.2f} ms "
+              f"({100 * tp_ms / r['busy_ms']:.1f}%); MoE block parts "
+              f"{sum(moe_ms.values()):.2f} ms "
+              f"({100 * sum(moe_ms.values()) / r['busy_ms']:.1f}%: {moe_ms})")
+        train_rows[label] = sum(ms[1:]) / 2
+        del bundle, state, laid
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # the training C1 at 2 layers: naive against hier on 2x4 under PERF.md
+    # §2's rule, each of 2 steps from a common state (hier's after step
+    # 1), so the rule's conditioning test (the final v) is the step's own;
+    # the routing tables compared first: hier runs a node's 4 ranks' rows
+    # in one batch, naive each rank's alone, so their products round apart
+    # and a near-tie top 8 may flip, after which naive is held on hier's
+    # routing; then the state bytes on 2x(2x2)
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+
+    def one_step(mode, i, start, replay=None):
+        """Step ``i`` of ``mode`` from the global state ``start`` (None:
+        the seeded init): the metrics, the state bytes, the updated
+        global state on the CPU, the routing ids."""
+        bundle = make_cluster_train_step(cfg2, vc, mode=mode, global_batch=8)
+        state = bundle.init_layout_state(19) if start is None else \
+            bundle.layout_state(T.tree_map(lambda t: t.to(dev), start))
+        nb_ = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+        with moe.routes(replay) as rt:
+            state, mt = bundle.step(state, bundle.layout_batch(batches[i]))
+        nb_["grads"] = bundle.stats["grad_bytes"]
+        glob = T.tree_map(lambda t: t.cpu(), bundle.unlayout_state(state))
+        del bundle, state
+        free()
+        return ((float(mt["loss"][0]), float(mt["gnorm"][0])), nb_, glob,
+                rt["idx"])
+
+    def per_rank(calls_idx):
+        """hier's routes (a node's members folded) in naive's call order
+        (a domain per rank, each member's rows alone)."""
+        n = len(calls_idx) // vc.pods
+        return [calls_idx[d * n + j][m_:m_ + 1] for d in range(vc.pods)
+                for m_ in range(vc.chips) for j in range(n)]
+
+    start, rows_hvn, n_flip, n_rows, excused, total = None, [], 0, 0, 0, 0
+    worst = {"m": 0.0, "v": 0.0}
+    for i in range(2):
+        h_ = one_step("hier", i, start)
+        n_ = one_step("naive", i, start)
+        want = per_rank(h_[3])
+        f_, t_ = flips({"idx": n_[3]}, {"idx": want})
+        n_flip, n_rows = n_flip + f_, n_rows + t_
+        if f_:
+            n_ = one_step("naive", i, start, want)
+        (lh, gh), (ln, gn) = h_[0], n_[0]
+        if not (abs(lh - ln) <= 2e-4 * abs(ln) and abs(gh - gn) <= 5e-3 * gn):
+            raise AssertionError(f"moe hier vs naive step {i + 1}: loss "
+                                 f"{lh} / {ln}, gnorm {gh} / {gn}")
+        ex, tot, w_ = state_close(n_[2], h_[2], i + 1,
+                                  f"moe hier vs naive step {i + 1}")
+        excused, total = excused + ex, total + tot
+        worst = {k_: max(worst[k_], w_[k_]) for k_ in worst}
+        rows_hvn.append((lh, ln))
+        c1 = {g_: n_[1][g_] / h_[1][g_] for g_ in h_[1]}
+        start = h_[2]
+        del h_, n_
+    del start
+    c1_tp = {}
+    vc_tp = VirtualCluster.from_label("2x(2x2)", device=dev)
+    for mode in ("hier", "naive"):
+        bundle = make_cluster_train_step(cfg2, vc_tp, mode=mode,
+                                         global_batch=8)
+        state = bundle.init_layout_state(19)
+        c1_tp[mode] = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+        del bundle, state
+        free()
+    c1_tp = {g_: c1_tp["naive"][g_] / c1_tp["hier"][g_] for g_ in c1_tp["hier"]}
+    print(f"[moe] hier vs naive, 2x4, 2 layers, 2 steps of 8 x 2048, each "
+          f"from hier's state: routing tables {n_flip} of {n_rows} token "
+          f"rows flipped{' (naive held on hier routing)' if n_flip else ''}"
+          f"; loss (hier, naive) {rows_hvn}, m and v within the rule (worst "
+          f"m {worst['m']:.3g}, v {worst['v']:.3g}), params but {excused} "
+          f"of {total} ill-conditioned; C1 naive/hier by group {c1} on 2x4 "
+          f"(chips 4), {c1_tp} on 2x(2x2) (store 2)")
+    if set(c1.values()) != {4.0} or set(c1_tp.values()) != {2.0}:
+        raise AssertionError(f"moe training C1 {c1} / {c1_tp}")
+    free()
+    print(f"[phase] moe (d) {time.perf_counter() - t_d:.1f} s")
+    return launches
+
+
 def collectives_bench(dev, g, *, sweep_elems, elems: int, big: int,
                       mm: int, tree: dict, table_path: str) -> None:
     """Phase 10: (a) the quick bench sweep, validated, folded into a table
@@ -1636,6 +2176,65 @@ def main() -> int:
               f"{fwd_ms:.3f} ms; backward rel err dq {errs[0]:.2e} dk "
               f"{errs[1]:.2e} dv {errs[2]:.2e}, {b_ms:.3f} ms")
         del q, k, v, do, o, lse
+    # granite-moe-3b-a800m's heads (24 q / 8 kv at hd 64: the 64-row kv
+    # tiles, 32 streamed rows in the backward) at phase 15's shapes: the
+    # training forward and backward as a 2x4 node's run launches them (4
+    # folded sequences x 2048) and one 2016-token prompt's prefill; each
+    # against its plain version, timed beside SDPA and the bound
+    for name, (B, T, bwd) in (
+            ("granite-moe-3b-a800m train, per node", (4, 2048, True)),
+            ("granite-moe-3b-a800m prefill, one prompt", (1, 2016, False))):
+        H, KV, hd = 24, 8, 64
+        q, do = (torch.randn((B, T, H, hd), generator=g, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn((B, T, KV, hd), generator=g, device=dev)
+                for _ in range(2))
+        kw = dict(causal=True, window=None, q_offset=0, layout="bthd")
+        what = f"flash_attention f32 {name} {(B, H, KV, T, hd)}"
+        f_err = check_flash(ops.flash_attention(q, k, v, **kw),
+                            kflash.flash_attention_plain(q, k, v, **kw),
+                            torch.float32, what)
+        f_ms = cuda_ms(lambda: kflash.flash_attention_cuda(q, k, v, **kw), 5)
+        f_plain = cuda_ms(lambda: kflash.flash_attention_plain(q, k, v,
+                                                               **kw), 3)
+        qs, ks, vs, dos = (x.transpose(1, 2).contiguous().requires_grad_(
+            x is not do) for x in (q, k, v, do))
+        f_lib = cuda_ms(lambda: sdpa(qs.detach(), ks.detach(), vs.detach(),
+                                     is_causal=True, enable_gqa=True), 5)
+        flops = attn_flops(B, T, T, H, hd, causal=True, window=None)
+        f_bnd = f32_bounds(flops, 4 * (2 * q.numel() + 2 * k.numel()))
+        print(f"[kernel] {what}: max|err| {f_err:.3g}  kernel {f_ms:.3f} ms "
+              f"({flops / f_ms / 1e9:.1f} TFLOP/s)  plain {f_plain:.3f} ms  "
+              f"scaled_dot_product_attention {f_lib:.3f} ms  "
+              f"{bounds_text(f_bnd)} ({flops:.4g} FLOP); of the 3xTF32 "
+              f"bound {f_bnd['bound_ms'] / f_ms:.3f}, SDPA / kernel "
+              f"{f_lib / f_ms:.3f}")
+        if bwd:
+            what = f"flash_attention_bwd f32 {name} {(B, H, KV, T, hd)}"
+            o, lse, errs, abs_err = bwd_check(q, k, v, do, torch.float32,
+                                              what, **kw)
+            b_ms = cuda_ms(lambda: kbwd.flash_attention_bwd_cuda(
+                q, k, v, o, do, lse, **kw), 3)
+            b_plain = plain_bwd_ms(q, k, v, do, **kw)
+            with torch.enable_grad():
+                out = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+                b_lib = cuda_ms(lambda: torch.autograd.grad(
+                    out, (qs, ks, vs), dos, retain_graph=True), 3)
+            del out
+            moved = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+            b_bnd = f32_bounds(2.5 * flops, moved)
+            print(f"[kernel] {what}: rel err dq {errs[0]:.2e} dk "
+                  f"{errs[1]:.2e} dv {errs[2]:.2e}, max |err| {abs_err:.3g}"
+                  f"  kernel {b_ms:.3f} ms ({2.5 * flops / b_ms / 1e9:.1f} "
+                  f"TFLOP/s)  plain (backward alone) {b_plain:.3f} ms  "
+                  f"scaled_dot_product_attention backward {b_lib:.3f} ms  "
+                  f"{bounds_text(b_bnd)} ({2.5 * flops:.4g} FLOP); of the "
+                  f"3xTF32 bound {b_bnd['bound_ms'] / b_ms:.3f}, SDPA / "
+                  f"kernel {b_lib / b_ms:.3f}")
+            del o, lse
+        del q, k, v, do, qs, ks, vs, dos
+        gc.collect()
+        torch.cuda.empty_cache()
     # the backward's non-finite classes, as the forward's above, with dO too
     for B, H, KV, T, hd, window in ((1, 4, 2, 128, 64, None),
                                     (1, 8, 1, 200, 256, 16)):
@@ -2719,13 +3318,21 @@ def main() -> int:
     launches["flash_attention"] += sc_launches
     print(f"[phase] serve cluster {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 15. the MoE family: granite-moe-3b-a800m ---------------------------
+    t_phase = time.perf_counter()
+    moe_launches = moe_phase(dev)
+    print(f"[moe] flash launches in phase 15: {moe_launches}")
+    for k_, v_ in moe_launches.items():
+        launches[k_] += v_
+    print(f"[phase] moe {time.perf_counter() - t_phase:.1f} s")
+
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
-    print(f"[nonfinite] tiles recomputed over phases 3-14: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-15: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")

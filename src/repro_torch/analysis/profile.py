@@ -5,29 +5,31 @@
         [--chunks 2]
     PYTHONPATH=src python -m repro_torch.analysis.profile --ag-matmul
     PYTHONPATH=src python -m repro_torch.analysis.profile --serve
-        [--model recurrentgemma-9b]
+        [--model recurrentgemma-9b|granite-moe-3b-a800m]
     PYTHONPATH=src python -m repro_torch.analysis.profile --train
-        [--mode hier|naive] [--layers N] [--topology 2x4|2x(2x2)]
+        [--model granite-moe-3b-a800m] [--mode hier|naive] [--layers N]
+        [--topology 2x4|2x(2x2)]
 
 SUMMA: for each scheme, one warm-up run, then one profiled run of the whole
 multiply (all rounds, ``use_kernel=True``).  ``--ag-matmul``: the same for
 ``ag_matmul(use_kernel=True)`` at the width of ``mistral-nemo-12b``'s MLP
 down-projection (K = d_ff = 14336, N = d_model = 5120, 2048 tokens per rank,
 1x8 cluster), exact and ``precision="lossy"`` (the q4 kernel).
-``--serve``: ``--model`` (``qwen3-0.6b`` by default, or
-``recurrentgemma-9b``) at full width (f32, random weights): one prefill of
+``--serve``: ``--model`` (``qwen3-0.6b`` by default, or any ported
+config: ``recurrentgemma-9b``, ``granite-moe-3b-a800m``) at full width (f32, random weights): one prefill of
 8 slots x 2048 tokens (s_max 4096), then one decode step of the 8 slots at
 position 2048, each with the share of device time in the flash-attention
-and lru_scan kernels.  ``--train``: ``qwen3-0.6b``'s cluster train step
+and lru_scan kernels.  ``--train``: ``--model``'s cluster train step
 (``runtime.steps``) at full width — full depth unless ``--layers`` cuts
 it — in ``--mode`` on the stacked ``--topology``, global batch 8 x 2048
 tokens: one warm-up step, then one profiled step, with the shares of the
 flash forward and backward kernels and of the f32 matrix products, and on
 a topology with a tp axis (``2x(2x2)``) the device time of the tp
 collectives: the ``tp::*`` ranges of their forwards (``ParallelCtx``)
-and their backward nodes, each range's kernels counted once.  Prints
-each
-run's wall time, the device busy time (the union of every kernel and copy
+and their backward nodes, each range's kernels counted once.  An MoE
+model adds the device time of its block's parts (``MOE_RANGES``: routing
+and tables, dispatch, the expert products, combine, and the gathers'
+backward nodes).  Prints each run's wall time, the device busy time (the union of every kernel and copy
 interval on the card, so overlapping streams count once), the busy share of
 the wall time, and the kernels that took most device time.  Needs a CUDA
 device.
@@ -75,6 +77,9 @@ def profile_scheme(a, b, scheme: str, chunks: int, top: int = 5) -> dict:
 #: nodes.
 TP_RANGES = ("tp::", "_AllGatherFnBackward", "_PsumScatterFnBackward",
              "_PsumFnBackward")
+#: The MoE block's parts (``models.moe``): its ``moe::*`` ranges and the
+#: dispatch / combine gathers' backward nodes.
+MOE_RANGES = ("moe::", "_DispatchBackward", "_RowGatherBackward")
 
 
 def _device_us(e) -> float:
@@ -175,24 +180,26 @@ def profile_serve(dev: torch.device, name: str, top: int = 8) -> None:
     def prefill():
         cache["c"] = model.prefill_fn(params, batch, s_max)[0]
 
-    r = profile_run(prefill, top)
+    ranges = MOE_RANGES if cfg.moe else ()
+    r = profile_run(prefill, top, ranges)
     _print("prefill", r)
     _print_share(r)
     tok = batch["tokens"][:, -1:]
     pos = torch.full((B,), T, dtype=torch.int32, device=dev)
     r = profile_run(lambda: model.decode_fn(params, cache["c"], tok, pos),
-                    top)
+                    top, ranges)
     _print("decode", r)
     _print_share(r)
 
 
 def profile_train(dev: torch.device, mode: str, topology: str,
-                  layers: int, top: int = 10) -> None:
-    """One step of ``qwen3-0.6b``'s cluster train step at full width."""
+                  layers: int, top: int = 10,
+                  name: str = "qwen3-0.6b") -> None:
+    """One step of ``name``'s cluster train step at full width."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.runtime.steps import make_cluster_train_step
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(name)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     vc = VirtualCluster.from_label(topology, device=dev)
@@ -210,15 +217,24 @@ def profile_train(dev: torch.device, mode: str, topology: str,
         bundle.step(state, batch)
 
     tp = bundle.model.ctx.tp_axis is not None
-    r = profile_run(step, top, TP_RANGES if tp else ())
+    r = profile_run(step, top, (TP_RANGES if tp else ())
+                    + (MOE_RANGES if cfg.moe else ()))
     _print("train", r)
     _print_share(r)
     if tp:
-        total = sum(r["ranges"].values())
-        print(f"[profile]    tp collectives {total:.2f} ms = "
-              f"{100 * total / r['busy_ms']:.1f}% of device busy time: "
-              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
-                  r["ranges"].items(), key=lambda kv: -kv[1])))
+        _print_ranges(r, TP_RANGES, "tp collectives")
+
+
+def _print_ranges(r: dict, parts: tuple, what: str) -> None:
+    """The device ms of the profiled ranges ``parts`` match, and their
+    share of the device busy time."""
+    hit = {k: v for k, v in r["ranges"].items()
+           if any(p_ in k for p_ in parts)}
+    total = sum(hit.values())
+    print(f"[profile]    {what} {total:.2f} ms = "
+          f"{100 * total / r['busy_ms']:.1f}% of device busy time: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+              hit.items(), key=lambda kv: -kv[1])))
 
 
 #: The port's kernels (and the library's f32 products) by parts of their
@@ -230,6 +246,8 @@ KERNELS = {"flash_attention": ("flash_fwd",),
 
 
 def _print_share(r: dict) -> None:
+    if any(k.startswith(MOE_RANGES) for k in r["ranges"]):
+        _print_ranges(r, MOE_RANGES, "MoE block parts")
     for kernel, parts in KERNELS.items():
         hits = [ms for name, ms in r["all"]
                 if any(part in name for part in parts)]
@@ -247,13 +265,13 @@ def main(argv=None):
     ap.add_argument("--serve", action="store_true",
                     help="profile a full-width model's prefill and decode")
     ap.add_argument("--model", default="qwen3-0.6b",
-                    help="the model --serve profiles")
+                    help="the model --serve / --train profiles")
     ap.add_argument("--train", action="store_true",
-                    help="profile qwen3-0.6b's cluster train step")
+                    help="profile a full-width model's cluster train step")
     ap.add_argument("--mode", default="hier", choices=["hier", "naive"])
     ap.add_argument("--topology", default="2x4")
     ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth for --train (0: all 28)")
+                    help="cut the depth for --train (0: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -266,7 +284,8 @@ def main(argv=None):
         profile_serve(dev, args.model)
         return
     if args.train:
-        profile_train(dev, args.mode, args.topology, args.layers)
+        profile_train(dev, args.mode, args.topology, args.layers,
+                      name=args.model)
         return
     g = torch.Generator(device=dev).manual_seed(0)
     a = torch.randn((args.n, args.n), generator=g, device=dev)

@@ -83,9 +83,15 @@ def state_close(got: dict, want: dict, steps: int, what: str = "state"
         ill = (((vb[bad] / c2).sqrt() < ILL_CONDITIONED)
                & a[bad].isfinite() & b[bad].isfinite())
         if not bool(ill.all()):
+            where = bad.nonzero()[~ill][:3]
+            cells = [f"{tuple(i.tolist())}: {a[tuple(i)].item():.6g} vs "
+                     f"{b[tuple(i)].item():.6g}, sqrt(v_hat) "
+                     f"{(vb[tuple(i)] / c2).sqrt().item():.3g}"
+                     for i in where]
             raise AssertionError(
                 f"{what} params {'/'.join(path)}: {int(bad.sum())} elements "
                 f"outside rtol {RTOL} atol {ATOL}, {int((~ill).sum())} of "
-                f"them where AdamW's update is well conditioned")
+                f"them where AdamW's update is well conditioned "
+                f"({'; '.join(cells)})")
         excused += int(bad.sum())
     return excused, total, worst

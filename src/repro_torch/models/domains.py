@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.comm.window import SharedWindow
 from repro_torch.core import tree as T
+from repro_torch.models.meta import store_dim
 from repro_torch.substrate.cluster import Mesh, active_mesh, bind_mesh
 from repro_torch.substrate.collectives import muted
 
@@ -114,7 +115,8 @@ class NodeCache(dict):
 
 def node_window(ctx, w: torch.Tensor, fsdp_dim: int, unit: bool
                 ) -> SharedWindow:
-    """The cluster's stacked leaf ``w`` ``(R, *local)`` as node windows: a
+    """The cluster's stacked leaf ``w`` ``(R, *local)`` stored along
+    ``fsdp_dim`` (``meta.store_dim``) as node windows: a
     window per (domain, tp rank) over the domain's store ranks, shard
     ``(D, [tp,] store, *local)``; ``read_node`` gives ONE buffer per node
     ``(D, [tp,] *full)``, the same bytes a domain run's ``gather_w`` reads
@@ -141,7 +143,8 @@ def domain_run(ctx, lay: Domains, d: int, device):
 def domain_params(ctx, lay: Domains, defs, params, d: int,
                   reads: Optional[list] = None) -> dict:
     """Domain ``d``'s parameter tree: views of the stacked leaves (a window
-    leaf's store ranks' shards, read at use), or where ``reads`` holds a
+    leaf's store ranks' shards, read at use: a leaf with a ``store_dim``,
+    the serve layout's expert d_ff included), or where ``reads`` holds a
     node buffer ``(D, [tp,] *full)``, domain ``d``'s (the unit dim
     first)."""
     a = d * lay.members
@@ -152,7 +155,7 @@ def domain_params(ctx, lay: Domains, defs, params, d: int,
             x = reads[i][d]
             out.append(x.movedim(1, 0) if u and lay.tp_dim else x)
             continue
-        win = lay.store > 1 and m.fsdp_dim is not None
+        win = lay.store > 1 and store_dim(m) is not None
         out.append(domain_view(w[a:a + lay.members], lay.store, lay.tp, win,
                                u, lay.tp_dim))
     return T.unflatten(params, out)

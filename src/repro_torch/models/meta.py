@@ -19,9 +19,14 @@ out with, and ``abstract_params`` the shapes on the ``meta`` device (no
 memory).  Serve-time defs (``serve=True``) replicate the attention weights
 over tp (decode computes every head on every tp rank and splits the cache
 along T instead); the ``serve_fsdp`` opt keeps every serve weight in the
-node store.  The 2-D decode layout (``decode2d``) waits for ROADMAP Queue 1
-item 17; the ``mlstm`` / ``slstm`` blocks and the MoE channel mix for item
-16.
+node store.  ``data_dim`` is the serve-only storage of the experts' d_ff
+(``moe_defs``): the node's store ranks hold a slice each, and the node's
+run reads the leaf as one buffer along it (``store_dim``).  Where the
+reference's ``serve_fsdp`` defs give such a leaf an FSDP dim too, its
+``param_specs`` maps the store axis to two dims (a spec JAX refuses); the
+port stores the leaf along its ``data_dim`` alone.  The 2-D decode layout
+(``decode2d``) waits for ROADMAP Queue 1 item 17; the ``mlstm`` /
+``slstm`` blocks for item 16.
 """
 
 from __future__ import annotations
@@ -45,6 +50,13 @@ class PMeta:
     data_dim: Optional[int] = None
     init: str = "normal"           # normal | out | zeros | ones | lam
     dtype: torch.dtype = torch.float32
+
+
+def store_dim(meta: PMeta) -> Optional[int]:
+    """The dim a leaf is stored along over the node's store ranks: its
+    ``data_dim`` (the serve layout's expert d_ff) if it has one, else its
+    ``fsdp_dim``."""
+    return meta.data_dim if meta.data_dim is not None else meta.fsdp_dim
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -142,6 +154,25 @@ def ffn_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
     }
 
 
+def moe_defs(cfg: ModelConfig, tp: int, serve: bool) -> dict[str, PMeta]:
+    """The experts stored ``(tp, E_loc, ...)`` with dim 0 over tp (one
+    entry per rank: ``(ep, tp_ff) = MoESpec.ep_tp(tp)``); serve stores
+    their d_ff over the node's store ranks (``data_dim``)."""
+    d = cfg.d_model
+    spec = cfg.moe
+    ep, tp_ff = spec.ep_tp(tp)
+    e_loc = spec.num_experts // ep
+    n_ff = spec.d_ff_expert // tp_ff
+    return {
+        "ln": PMeta((d,), init="zeros"),
+        "router": PMeta((d, spec.num_experts)),
+        "w_in": PMeta((tp, e_loc, d, 2, n_ff), tp_dim=0,
+                      data_dim=4 if serve else None),
+        "w_out": PMeta((tp, e_loc, n_ff, d), tp_dim=0, init="out",
+                       data_dim=2 if serve else None),
+    }
+
+
 def rglru_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
     d, dr = cfg.d_model, cfg.rnn_width
     return {
@@ -160,8 +191,8 @@ def block_defs(kind: str, cfg: ModelConfig, tp: int, serve: bool,
         out = ({"rglru": rglru_defs(cfg, tp)} if kind == "rglru"
                else {"attn": attn_defs(cfg, tp, serve, opts)})
         if cfg.moe:
-            raise not_ported("the MoE channel mix (models/moe.py)", 16)
-        if cfg.d_ff:
+            out["moe"] = moe_defs(cfg, tp, serve)
+        elif cfg.d_ff:
             out["ffn"] = ffn_defs(cfg, tp)
         return out
     if kind in ("mlstm", "slstm"):
@@ -262,15 +293,14 @@ def param_specs(defs: dict, cfg: ModelConfig, *, tp_axis: Optional[str],
                 fsdp_axis: Optional[str]) -> dict:
     """The ``P`` tree of the parameters (stacked unit dims accounted
     for): ``tp_dim`` over ``tp_axis``, ``fsdp_dim`` / ``data_dim`` over
-    ``fsdp_axis``."""
+    ``fsdp_axis``, or ``data_dim`` alone where a leaf has one
+    (``store_dim``)."""
     def mk(path, meta: PMeta):
         off = 1 if path and path[0] == "units" else 0
         spec = [None] * (len(meta.shape) + off)
         if meta.tp_dim is not None and tp_axis:
             spec[meta.tp_dim + off] = tp_axis
-        if meta.fsdp_dim is not None and fsdp_axis:
-            spec[meta.fsdp_dim + off] = fsdp_axis
-        if meta.data_dim is not None and fsdp_axis:
-            spec[meta.data_dim + off] = fsdp_axis
+        if store_dim(meta) is not None and fsdp_axis:
+            spec[store_dim(meta) + off] = fsdp_axis
         return P(*spec)
     return map_defs(mk, defs)

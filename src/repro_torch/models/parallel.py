@@ -79,6 +79,14 @@ class ParallelCtx:
     # tp = 1 the serving options (bf16_rope, bf16_probs) are no-ops
     opts: frozenset = frozenset()
     overlap_chunks: int = 2
+    # a domain run's token layout (``models.domains``): the train step
+    # folds ``fold`` ranks' batch rows into one batch (the MoE block
+    # dispatches each rank's rows apart, with its own capacity); hier
+    # serving's run stands for its node's ``node_copies`` store ranks,
+    # whose replicated batches the reference gathers into one token set
+    # (the MoE decode's capacity counts them)
+    fold: int = 1
+    node_copies: int = 1
 
     def __post_init__(self):
         if self.tp != 1 and not self.tp_axis:
@@ -119,6 +127,13 @@ class ParallelCtx:
         """Each stacked rank's index on the tp axis, ``(R,)`` int64 (0
         without a tp axis)."""
         return coll.axis_index(self.tp_axis) if self.tp_axis else 0
+
+    def tp_group_rank(self, group: int):
+        """(outer, inner) coords when the tp axis is factored as
+        ``(tp // group, group)``: outer = rank // group, inner = rank %
+        group; per stacked rank ``(R,)`` with a tp axis."""
+        r = self.tp_rank
+        return r // group, r % group
 
     def tp_ranks(self) -> list[int]:
         """``tp_rank`` as host ints, one per stacked rank of the bound

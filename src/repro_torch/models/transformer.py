@@ -8,15 +8,17 @@ Python loop over units takes the place of ``lax.scan``.
 
 Ported: the ``attn`` / ``local`` blocks (prefill and the 1D decode path),
 the ``rglru`` block (``models/rglru.py``: prefill through the lru_scan
-kernel, a one-step decode), the token frontend, prefill with the cache
+kernel, a one-step decode), the dense ffn and the MoE channel mix
+(``models/moe.py``: the train path on prefill and the loss, the serve path
+on decode), the token frontend, prefill with the cache
 re-layout (ring slots for a window; recurrent state passed through),
 decode with per-slot positions, and the training loss (``_loss``): the
 unit walk with a per-unit remat (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``), the bounded prefetch of the units' window
 reads (kept outside the remat region, as the reference keeps them) and the
 streamed cross-entropy.  What raises ``NotImplementedError``: the
-``mlstm`` / ``slstm`` blocks, the MoE channel mix and the ``vit`` /
-``encodec`` frontends (ROADMAP Queue 1 item 16).  Training through the
+``mlstm`` / ``slstm`` blocks and the ``vit`` / ``encodec`` frontends
+(ROADMAP Queue 1 item 16).  Training through the
 ``rglru`` block is not offered on the card: the lru_scan kernel has no
 backward yet and refuses a grad-carrying call.
 
@@ -64,6 +66,7 @@ from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
                                        rms_norm, rope_decode, sinusoidal_pe,
                                        unembed_xent, unembed_xent_rows)
 from repro_torch.models.meta import not_ported as _not_ported
+from repro_torch.models.moe import moe_block
 from repro_torch.models.parallel import (ParallelCtx, ParamGroup,
                                          prefetch_walk)
 from repro_torch.models.rglru import rglru_block, rglru_state_init
@@ -168,8 +171,10 @@ class ClusterModel(Model):
             raise TypeError("decode on the cluster takes the NodeCache of "
                             "model.cache_init / model.prefill_fn")
         lay = Domains.of(self.ctx)
-        run_ctx = self.ctx if reads is None \
-            else dataclasses.replace(self.ctx, fsdp_axes=())
+        # the node's run stands for its store ranks' copies of the batch
+        run_ctx = dataclasses.replace(self.ctx, node_copies=lay.store)
+        if reads is not None:
+            run_ctx = dataclasses.replace(run_ctx, fsdp_axes=())
         token, pos = torch.as_tensor(token), torch.as_tensor(pos)
         logits = []
         for d in range(lay.count):
@@ -211,9 +216,10 @@ def _unit(tree: dict, u: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _mix(kind: str, x, p, mt, ctx, cfg, *, serve=False):
-    """Channel-mixing half of attn/local blocks."""
+    """Channel-mixing half of attn/local/rglru blocks: the MoE block
+    (``models.moe``) or the dense ffn."""
     if cfg.moe:
-        raise _not_ported("the MoE channel mix (models/moe.py)", 16)
+        return moe_block(x, p["moe"], mt["moe"], ctx, cfg, serve=serve)
     if not cfg.d_ff:
         return x
     f = ffn_decode if serve else ffn

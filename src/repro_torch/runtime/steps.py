@@ -76,7 +76,7 @@ from repro_torch.comm import Communicator
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as T
 from repro_torch.models.domains import domain_view, units_flags
-from repro_torch.models.meta import not_ported
+from repro_torch.models.meta import not_ported, store_dim
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import Model, _loss, build
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
@@ -204,7 +204,7 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
     leaves = T.leaves(params)
     metas = T.leaves(defs)
     units = T.leaves(units_flags(params))
-    window = [s > 1 and m.fsdp_dim is not None for m in metas]
+    window = [s > 1 and store_dim(m) is not None for m in metas]
     on_card = tokens.device.type == "cuda"
     base = device_bytes(tokens.device) if on_card else 0
     grads = [torch.zeros_like(w) for w in leaves]
@@ -214,6 +214,9 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
     loss = torch.zeros(R, dtype=torch.float32, device=tokens.device)
     cnt = torch.zeros(R, dtype=torch.float32, device=tokens.device)
     mesh = Mesh((ctx.tp_axis,), (t,), (), tokens.device) if tp else None
+    # the node's rows folded into one batch: the MoE block dispatches each
+    # member's rows apart (the reference's per-rank capacity)
+    run_ctx = dataclasses.replace(ctx, fold=s)
 
     def from_domain(g, win, u, dst):
         if not tp:
@@ -236,7 +239,7 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
         with torch.enable_grad(), (bind_mesh(mesh) if tp
                                    else contextlib.nullcontext()), (
                 muted() if a else contextlib.nullcontext()):
-            nll, count = _loss(cfg, ctx, defs, T.unflatten(params, dom),
+            nll, count = _loss(cfg, run_ctx, defs, T.unflatten(params, dom),
                                {"tokens": rows}, rows=True)
             got = torch.autograd.grad(nll.sum(), dom, allow_unused=True)
         for g, dst, win, u in zip(got, grads, window, units):

@@ -11,7 +11,9 @@ behind one event), and on later calls with the same signature replays the
 cached ``Schedule`` through ``apply_schedule`` — the step graph's passes
 applied to serving, with bit-identical outputs.
 
-Each recorded gather resolves to ONE buffer per node
+Every node-stored leaf is recorded: an FSDP leaf and, in the serve
+layout of an MoE model, an expert leaf stored along its d_ff
+(``meta.store_dim``).  Each recorded gather resolves to ONE buffer per node
 (``models.domains.node_window`` read with ``read_node``), the bytes the
 eager decode's per-node read gives — never every rank's copy of the
 weights — and the domains then run with ``fsdp_axes=()`` on those
@@ -29,6 +31,7 @@ import torch
 from repro_torch.comm.stepgraph import ScheduleResult, apply_schedule
 from repro_torch.core import tree as T
 from repro_torch.models.domains import node_window, units_flags
+from repro_torch.models.meta import store_dim
 
 
 def _paths(tree, prefix: str = "") -> list[str]:
@@ -78,10 +81,10 @@ class RecordedDecoder:
         for path, m, w, u in zip(_paths(params), T.leaves(model.serve_defs),
                                  T.leaves(params),
                                  T.leaves(units_flags(params))):
-            if m.fsdp_dim is None:
+            if store_dim(m) is None:
                 refs.append(None)
                 continue
-            win = node_window(ctx, w.to(ctx.compute_dtype), m.fsdp_dim, u)
+            win = node_window(ctx, w.to(ctx.compute_dtype), store_dim(m), u)
             refs.append(rec.gather(win, key=path, node=True))
 
         token, pos = torch.as_tensor(token), torch.as_tensor(pos)

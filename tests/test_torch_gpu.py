@@ -341,7 +341,9 @@ FLASH_CASES = [(1, 4, 4, 128, 128, 64, True, None),    # tests/test_kernels.py
                (1, 2, 1, 100, 100, 128, True, 1),
                (1, 2, 2, 1, 1, 64, True, None),
                (1, 4, 2, 70, 70, 256, True, 5),
-               (2, 2, 1, 77, 300, 128, False, None)]
+               (2, 2, 1, 77, 300, 128, False, None),
+               # granite-moe-3b-a800m's heads: 24 q / 8 kv at hd 64
+               (2, 24, 8, 200, 200, 64, True, None)]
 
 
 def _flash_tol(dtype):
@@ -530,7 +532,9 @@ BWD_CASES = [(2, 4, 2, 100, 100, 16, True, None, 0, "bhtd"),
              # a tile boundary at hd 256 and one kv head: the dk / dv pass
              # splits the group's q heads over CTAs
              (1, 8, 1, 130, 130, 256, True, 64, 0, "bhtd"),
-             (2, 16, 1, 200, 260, 128, True, None, 60, "bthd")]
+             (2, 16, 1, 200, 260, 128, True, None, 60, "bthd"),
+             # granite-moe-3b-a800m's heads: hd 64, 3 q heads a kv head
+             (2, 24, 8, 130, 130, 64, True, None, 0, "bthd")]
 
 
 @pytest.mark.parametrize("case", BWD_CASES)
@@ -626,17 +630,18 @@ def test_flash_autograd_route_and_refusals(cuda):
         ops.matmul(x, x)
 
 
-def test_cluster_train_step_on_the_card_matches_the_cpu(cuda):
-    """The reduced qwen3-0.6b's hier step on 2x4: the card (the flash kernel
-    and its backward) against the CPU (the plain version's autograd): loss
-    rtol 2e-4, gnorm 5e-3, the state under ``PERF.md`` §2's rule with at
-    most 1e-5 of the params excused."""
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m"])
+def test_cluster_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced ``arch``'s hier step on 2x4: the card (the flash kernel
+    and its backward; the MoE block's gather dispatch and combine) against
+    the CPU (the plain version's autograd): loss rtol 2e-4, gnorm 5e-3,
+    the state under ``PERF.md`` §2's rule with at most 1e-5 of the params
+    excused."""
     from repro_torch.analysis.state_rule import state_close
     from repro_torch.core import tree as T
     from repro_torch.kernels import flash_attention_bwd as kbwd
     from repro_torch.runtime.steps import make_cluster_train_step
-    cfg = get_config("qwen3-0.6b").reduced(n_layers=2, d_model=128,
-                                           n_heads=2)
+    cfg = get_config(arch).reduced(n_layers=2, d_model=128, n_heads=2)
     toks = torch.randint(0, cfg.vocab, (8, 65),
                          generator=torch.Generator().manual_seed(1))
     from repro_torch.optim.adamw import adamw_init
@@ -701,12 +706,15 @@ def test_elastic_pod_loss_on_the_card_is_bit_identical(cuda, tmp_path):
     assert all(rep.losses[s] == ref.losses[s] for s in ref.losses)
 
 
-def _serve_run(dev, label, decode=None, steps=2, arch="qwen3-0.6b"):
+def _serve_run(dev, label, decode=None, steps=2, arch="qwen3-0.6b",
+               replay=None):
     """The reduced ``arch`` (d 128) in the serve_fsdp layout on ``label``:
     prefill (the train layout) of 2 prompts of 16 tokens, then ``steps``
     decode steps at per-slot positions; returns every step's logits (the
-    first the prefill's) and the final cache."""
+    first the prefill's), the final cache and an MoE model's routing
+    (``moe.routes``; ``replay``: route as an earlier run did)."""
     from repro_torch.core import tree as T
+    from repro_torch.models import moe
     from repro_torch.runtime.steps import cluster_ctx
     from repro_torch.substrate.cluster import P
     cfg = get_config(arch).reduced(d_model=128, n_heads=4)
@@ -714,8 +722,10 @@ def _serve_run(dev, label, decode=None, steps=2, arch="qwen3-0.6b"):
     ctx = cluster_ctx(vc, opts=("serve_fsdp",))
     sizes = dict(zip(vc.axis_names, vc.axis_shapes))
     model = build(cfg, ctx, data=sizes[ctx.fsdp_axes[0]], device=dev)
+    # drawn on the CPU in the ctx's tree (an MoE's expert leaves are
+    # stored (tp, E / ep, ...)), the same on both devices
     params = T.tree_map(lambda t: t.to(dev), build(
-        cfg, ParallelCtx.single(), device="cpu").init_params(0))
+        cfg, ctx, data=sizes[ctx.fsdp_axes[0]], device="cpu").init_params(0))
     fsdp = ctx.fsdp_axes[0]
     train = vc.layout(params, model.param_specs(tp_axis=ctx.tp_axis,
                                                 fsdp_axis=fsdp))
@@ -724,7 +734,7 @@ def _serve_run(dev, label, decode=None, steps=2, arch="qwen3-0.6b"):
     toks = torch.randint(0, cfg.vocab, (2, 17),
                          generator=torch.Generator().manual_seed(2))
     decode = decode(model) if decode else model.decode_fn
-    with vc.bind():
+    with vc.bind(), moe.routes(replay) as routes:
         cache, lg = model.prefill_fn(train, {"tokens": vc.layout(toks, P())},
                                      32)
         out = [lg[0].cpu()]
@@ -735,34 +745,81 @@ def _serve_run(dev, label, decode=None, steps=2, arch="qwen3-0.6b"):
                                vc.layout(pos, P()))
             out.append(lg[0].cpu())
             pos = pos + 1
-    return out, T.tree_map(lambda t: t.cpu(), dict(cache))
+    return out, T.tree_map(lambda t: t.cpu(), dict(cache)), [
+        t.cpu() for t in routes["idx"]]
 
 
 @pytest.mark.parametrize("label,arch", [
     ("2x4", "qwen3-0.6b"), ("2x(2x2)", "qwen3-0.6b"),
-    ("2x(2x2)", "recurrentgemma-9b")])
+    ("2x(2x2)", "recurrentgemma-9b"), ("2x4", "granite-moe-3b-a800m"),
+    ("2x(2x2)", "granite-moe-3b-a800m")])
 def test_cluster_decode_on_the_card_matches_the_cpu(cuda, label, arch):
     """Prefill (the flash kernel, and the hybrid's lru_scan kernel, on the
     card; their plain versions on the CPU) and two decode steps on the
-    cluster: logits within 1e-4 relative."""
+    cluster: logits within 1e-4 relative.  An MoE model's routing tables
+    are compared first; where a near-tie top k flips, the card runs again
+    on the CPU's routing."""
     before = (kflash.launches, klru.launches)
-    card, _ = _serve_run(cuda, label, arch=arch)
+    card, _, r_card = _serve_run(cuda, label, arch=arch)
     assert kflash.launches > before[0]
-    assert klru.launches > before[1] or arch == "qwen3-0.6b"
-    cpu, _ = _serve_run(torch.device("cpu"), label, arch=arch)
+    assert klru.launches > before[1] or arch != "recurrentgemma-9b"
+    cpu, _, r_cpu = _serve_run(torch.device("cpu"), label, arch=arch)
+    assert len(r_card) == len(r_cpu) and bool(r_cpu) == ("moe" in arch)
+    if not all(torch.equal(a.sort(-1)[0], b.sort(-1)[0])
+               for a, b in zip(r_card, r_cpu)):
+        card, _, _ = _serve_run(cuda, label, arch=arch, replay=r_cpu)
     for a, b in zip(card, cpu):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
 
 
 @pytest.mark.parametrize("label", ["2x4", "2x(2x2)"])
-def test_recorded_decode_on_the_card_is_bit_identical(cuda, label):
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m"])
+def test_recorded_decode_on_the_card_is_bit_identical(cuda, label, arch):
     """RecordedDecoder against the sync decode on the card (the gathers
-    front-loaded on the side stream): logits and cache ``torch.equal``."""
+    front-loaded on the side stream; the MoE expert leaves read along
+    their d_ff): logits and cache ``torch.equal``."""
     from repro_torch.serving.recorded import RecordedDecoder
     from repro_torch.core import tree as T
-    sync, c_sync = _serve_run(cuda, label, steps=3)
-    rec, c_rec = _serve_run(cuda, label, decode=RecordedDecoder, steps=3)
+    sync, c_sync, _ = _serve_run(cuda, label, steps=3, arch=arch)
+    rec, c_rec, _ = _serve_run(cuda, label, decode=RecordedDecoder, steps=3,
+                               arch=arch)
     assert all(torch.equal(a, b) for a, b in zip(sync, rec))
     assert all(torch.equal(a, b) for a, b in zip(T.leaves(c_sync),
                                                  T.leaves(c_rec)))
+
+
+def test_moe_block_on_the_card_is_deterministic_and_matches_the_cpu(cuda):
+    """granite's full-width MoE block (d 1536, 40 experts, top 8) on 2 x 256
+    tokens at capacity 1.25: the card's routing tables equal the CPU's
+    (the flip count is 0 or the rows are compared where they agree), two
+    forward + backward runs on the card are bit-identical (the gather
+    dispatch and combine use no atomics), and output and gradients match
+    the CPU within 1e-4 relative where the tables agree."""
+    from repro_torch.models import meta, moe
+    cfg = get_config("granite-moe-3b-a800m")
+    defs = meta.moe_defs(cfg, 1, False)
+    g = torch.Generator().manual_seed(3)
+    p = {k: torch.randn(m.shape, generator=g) * (0.02 if k != "ln" else 0)
+         for k, m in defs.items()}
+    x = torch.randn((2, 256, cfg.d_model), generator=g)
+    ctx = ParallelCtx.single()
+
+    def run(dev):
+        xd = x.to(dev).requires_grad_(True)
+        pd = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        y = moe.moe_block(xd, pd, defs, ctx, cfg)
+        gx, gw = torch.autograd.grad((y * y).sum(), (xd, pd["w_in"]))
+        h = moe.rms_norm(x.to(dev), p["ln"].to(dev), cfg.norm_eps)
+        idx, _ = moe.route(h.reshape(-1, cfg.d_model), p["router"].to(dev),
+                           cfg.moe.top_k)
+        return [t.detach().cpu() for t in (y, gx, gw, idx)]
+
+    a, b, c = run(cuda), run(cuda), run(torch.device("cpu"))
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    same = (a[3] == c[3]).all(-1).reshape(2, 256)
+    assert same.float().mean() > 0.95
+    for u, v in zip(a[:2], c[:2]):
+        assert (u[same] - v[same]).abs().max() <= 1e-4 * v.abs().max()
+    if bool(same.all()):
+        assert (a[2] - c[2]).abs().max() <= 1e-4 * c[2].abs().max()
