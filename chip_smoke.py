@@ -209,6 +209,32 @@ its recompute rule on finite operands whose dk overflows.
    parts), then the training C1 at 2 layers (4.0 on 2x4 with hier vs
    naive under §2's rule, 2.0 on ``2x(2x2)``).
 
+16. the xLSTM family (after phase 15): ``xlstm-1.3b`` at full width (d
+   2048, 4 heads of 1024, d_inner 4096, 6 units of 7 mLSTM + 1 sLSTM,
+   vocab 50304), f32, seeded weights; its blocks reach no Pallas kernel in
+   the reference and launch no hand-written kernel here (every kernel
+   count is zeroed before each run and must read 0 after it) — (a) hier
+   on 2x4 at full depth with ``serve_fsdp``: phase 14's 8 prompts (none a
+   whole number of 128-token mLSTM chunks) prefilled once per node, the
+   decode state's bytes, 32 greedy decode steps with the sync decode and
+   ``RecordedDecoder``: ``torch.equal`` logits and state, one gather per
+   node-stored leaf, the stored weights 2.00 node copies, p50 / p99 and
+   tokens/s, one profiled step's ``xlstm::*`` split; (b) one pattern unit
+   (8 layers), card against CPU on 1x4: a 130-token prefill of 2 prompts
+   and 4 decode steps within 1e-4 relative, and one hier train step under
+   ``PERF.md`` §2's rule; (c) naive against hier on 2x4 at 8 layers:
+   weight C1 = 4.0 exactly; (d) the sLSTM loop alone at a training
+   domain's shape (ms and device activities a step, forward and
+   backward), then ``make_cluster_train_step`` hier, 8 x 2048, 2 steps on
+   2x4 and ``2x(2x2)`` at the deepest whole number of units whose state
+   fits (printed with its bytes; the peak allocated is printed), the
+   loop's share of the step, then the training C1 at 8 layers (4.0 on
+   2x4 with hier vs naive under §2's rule, 2.0 on ``2x(2x2)``), the hier
+   bundles each profiling one step of 8 x 256 (2 mLSTM chunks: the parts,
+   the tp collectives); (e) the
+   head groups: one train step on ``1x(1x8)`` (tp 8 over 4 heads, g 2) at
+   8 layers against the single-device step under §2's rule.
+
 Phase 2 holds the flash forward and backward kernels at phase 12's shapes
 too: (8, 2048, 8 q / 4 kv, 128) and (2, 256, 36 q / 4 kv, 128) against
 2048 keys at q_offset 256 and 1792; and at phase 15's (hd 64): the
@@ -217,11 +243,12 @@ training forward and backward (4, 2048, 24 q / 8 kv, 64) and one
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
 phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
-12 (a), each of phase 13's runs, phase 14's prefills and phase 15's
-prefills and training runs) and read just after; the JSON's flash rows
-sum the main paths that launch them.  The recompute counters (the
-non-finite rule's, and the flash backward's) are zeroed before phase 3
-and must read 0 after phase 15.  The line
+12 (a), each of phase 13's runs, phase 14's prefills, phase 15's
+prefills and training runs, and phase 16's runs, which launch none) and
+read just after; the JSON's flash rows sum the main paths that launch
+them.  The recompute counters (the non-finite rule's, and the flash
+backward's) are zeroed before phase 3 and must read 0 after phase 16.
+The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1490,6 +1517,599 @@ def moe_phase(dev) -> dict:
         raise AssertionError(f"moe training C1 {c1} / {c1_tp}")
     free()
     print(f"[phase] moe (d) {time.perf_counter() - t_d:.1f} s")
+    return launches
+
+
+XLSTM_NAME = "xlstm-1.3b"
+#: device bytes kept free for a training step's activations beside its
+#: state: one unit's recompute and backward at 4 x 2048 tokens a domain (7
+#: mLSTM layers' chunk states and intermediates, the sLSTM loop's
+#: carries).  A one-unit step on 2x(2x2) peaked 43.4 GB above its 19.5 GB
+#: of state on an H100 (2x4: 38.3 GB); this keeps ~6 GB more
+XLSTM_TRAIN_TRANSIENTS = 46 * 2 ** 30
+
+
+def xlstm_phase(dev, cfg=None) -> dict:
+    """Phase 16: the xLSTM family at ``xlstm-1.3b``'s full width (d 2048,
+    4 heads of 1024, d_inner 4096, conv 4, vocab 50304; 6 units of 7 mLSTM
+    + 1 sLSTM), f32, seeded weights.  The blocks reach no Pallas kernel in
+    the reference and launch no hand-written kernel here: returns the
+    kernel launches of its main-path runs (zeroed just before each, read
+    just after), which must all be 0.  ``cfg`` stands in for the full-width
+    config (a reduced one rehearses the phase on the CPU)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.analysis import traffic
+    from repro_torch.analysis.profile import (TP_RANGES, XLSTM_RANGES,
+                                              profile_run)
+    from repro_torch.analysis.state_rule import state_close
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import lru_scan as klru
+    from repro_torch.kernels import matmul as kmatmul
+    from repro_torch.kernels import quant as kquant
+    from repro_torch.models import ParallelCtx, build, meta
+    from repro_torch.models.domains import NodeCache
+    from repro_torch.models.meta import store_dim
+    from repro_torch.models.transformer import MLSTM_CHUNK
+    from repro_torch.models.xlstm import slstm_block
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.steps import (cluster_ctx,
+                                           make_cluster_train_step)
+    from repro_torch.serving.recorded import RecordedDecoder
+    from repro_torch.substrate import VirtualCluster
+    from repro_torch.substrate.cluster import P
+
+    cfg = cfg or get_config(XLSTM_NAME)
+    kernels = {"matmul": kmatmul, "q4_matmul": kquant,
+               "flash_attention": kflash, "flash_attention_bwd": kbwd,
+               "lru_scan": klru}
+    launches = dict.fromkeys(kernels, 0)
+
+    def zero():
+        for k_ in kernels.values():
+            k_.launches = 0
+
+    def read(what):
+        got = {n: k_.launches for n, k_ in kernels.items()}
+        for n, v in got.items():
+            launches[n] += v
+        if any(got.values()):
+            raise AssertionError(f"xlstm {what} launched {got}: the xLSTM "
+                                 f"path has no hand-written kernel")
+
+    lengths, S, steps = (SERVE_CLUSTER_LENGTHS, SERVE_CLUSTER_SMAX,
+                         SERVE_CLUSTER_STEPS)
+    nb = len(lengths)
+    rows = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=max(lengths),
+                                  global_batch=nb, seed=24)).next_batch()[
+        "tokens"]
+    prompts = [rows[i, :n].astype(np.int32) for i, n in enumerate(lengths)]
+    cpu = torch.device("cpu")
+    hd = cfg.d_inner // cfg.n_heads
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in T.leaves(tree))
+
+    def model_on(vc, c, mode="hier", opts=("serve_fsdp",), d_=dev):
+        ctx = cluster_ctx(vc, mode=mode, opts=opts)
+        sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+        return build(c, ctx, data=math.prod(sizes[a] for a in
+                                            ctx.fsdp_axes), device=d_)
+
+    def specs(m, serve):
+        ctx = m.ctx
+        return m.param_specs(serve=serve, tp_axis=ctx.tp_axis,
+                             fsdp_axis=ctx.fsdp_axes[0] if ctx.fsdp_axes
+                             else None)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def sync():
+        torch.cuda.synchronize()
+
+    print(f"[xlstm] {cfg.name}: d {cfg.d_model}, {cfg.n_heads} heads x "
+          f"{hd} (d_inner {cfg.d_inner}), conv {cfg.conv_kernel}, vocab "
+          f"{cfg.vocab} (padded {cfg.vocab_padded}), {cfg.n_layers} layers "
+          f"= {cfg.n_units} units of {cfg.pattern.count('mlstm')} mLSTM + "
+          f"{cfg.pattern.count('slstm')} sLSTM, f32")
+
+    # (a) hier serving on 2x4 at full depth, serve_fsdp: phase 14's 8
+    # prompts (none a multiple of the 128-token chunk: the ragged chunk),
+    # 32 greedy decode steps, sync and recorded
+    t_a = time.perf_counter()
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    m = model_on(vc, cfg)
+    params = m.init_params(24)
+    w_bytes = nbytes(params)
+    print(f"[xlstm] parameters {sum(t.numel() for t in T.leaves(params))} "
+          f"({w_bytes / 1e9:.3f} GB of f32, vocab padding included; "
+          f"config.param_count() {cfg.param_count()})")
+    with vc.bind():
+        train = vc.layout(params, specs(m, False))
+        cache = m.cache_init(nb, S)
+        first = []
+        zero()
+        sync()
+        t0 = time.perf_counter()
+        for pr in prompts:
+            toks = torch.from_numpy(np.concatenate([pr, pr[-1:]])[None])
+            c, lg = m.prefill_fn(train, {"tokens": vc.layout(toks, P())}, S)
+            cache.copy_row(c, 0, len(first))
+            first.append(lg[0, 0, 0])
+            del c
+        sync()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        read("prefill")
+        first = torch.stack(first)
+        per_node = nbytes(dict(cache)) / vc.pods
+        by_kind = {}
+        for key, leaves in cache["units"].items():
+            kind = cfg.pattern[int(key[1:])]
+            by_kind[kind] = by_kind.get(kind, 0) + nbytes(leaves) / vc.pods
+        print(f"[xlstm] 2x4 hier: prefill of {nb} prompts ({lengths[0]}-"
+              f"{lengths[-1]} tokens, one run per node) {pre_ms:.1f} ms "
+              f"({vc.pods * sum(lengths) / pre_ms * 1e3:.1f} tokens/s over "
+              f"both nodes' runs); decode state {per_node / 1e9:.3f} GB per "
+              f"node for {nb} rows (mLSTM {by_kind['mlstm'] / 1e9:.3f} GB: "
+              f"C / n / m / conv of {cfg.n_units * cfg.pattern.count('mlstm')}"
+              f" layers, sLSTM {by_kind['slstm'] / 1e9:.4f} GB)")
+        del train
+        free()
+        base = traffic.device_bytes(dev)
+        serve = vc.layout(params, specs(m, True))
+        stored = traffic.device_bytes(dev) - base
+        del params
+        free()
+
+        def decode_loop(decode, cache_):
+            tok, pos = first.argmax(-1), torch.tensor(lengths)
+            out, ms = [], []
+            for _ in range(steps):
+                sync()
+                t1 = time.perf_counter()
+                cache_, lg_ = decode(serve, cache_,
+                                     vc.layout(tok[:, None].int(), P()),
+                                     vc.layout(pos, P()))
+                sync()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                out.append(lg_[0, :, 0].clone())
+                tok, pos = out[-1].argmax(-1), pos + 1
+            return out, ms, cache_
+
+        def report(label, ms):
+            tail = ms[1:]
+            print(f"[xlstm] 2x4 {label}: decode step p50 "
+                  f"{1e3 * pct(tail, 0.5):.0f} us p99 "
+                  f"{1e3 * pct(tail, 0.99):.0f} us (steps 2-{len(ms)}; "
+                  f"step 1 {ms[0]:.1f} ms), "
+                  f"{nb * len(tail) / sum(tail) * 1e3:.1f} tokens/s (phase "
+                  f"16 (a) at {time.perf_counter() - t_a:.1f} s)")
+
+        c_sync = NodeCache(T.tree_map(lambda t: t.clone(), dict(cache)),
+                           cache.domains)
+        zero()
+        sync_out, s_ms, c_sync = decode_loop(m.decode_fn, c_sync)
+        report("sync", s_ms)
+        dec = RecordedDecoder(m)
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        rec, r_ms, c_rec = decode_loop(dec, cache)
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        report("recorded", r_ms)
+        read("decode")
+        same = all(torch.equal(a, b) for a, b in zip(sync_out, rec)) and all(
+            torch.equal(a, b) for a, b in zip(T.leaves(dict(c_sync)),
+                                              T.leaves(dict(c_rec))))
+        (sched,) = dec.schedules.values()
+        n_g = sum(n.family == "gather" for n in sched.graph.nodes)
+        n_store = sum(store_dim(mt) is not None
+                      for mt in T.leaves(m.serve_defs))
+        print(f"[xlstm] 2x4: recorded == sync (every step's logits and the "
+              f"final state, torch.equal) {same}; schedule built once, "
+              f"replayed {steps - 1} times, gathers {n_g} (node-stored "
+              f"leaves {n_store})")
+        print(f"[xlstm] 2x4: stored weights {stored / 1e9:.3f} GB "
+              f"({stored / w_bytes:.2f} x {w_bytes / 1e9:.3f} GB: one copy "
+              f"per node); a recorded step's peak above the held state "
+              f"{peak / 1e9:.3f} GB (the node buffers: {stored / 1e9:.3f} GB)")
+        if not same or n_g != n_store or len(dec.schedules) != 1:
+            raise AssertionError(f"xlstm: recorded differs from sync or "
+                                 f"gathers {n_g} != {n_store}")
+        if stored != vc.pods * w_bytes or peak > stored + 2 ** 31:
+            raise AssertionError(f"xlstm: stored {stored}, recorded step "
+                                 f"peak {peak}")
+        if not all(torch.isfinite(x).all() for x in sync_out):
+            raise AssertionError("xlstm: non-finite decode logits")
+        # one sync decode step under the profiler: the blocks' parts
+        c_p = NodeCache(T.tree_map(lambda t: t.clone(), dict(c_rec)),
+                        cache.domains)
+        tok = vc.layout(rec[-1].argmax(-1)[:, None].int(), P())
+        pos = vc.layout(torch.tensor(lengths) + steps, P())
+        zero()
+        r = profile_run(lambda: m.decode_fn(serve, c_p, tok, pos),
+                        ranges=XLSTM_RANGES)
+        read("profiled decode")
+        x_ms = sum(r["ranges"].values())
+        print(f"[xlstm] 2x4: one sync decode step profiled: wall "
+              f"{r['wall_ms']:.1f} ms, device busy {r['busy_ms']:.1f} ms "
+              f"({100 * r['busy_share']:.1f}%), {r['launches']} device "
+              f"activities; xLSTM parts {x_ms:.3f} ms "
+              f"({100 * x_ms / r['busy_ms']:.1f}% of busy: "
+              f"{ {k: round(v, 3) for k, v in r['ranges'].items()} }; host "
+              f"{ {k: round(v, 1) for k, v in r['ranges_wall'].items()} } "
+              f"ms)")
+        del serve, cache, c_sync, c_rec, c_p, sync_out, rec
+    free()
+    print(f"[phase] xlstm (a) {time.perf_counter() - t_a:.1f} s")
+
+    # (b) one pattern unit (8 layers) at full width, card against CPU, hier
+    # on one node (1x4): a 130-token prefill (a ragged second chunk) of 2
+    # prompts and 4 decode steps, then one train step of 8 x 32 tokens
+    t_b = time.perf_counter()
+    cfg8 = dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+    p8 = T.tree_map(lambda t: t.cpu(), model_on(
+        VirtualCluster(pods=2, chips=4, device=dev), cfg8).init_params(25))
+    toks2 = torch.from_numpy(rows[1:3, :131].astype(np.int32))
+    feed = torch.from_numpy(rows[1:3, 131:135].astype(np.int32))
+
+    def serve8(d_):
+        vc_d = VirtualCluster(pods=1, chips=4, device=d_)
+        m8 = model_on(vc_d, cfg8, d_=d_)
+        pp = T.tree_map(lambda t: t.to(d_), p8)
+        with vc_d.bind():
+            cache, lg = m8.prefill_fn(vc_d.layout(pp, specs(m8, False)),
+                                      {"tokens": vc_d.layout(toks2, P())},
+                                      512)
+            sp = vc_d.layout(pp, specs(m8, True))
+            outs = [lg[0].cpu()]
+            for i in range(4):
+                cache, lg = m8.decode_fn(
+                    sp, cache, vc_d.layout(feed[:, i:i + 1], P()),
+                    vc_d.layout(torch.tensor([130 + i] * 2), P()))
+                outs.append(lg[0].cpu())
+        return outs
+
+    zero()
+    card = serve8(dev)
+    read("card-vs-CPU serving")
+    errs = [rel_err(a, b) for a, b in zip(card, serve8(cpu))]
+    print(f"[xlstm] card vs CPU, 1x4 hier, {cfg8.n_layers} layers: prefill "
+          f"2 x 130 and 4 decode steps, logits rel_err "
+          f"{[f'{e:.3g}' for e in errs]}")
+    if max(errs) > 1e-4:
+        raise AssertionError(f"xlstm serving card vs CPU: {errs}")
+
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=8, seed=7)).next_batch()
+
+    def train8(d_):
+        vc_d = VirtualCluster(pods=1, chips=4, device=d_)
+        bundle = make_cluster_train_step(cfg8, vc_d, mode="hier",
+                                         global_batch=8)
+        pp = T.tree_map(lambda t: t.to(d_), p8)
+        m_, v_ = adamw_init(pp)
+        state = bundle.layout_state({"params": pp, "m": m_, "v": v_,
+                                     "step": torch.zeros(
+                                         (), dtype=torch.int32)})
+        state, mt = bundle.step(state, bundle.layout_batch(batch))
+        glob = bundle.unlayout_state(state)
+        return (float(mt["loss"][0]), float(mt["gnorm"][0]),
+                T.tree_map(lambda t: t.cpu(), {g_: glob[g_] for g_ in
+                                               ("params", "m", "v")}))
+
+    zero()
+    (lg_, gg, sg) = train8(dev)
+    read("card-vs-CPU training")
+    (lc, gc_, sc) = train8(cpu)
+    if not (abs(lg_ - lc) <= 2e-4 * abs(lc) and abs(gg - gc_) <= 5e-3 * gc_):
+        raise AssertionError(f"xlstm train card vs CPU: loss {lg_} / {lc}, "
+                             f"gnorm {gg} / {gc_}")
+    excused, total, worst = state_close(sg, sc, 1, "xlstm card vs CPU")
+    print(f"[xlstm] card vs CPU, hier 1x4, {cfg8.n_layers} layers, 8 x 32, "
+          f"one train step: loss {lg_:.6f} vs {lc:.6f}, gnorm {gg:.6f} vs "
+          f"{gc_:.6f}, m and v per leaf within rtol 2e-4 atol 2e-5 of the "
+          f"leaf's largest (worst m {worst['m']:.3g}, v {worst['v']:.3g} of "
+          f"that tolerance), updated params within rtol 2e-4 atol 2e-5 but "
+          f"{excused} of {total} elements where AdamW's update is "
+          f"ill-conditioned")
+    if excused > 1e-5 * total:
+        raise AssertionError(f"xlstm card vs CPU: {excused} excused")
+    del card, sg, sc
+    free()
+    print(f"[phase] xlstm (b) {time.perf_counter() - t_b:.1f} s")
+
+    # (c) naive against hier on 2x4 at 8 layers: the serving weight C1 and
+    # two decode steps
+    t_c = time.perf_counter()
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    pd8 = T.tree_map(lambda t: t.to(dev), p8)
+    held, got = {}, {}
+    tok0 = torch.from_numpy(rows[:, :1].astype(np.int32))
+    zero()
+    for mode in ("hier", "naive"):
+        m8 = model_on(vc, cfg8, mode)
+        with vc.bind():
+            base = traffic.device_bytes(dev)
+            lay = vc.layout(pd8, specs(m8, True))
+            held[mode] = (traffic.device_bytes(dev) - base) / vc.pods
+            cache = m8.cache_init(nb, 1024)
+            tok, outs = tok0, []
+            for i in range(2):
+                cache, lg = m8.decode_fn(lay, cache, vc.layout(tok, P()),
+                                         vc.layout(torch.arange(nb) + i,
+                                                   P()))
+                outs.append(lg[0].clone())
+                tok = lg[0, :, 0].argmax(-1)[:, None].int().cpu()
+            got[mode] = (outs, cache.domains.count)
+            del lay, cache
+        free()
+    read("naive-vs-hier serving")
+    c1 = held["naive"] / held["hier"]
+    err_c = max(rel_err(a, b) for a, b in zip(got["naive"][0],
+                                              got["hier"][0]))
+    print(f"[xlstm] naive vs hier on 2x4, {cfg8.n_layers} layers, "
+          f"serve_fsdp: weight bytes per node {held['naive'] / 1e9:.3f} / "
+          f"{held['hier'] / 1e9:.3f} GB, C1 naive/hier {c1} (chips "
+          f"{vc.chips}); states {got['naive'][1]} / {got['hier'][1]} (one "
+          f"per rank / per node); 2 decode steps' logits rel_err "
+          f"{err_c:.3g}")
+    if c1 != vc.chips or err_c > 1e-4:
+        raise AssertionError(f"xlstm serving C1 {c1} != {vc.chips} or "
+                             f"naive differs from hier ({err_c})")
+    del got, pd8
+    free()
+    print(f"[phase] xlstm (c) {time.perf_counter() - t_c:.1f} s")
+
+    # (d) training, 8 x 2048 tokens, hier, on 2x4 and 2x(2x2).  First the
+    # sLSTM loop alone at a training domain's shape (4 x 2048: a node's 4
+    # ranks' rows): ms a step and device activities a step (kernels,
+    # copies), forward and forward + backward
+    t_d = time.perf_counter()
+    sdefs = meta.block_defs("slstm", cfg, 1, False)["slstm"]
+    gs = torch.Generator(device=dev).manual_seed(28)
+    ps = {k_: (torch.randn(m_.shape, generator=gs, device=dev) * 0.02)
+          .requires_grad_(True) for k_, m_ in sdefs.items()}
+    single = ParallelCtx.single()
+
+    def slstm_run(T_, backward):
+        xs = torch.randn((4, T_, cfg.d_model), generator=gs, device=dev,
+                         requires_grad=backward)
+        with torch.set_grad_enabled(backward):
+            y = slstm_block(xs, ps, sdefs, single, cfg)
+            if backward:
+                torch.autograd.grad((y * y).sum(), [xs] + list(ps.values()))
+
+    loop = {}
+    for bw in (False, True):
+        slstm_run(64, bw)
+        sync()
+        t1 = time.perf_counter()
+        slstm_run(2048, bw)
+        sync()
+        ms_ = (time.perf_counter() - t1) * 1e3
+        r = profile_run(lambda bw=bw: slstm_run(128, bw))
+        loop[bw] = (ms_, r["launches"] / 128)
+    # a train step's share: 2 domains x (forward, then the remat's forward
+    # and the backward)
+    loop_ms = 2 * (loop[False][0] + loop[True][0])
+    print(f"[xlstm] the sLSTM loop alone, one block at (4, 2048, d "
+          f"{cfg.d_model}) f32: forward {loop[False][0]:.1f} ms "
+          f"({1e3 * loop[False][0] / 2048:.1f} us a step, "
+          f"{loop[False][1]:.1f} device activities a step at T 128); "
+          f"forward + backward {loop[True][0]:.1f} ms "
+          f"({1e3 * loop[True][0] / 2048:.1f} us a step, "
+          f"{loop[True][1]:.1f} device activities a step)")
+    del ps
+
+    # then the train step at the deepest whole number of units whose state
+    # fits (params, m, v, grads: 2 node copies each, and a domain's
+    # gradient, beside one unit's recompute), 2 steps on each topology
+    one = build(cfg8, ParallelCtx.single(), device="meta")
+    lay1 = one.abstract_params(one.param_specs())
+    per_unit = 4 * sum(t.numel() for t in T.leaves(lay1["units"]))
+    rest = 4 * sum(t.numel() for k_, v_ in lay1.items() if k_ != "units"
+                   for t in T.leaves({k_: v_}))
+    free_b = torch.cuda.mem_get_info(dev)[0]
+    U = max(0, min(cfg.n_units, int((free_b - XLSTM_TRAIN_TRANSIENTS
+                                     - 9 * rest) // (9 * per_unit))))
+    if U < 1:
+        raise AssertionError("xlstm: not one unit's training state fits")
+    cfgU = dataclasses.replace(cfg, n_layers=U * len(cfg.pattern))
+    print(f"[xlstm] training state: {U} of {cfg.n_units} units fit "
+          f"({cfgU.n_layers} layers: per node "
+          f"{(rest + U * per_unit) / 1e9:.3f} GB of params, "
+          f"{per_unit / 1e9:.3f} GB a unit; 2 node copies x (params, m, v, "
+          f"grads) {8 * (rest + U * per_unit) / 1e9:.2f} GB of "
+          f"{free_b / 1e9:.1f} GB free beside "
+          f"{XLSTM_TRAIN_TRANSIENTS / 2 ** 30:.0f} GiB for a unit's "
+          f"activations; full depth would need "
+          f"{8 * (rest + cfg.n_units * per_unit) / 1e9:.1f} GB); run at "
+          f"{U} units, 2 steps: the host-bound sLSTM loop (ROADMAP Queue 2) "
+          f"costs every unit's step ~{loop_ms / 1e3:.1f} s")
+    batches = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=2048,
+                                     global_batch=8, seed=7))
+    batches = [batches.next_batch() for _ in range(2)]
+    for label in ("2x4", "2x(2x2)"):
+        vc = VirtualCluster.from_label(label, device=dev)
+        bundle = make_cluster_train_step(cfgU, vc, mode="hier",
+                                         global_batch=8)
+        state = bundle.init_layout_state(26)
+        nb_ = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero()
+        ms = []
+        for i, b_ in enumerate(batches):
+            laid = bundle.layout_batch(b_)
+            sync()
+            t1 = time.perf_counter()
+            state, mt = bundle.step(state, laid)
+            loss, gnorm = float(mt["loss"][0]), float(mt["gnorm"][0])
+            sync()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"xlstm train {label}: loss {loss}")
+            print(f"[train] {cfg.name} {cfgU.n_layers} layers hier {label} "
+                  f"8x2048 step {i + 1}: loss {loss:.6f} gnorm {gnorm:.6f} "
+                  f"step {ms[-1]:.1f} ms {8 * 2048 / ms[-1] * 1e3:.1f} "
+                  f"tokens/s")
+        read(f"training on {label}")
+        nb_["grads"] = bundle.stats["grad_bytes"]
+        tp = bundle.model.ctx.tp
+        print(f"[xlstm] train {label} (tp {tp}, {cfgU.n_layers} layers): "
+              f"step 2 {ms[1]:.1f} ms, {8 * 2048 / ms[1] * 1e3:.1f} "
+              f"tokens/s; state "
+              + ", ".join(f"{k_} {v_ / 1e9:.3f} GB" for k_, v_ in nb_.items())
+              + f"; peak allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+        print(f"[xlstm] train {label}: the sLSTM loop (timed alone above, "
+              f"x {U} units) {U * loop_ms / 1e3:.2f} s of a "
+              f"{ms[1] / 1e3:.2f} s step ({100 * U * loop_ms / ms[1]:.1f}%)")
+        del bundle, state, laid
+        free()
+
+    # one step of 8 x 256 tokens at one unit under the profiler, on each
+    # topology: 2 mLSTM chunks, so the prefix loop runs (an 8 x 2048 step's
+    # trace holds ~400k device activities, minutes to read back).  The
+    # parts' device and host ms, the tp collectives
+    prof_batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                        global_batch=8, seed=9)).next_batch()
+
+    def profile_step(bundle, state, label):
+        laid = bundle.layout_batch(prof_batch)
+        t1 = time.perf_counter()
+        zero()
+        r = profile_run(lambda: bundle.step(state, laid),
+                        ranges=TP_RANGES + XLSTM_RANGES)
+        read(f"profiled training on {label}")
+        tp_ms = sum(v_ for k_, v_ in r["ranges"].items()
+                    if k_.startswith(TP_RANGES))
+        x_ms = {k_: round(v_, 2) for k_, v_ in r["ranges"].items()
+                if k_.startswith(XLSTM_RANGES)}
+        x_wall = {k_: round(v_, 1) for k_, v_ in r["ranges_wall"].items()
+                  if k_.startswith(XLSTM_RANGES)}
+        print(f"[xlstm] train {label}: one step of 8 x 256 ("
+              f"{256 // MLSTM_CHUNK} mLSTM chunks), {cfg8.n_layers} layers, "
+              f"profiled: wall {r['wall_ms']:.1f} ms, device busy "
+              f"{r['busy_ms']:.1f} ms ({100 * r['busy_share']:.1f}%), "
+              f"{r['launches']} device activities; tp collectives "
+              f"{tp_ms:.2f} ms ({100 * tp_ms / r['busy_ms']:.1f}%); xLSTM "
+              f"parts (forwards and the remat's recompute) device "
+              f"{sum(x_ms.values()):.2f} ms "
+              f"({100 * sum(x_ms.values()) / r['busy_ms']:.1f}%: {x_ms}), "
+              f"host {x_wall} ms (the sLSTM loop's forwards "
+              f"{100 * x_wall.get('xlstm::slstm_loop', 0) / r['wall_ms']:.1f}"
+              f"% of the wall; its backward runs outside the range); "
+              f"warm-up, profile and read-back "
+              f"{time.perf_counter() - t1:.1f} s")
+
+    # the training C1 at 8 layers: hier against naive on 2x4, one step of
+    # 8 x 128 tokens from a common state under PERF.md §2's rule, and the
+    # state bytes on 2x(2x2); the hier bundles' profiled steps
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                   global_batch=8, seed=8)).next_batch()
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    res = {}
+    for mode in ("hier", "naive"):
+        bundle = make_cluster_train_step(cfg8, vc, mode=mode, global_batch=8)
+        pp = T.tree_map(lambda t: t.to(dev), p8)
+        m_, v_ = adamw_init(pp)
+        state = bundle.layout_state({"params": pp, "m": m_, "v": v_,
+                                     "step": torch.zeros(
+                                         (), dtype=torch.int32)})
+        del pp, m_, v_
+        nb_ = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+        zero()
+        state, mt = bundle.step(state, bundle.layout_batch(batch))
+        read(f"{mode} training")
+        nb_["grads"] = bundle.stats["grad_bytes"]
+        glob = T.tree_map(lambda t: t.cpu(), bundle.unlayout_state(state))
+        res[mode] = (float(mt["loss"][0]), float(mt["gnorm"][0]), nb_, glob)
+        if mode == "hier":
+            profile_step(bundle, state, "2x4")
+        del bundle, state
+        free()
+    (lh, gh, bh, sh), (ln, gn, bn, sn) = res["hier"], res["naive"]
+    if not (abs(lh - ln) <= 2e-4 * abs(ln) and abs(gh - gn) <= 5e-3 * gn):
+        raise AssertionError(f"xlstm hier vs naive: loss {lh} / {ln}, "
+                             f"gnorm {gh} / {gn}")
+    ex, tot, w_ = state_close(sn, sh, 1, "xlstm hier vs naive")
+    c1 = {g_: bn[g_] / bh[g_] for g_ in bh}
+    c1_tp = {}
+    vc_tp = VirtualCluster.from_label("2x(2x2)", device=dev)
+    for mode in ("hier", "naive"):
+        bundle = make_cluster_train_step(cfg8, vc_tp, mode=mode,
+                                         global_batch=8)
+        state = bundle.init_layout_state(27)
+        c1_tp[mode] = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+        if mode == "hier":
+            profile_step(bundle, state, "2x(2x2)")
+        del bundle, state
+        free()
+    c1_tp = {g_: c1_tp["naive"][g_] / c1_tp["hier"][g_]
+             for g_ in c1_tp["hier"]}
+    print(f"[xlstm] hier vs naive, 2x4, {cfg8.n_layers} layers, one step of "
+          f"8 x 128: loss {lh:.6f} / {ln:.6f}, m and v within the rule "
+          f"(worst m {w_['m']:.3g}, v {w_['v']:.3g}), params but {ex} of "
+          f"{tot} ill-conditioned; C1 naive/hier by group {c1} on 2x4 "
+          f"(chips 4), {c1_tp} on 2x(2x2) (store 2)")
+    if set(c1.values()) != {4.0} or set(c1_tp.values()) != {2.0}:
+        raise AssertionError(f"xlstm training C1 {c1} / {c1_tp}")
+    del res, sh, sn
+    free()
+    print(f"[phase] xlstm (d) {time.perf_counter() - t_d:.1f} s")
+
+    # (e) the head-group path: tp 8 over 4 heads (g 2: two tp ranks share a
+    # head, each with half its v columns) on 1x(1x8), one step of 8 x 128
+    # at 8 layers, against the card's own single-device (1x1) step of the
+    # same model and batch
+    t_e = time.perf_counter()
+    res = []
+    zero()
+    for label in ("1x(1x8)", "1x1"):
+        vc = VirtualCluster.from_label(label, device=dev)
+        bundle = make_cluster_train_step(cfg8, vc, mode="hier",
+                                         global_batch=8)
+        pp = T.tree_map(lambda t: t.to(dev), p8)
+        m_, v_ = adamw_init(pp)
+        state = bundle.layout_state({"params": pp, "m": m_, "v": v_,
+                                     "step": torch.zeros(
+                                         (), dtype=torch.int32)})
+        del pp, m_, v_
+        sync()
+        t1 = time.perf_counter()
+        state, mt = bundle.step(state, bundle.layout_batch(batch))
+        sync()
+        res.append((float(mt["loss"][0]), float(mt["gnorm"][0]),
+                    T.tree_map(lambda t: t.cpu(),
+                               bundle.unlayout_state(state)),
+                    (time.perf_counter() - t1) * 1e3, bundle.model.ctx.tp))
+        del bundle, state
+        free()
+    read("head-group training")
+    (l8, g8, s8, ms8, tp8), (l1, g1, s1, ms1, _) = res
+    if not (abs(l8 - l1) <= 2e-4 * abs(l1) and abs(g8 - g1) <= 5e-3 * g1):
+        raise AssertionError(f"xlstm head groups: loss {l8} / {l1}, gnorm "
+                             f"{g8} / {g1}")
+    ex, tot, w_ = state_close(s8, s1, 1, "xlstm head groups 1x(1x8) vs 1x1")
+    print(f"[xlstm] head groups: 1x(1x8) (tp {tp8} over {cfg.n_heads} heads,"
+          f" {tp8 // cfg.n_heads} ranks a head) vs the single-device step, "
+          f"{cfg8.n_layers} layers, 8 x 128: loss {l8:.6f} / {l1:.6f}, gnorm "
+          f"{g8:.6f} / {g1:.6f}, m and v within the rule (worst m "
+          f"{w_['m']:.3g}, v {w_['v']:.3g}), params but {ex} of {tot} "
+          f"ill-conditioned; step {ms8:.1f} / {ms1:.1f} ms (first steps)")
+    if ex > 1e-5 * tot:
+        raise AssertionError(f"xlstm head groups: {ex} excused")
+    del res, s8, s1, p8
+    free()
+    print(f"[phase] xlstm (e) {time.perf_counter() - t_e:.1f} s")
     return launches
 
 
@@ -3326,13 +3946,23 @@ def main() -> int:
         launches[k_] += v_
     print(f"[phase] moe {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 16. the xLSTM family: xlstm-1.3b -----------------------------------
+    t_phase = time.perf_counter()
+    xl_launches = xlstm_phase(dev)
+    print(f"[xlstm] kernel launches in phase 16's runs: {xl_launches} (the "
+          f"reference's mLSTM / sLSTM reach no Pallas kernel; none is "
+          f"ported for them)")
+    for k_, v_ in xl_launches.items():
+        launches[k_] = launches.get(k_, 0) + v_
+    print(f"[phase] xlstm {time.perf_counter() - t_phase:.1f} s")
+
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
-    print(f"[nonfinite] tiles recomputed over phases 3-15: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-16: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")

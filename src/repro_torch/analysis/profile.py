@@ -5,9 +5,10 @@
         [--chunks 2]
     PYTHONPATH=src python -m repro_torch.analysis.profile --ag-matmul
     PYTHONPATH=src python -m repro_torch.analysis.profile --serve
-        [--model recurrentgemma-9b|granite-moe-3b-a800m]
+        [--model recurrentgemma-9b|granite-moe-3b-a800m|xlstm-1.3b]
     PYTHONPATH=src python -m repro_torch.analysis.profile --train
-        [--model granite-moe-3b-a800m] [--mode hier|naive] [--layers N]
+        [--model granite-moe-3b-a800m|xlstm-1.3b] [--mode hier|naive]
+        [--layers N]
         [--topology 2x4|2x(2x2)]
 
 SUMMA: for each scheme, one warm-up run, then one profiled run of the whole
@@ -16,10 +17,11 @@ multiply (all rounds, ``use_kernel=True``).  ``--ag-matmul``: the same for
 down-projection (K = d_ff = 14336, N = d_model = 5120, 2048 tokens per rank,
 1x8 cluster), exact and ``precision="lossy"`` (the q4 kernel).
 ``--serve``: ``--model`` (``qwen3-0.6b`` by default, or any ported
-config: ``recurrentgemma-9b``, ``granite-moe-3b-a800m``) at full width (f32, random weights): one prefill of
-8 slots x 2048 tokens (s_max 4096), then one decode step of the 8 slots at
-position 2048, each with the share of device time in the flash-attention
-and lru_scan kernels.  ``--train``: ``--model``'s cluster train step
+config: ``recurrentgemma-9b``, ``granite-moe-3b-a800m``, ``xlstm-1.3b``)
+at full width (f32, random weights): one prefill of 8 slots x 2048 tokens
+(s_max 4096), then one decode step of the 8 slots at position 2048, each
+with the share of device time in the flash-attention and lru_scan
+kernels.  ``--train``: ``--model``'s cluster train step
 (``runtime.steps``) at full width — full depth unless ``--layers`` cuts
 it — in ``--mode`` on the stacked ``--topology``, global batch 8 x 2048
 tokens: one warm-up step, then one profiled step, with the shares of the
@@ -29,8 +31,11 @@ collectives: the ``tp::*`` ranges of their forwards (``ParallelCtx``)
 and their backward nodes, each range's kernels counted once.  An MoE
 model adds the device time of its block's parts (``MOE_RANGES``: routing
 and tables, dispatch, the expert products, combine, and the gathers'
-backward nodes).  Prints each run's wall time, the device busy time (the union of every kernel and copy
-interval on the card, so overlapping streams count once), the busy share of
+backward nodes); an xLSTM model that of its blocks' parts
+(``XLSTM_RANGES``: ``xlstm::mlstm_intra``, ``xlstm::mlstm_prefix``,
+``xlstm::mlstm_decode``, ``xlstm::slstm_loop``).  Prints each run's wall
+time, the device busy time (the union of every kernel and copy interval on
+the card, so overlapping streams count once), the busy share of
 the wall time, and the kernels that took most device time.  Needs a CUDA
 device.
 """
@@ -80,6 +85,18 @@ TP_RANGES = ("tp::", "_AllGatherFnBackward", "_PsumScatterFnBackward",
 #: The MoE block's parts (``models.moe``): its ``moe::*`` ranges and the
 #: dispatch / combine gathers' backward nodes.
 MOE_RANGES = ("moe::", "_DispatchBackward", "_RowGatherBackward")
+#: The xLSTM blocks' parts (``models.xlstm``): the mLSTM's intra-chunk
+#: products and chunk summaries, its cross-chunk prefix loop, its decode
+#: step, and the sLSTM's time loop (forwards; a remat's recompute runs
+#: them again inside the backward).
+XLSTM_RANGES = ("xlstm::",)
+
+
+def model_ranges(cfg) -> tuple:
+    """The block-part ranges a model's profile reads."""
+    kinds = set(cfg.pattern) | set(cfg.remainder_kinds)
+    return ((MOE_RANGES if cfg.moe else ())
+            + (XLSTM_RANGES if kinds & {"mlstm", "slstm"} else ()))
 
 
 def _device_us(e) -> float:
@@ -88,13 +105,15 @@ def _device_us(e) -> float:
         e, "cuda_time_total", 0.0)
 
 
-def _ranges_ms(prof, parts: tuple) -> dict:
-    """Device ms under each CPU event whose name holds one of ``parts``,
-    by name; an event nested inside a counted one is not counted again."""
-    hits = [e for e in prof.events() if e.device_type == DeviceType.CPU
+def _ranges_ms(events, parts: tuple) -> tuple[dict, dict]:
+    """Device ms and host (wall) ms under each CPU event whose name holds
+    one of ``parts``, by name; an event nested inside a counted one is not
+    counted again."""
+    hits = [e for e in events if e.device_type == DeviceType.CPU
             and any(p_ in e.name for p_ in parts)]
     ids = {id(e) for e in hits}
-    out: dict[str, float] = defaultdict(float)
+    dev: dict[str, float] = defaultdict(float)
+    wall: dict[str, float] = defaultdict(float)
     for e in hits:
         up, nested = e.cpu_parent, False
         while up is not None:
@@ -103,14 +122,16 @@ def _ranges_ms(prof, parts: tuple) -> dict:
                 break
             up = up.cpu_parent
         if not nested:
-            out[e.name.split(": ")[-1]] += _device_us(e) / 1e3
-    return dict(out)
+            name = e.name.split(": ")[-1]
+            dev[name] += _device_us(e) / 1e3
+            wall[name] += e.time_range.elapsed_us() / 1e3
+    return dict(dev), dict(wall)
 
 
 def profile_run(run, top: int = 5, ranges: tuple = ()) -> dict:
     """One warm-up call of ``run``, then one profiled call; with
-    ``ranges``, the device ms under the CPU events those name parts
-    match (``_ranges_ms``)."""
+    ``ranges``, the device ms and the host ms under the CPU events those
+    name parts match (``_ranges_ms``: ``ranges`` and ``ranges_wall``)."""
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -119,7 +140,8 @@ def profile_run(run, top: int = 5, ranges: tuple = ()) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not dev:
         raise RuntimeError("the profiler recorded no device activity: "
                            "device time not measured")
@@ -129,10 +151,11 @@ def profile_run(run, top: int = 5, ranges: tuple = ()) -> dict:
     for e in dev:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    rng = _ranges_ms(events, ranges) if ranges else ({}, {})
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "top": ranked[:top],
             "all": ranked, "launches": len(dev),
-            "ranges": _ranges_ms(prof, ranges) if ranges else {}}
+            "ranges": rng[0], "ranges_wall": rng[1]}
 
 
 def _print(label: str, r: dict) -> None:
@@ -180,7 +203,7 @@ def profile_serve(dev: torch.device, name: str, top: int = 8) -> None:
     def prefill():
         cache["c"] = model.prefill_fn(params, batch, s_max)[0]
 
-    ranges = MOE_RANGES if cfg.moe else ()
+    ranges = model_ranges(cfg)
     r = profile_run(prefill, top, ranges)
     _print("prefill", r)
     _print_share(r)
@@ -217,8 +240,7 @@ def profile_train(dev: torch.device, mode: str, topology: str,
         bundle.step(state, batch)
 
     tp = bundle.model.ctx.tp_axis is not None
-    r = profile_run(step, top, (TP_RANGES if tp else ())
-                    + (MOE_RANGES if cfg.moe else ()))
+    r = profile_run(step, top, (TP_RANGES if tp else ()) + model_ranges(cfg))
     _print("train", r)
     _print_share(r)
     if tp:
@@ -248,6 +270,8 @@ KERNELS = {"flash_attention": ("flash_fwd",),
 def _print_share(r: dict) -> None:
     if any(k.startswith(MOE_RANGES) for k in r["ranges"]):
         _print_ranges(r, MOE_RANGES, "MoE block parts")
+    if any(k.startswith(XLSTM_RANGES) for k in r["ranges"]):
+        _print_ranges(r, XLSTM_RANGES, "xLSTM block parts")
     for kernel, parts in KERNELS.items():
         hits = [ms for name, ms in r["all"]
                 if any(part in name for part in parts)]

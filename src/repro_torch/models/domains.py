@@ -77,7 +77,9 @@ class NodeCache(dict):
     domain (per node in hier: the node-shared inference state), every leaf
     ``(D, *leaf)`` where ``leaf`` is the domain run's (``(U, [tp,] B, S, kv,
     hd)`` under ``units``, ``([tp,] B, S, kv, hd)`` under ``rem``; S the
-    rank's S/tp chunk at tp > 1).  Decode writes it in place."""
+    rank's S/tp chunk at tp > 1; a recurrent block's state ``(U, [tp,] B,
+    ...)``: its rank's channels or heads, or a replica).  Decode writes it
+    in place."""
 
     def __init__(self, tree: dict, domains: Domains):
         super().__init__(tree)

@@ -25,8 +25,7 @@ run reads the leaf as one buffer along it (``store_dim``).  Where the
 reference's ``serve_fsdp`` defs give such a leaf an FSDP dim too, its
 ``param_specs`` maps the store axis to two dims (a spec JAX refuses); the
 port stores the leaf along its ``data_dim`` alone.  The 2-D decode layout
-(``decode2d``) waits for ROADMAP Queue 1 item 17; the ``mlstm`` /
-``slstm`` blocks for item 16.
+(``decode2d``) waits for ROADMAP Queue 1 item 17.
 """
 
 from __future__ import annotations
@@ -173,6 +172,36 @@ def moe_defs(cfg: ModelConfig, tp: int, serve: bool) -> dict[str, PMeta]:
     }
 
 
+def mlstm_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
+    """The inner width head-major and tp-sharded; the per-head q / k / v /
+    gate weights replicated over tp (each rank slices its heads)."""
+    d, din, nh = cfg.d_model, cfg.d_inner, cfg.n_heads
+    hd = din // nh
+    return {
+        "ln": PMeta((d,), init="zeros"),
+        "w_up": PMeta((d, 2, din), tp_dim=2),
+        "conv": PMeta((din, cfg.conv_kernel), tp_dim=0),
+        "wq": PMeta((nh, hd, hd)),
+        "wk": PMeta((nh, hd, hd)),
+        "wv": PMeta((nh, hd, hd)),
+        "wif": PMeta((nh, hd, 2)),
+        "w_down": PMeta((din, d), tp_dim=0, init="out"),
+    }
+
+
+def slstm_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
+    """Every weight replicated over tp (the batch is split instead)."""
+    d, nh = cfg.d_model, cfg.n_heads
+    dh = d // nh
+    return {
+        "ln": PMeta((d,), init="zeros"),
+        "w_x": PMeta((d, 4, d)),
+        "r": PMeta((nh, dh, 4, dh)),
+        "b": PMeta((4, d), init="zeros"),
+        "w_out": PMeta((d, d), init="out"),
+    }
+
+
 def rglru_defs(cfg: ModelConfig, tp: int) -> dict[str, PMeta]:
     d, dr = cfg.d_model, cfg.rnn_width
     return {
@@ -195,8 +224,10 @@ def block_defs(kind: str, cfg: ModelConfig, tp: int, serve: bool,
         elif cfg.d_ff:
             out["ffn"] = ffn_defs(cfg, tp)
         return out
-    if kind in ("mlstm", "slstm"):
-        raise not_ported(f"the {kind} block", 16)
+    if kind == "mlstm":
+        return {"mlstm": mlstm_defs(cfg, tp)}
+    if kind == "slstm":
+        return {"slstm": slstm_defs(cfg, tp)}
     raise ValueError(kind)
 
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.parallel import ParallelCtx
-from repro_torch.models.xlstm import causal_conv1d
+from repro_torch.models.xlstm import _conv_state, causal_conv1d
 
 C_COEF = 8.0
 
@@ -31,15 +31,6 @@ def rglru_scan(log_a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     shape = x.shape
     a = torch.exp(log_a).reshape((-1,) + tuple(shape[-2:]))
     return ops.lru_scan(a, x.reshape(a.shape)).reshape(shape)
-
-
-def _conv_state(x_br: torch.Tensor, K: int) -> torch.Tensor:
-    """The last K-1 conv inputs (a copy, not a view of the prefill's
-    activations), left-padded with zeros — the conv's own padding — when
-    the prompt is shorter than that.  (The reference returns the short
-    tail, which no (B, K-1, dr) cache takes.)"""
-    tail = x_br[..., -(K - 1):, :]
-    return F.pad(tail, (0, 0, K - 1 - tail.shape[-2], 0))
 
 
 def rglru_block(x_sp, p, meta, ctx: ParallelCtx, cfg, *,

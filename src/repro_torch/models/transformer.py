@@ -8,7 +8,10 @@ Python loop over units takes the place of ``lax.scan``.
 
 Ported: the ``attn`` / ``local`` blocks (prefill and the 1D decode path),
 the ``rglru`` block (``models/rglru.py``: prefill through the lru_scan
-kernel, a one-step decode), the dense ffn and the MoE channel mix
+kernel, a one-step decode), the ``mlstm`` / ``slstm`` blocks
+(``models/xlstm.py``: the chunkwise mLSTM, ``MLSTM_CHUNK`` tokens a chunk
+or the ``mchunk=N`` opt, and the sLSTM time loop; each a one-step
+decode), the dense ffn and the MoE channel mix
 (``models/moe.py``: the train path on prefill and the loss, the serve path
 on decode), the token frontend, prefill with the cache
 re-layout (ring slots for a window; recurrent state passed through),
@@ -17,10 +20,9 @@ unit walk with a per-unit remat (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``), the bounded prefetch of the units' window
 reads (kept outside the remat region, as the reference keeps them) and the
 streamed cross-entropy.  What raises ``NotImplementedError``: the
-``mlstm`` / ``slstm`` blocks and the ``vit`` / ``encodec`` frontends
-(ROADMAP Queue 1 item 16).  Training through the
-``rglru`` block is not offered on the card: the lru_scan kernel has no
-backward yet and refuses a grad-carrying call.
+``vit`` / ``encodec`` frontends (ROADMAP Queue 1 item 16).  Training
+through the ``rglru`` block is not offered on the card: the lru_scan
+kernel has no backward yet and refuses a grad-carrying call.
 
 With a tp axis (``models.parallel``: the tp ranks stacked on a leading
 axis) the training loss runs the reference's sequence-parallel layout: the
@@ -33,7 +35,9 @@ writes each rank's S/tp chunk of the cache (``_state_to_cache``), decode
 runs the serve defs (attention weights replicated over tp, every head on
 every rank) with split-K attention over the T-sharded cache, the tp-sharded
 ffn and the vocab-parallel embedding and logits; an ``rglru`` block's
-recurrent state stays sharded over tp along its channels.
+recurrent state stays sharded over tp along its channels, an ``mlstm``
+block's over its heads (and v-slices) and its conv channels, and an
+``slstm`` block's is replicated.
 
 On a cluster ctx (one with a node communicator: ``runtime.steps.
 cluster_ctx``) the entry points ``prefill_fn`` / ``decode_fn`` /
@@ -43,8 +47,9 @@ there (``models.domains``); the functions here are one domain's run.
 
 Decode updates the cache in place and returns the same cache tree:
 attention blocks write each slot's new position
-(``attention.cache_write``); an ``rglru`` block's new ``h`` / ``conv``
-state is copied over its old one.
+(``attention.cache_write``); a recurrent block's new state (``rglru``:
+``h`` / ``conv``; ``mlstm``: ``C`` / ``n`` / ``m`` / ``conv``; ``slstm``:
+``h`` / ``c`` / ``n`` / ``m``) is copied over its old one.
 """
 
 from __future__ import annotations
@@ -70,9 +75,12 @@ from repro_torch.models.moe import moe_block
 from repro_torch.models.parallel import (ParallelCtx, ParamGroup,
                                          prefetch_walk)
 from repro_torch.models.rglru import rglru_block, rglru_state_init
+from repro_torch.models.xlstm import (mlstm_block, mlstm_state_init,
+                                      slstm_block, slstm_state_init)
 from repro_torch.substrate.collectives import keep_mesh
 
 XENT_CHUNK = 512
+MLSTM_CHUNK = 128
 
 
 class Model(torch.nn.Module):
@@ -188,11 +196,12 @@ class ClusterModel(Model):
         return cache, lay.to_ranks(logits)
 
     def cache_init(self, B_loc: int, s_max: int) -> NodeCache:
-        """Zero decode caches, one per memory domain."""
+        """Empty decode caches (``_cache_init``'s), one per memory
+        domain."""
         lay = Domains.of(self.ctx)
         one = _cache_init(self.cfg, self.ctx, B_loc, s_max, self.device)
-        return NodeCache(T.tree_map(lambda x: x.new_zeros(
-            (lay.count,) + tuple(x.shape)), one), lay)
+        return NodeCache(T.tree_map(lambda x: x.expand(
+            (lay.count,) + tuple(x.shape)).clone(), one), lay)
 
 
 def build(cfg: ModelConfig, ctx: ParallelCtx, data: int = 1,
@@ -226,7 +235,23 @@ def _mix(kind: str, x, p, mt, ctx, cfg, *, serve=False):
     return f(x, p["ffn"], mt["ffn"], ctx, act=cfg.act, eps=cfg.norm_eps)
 
 
+def _mlstm_chunk(ctx) -> int:
+    """The mLSTM chunk: ``MLSTM_CHUNK``, or the ``mchunk=N`` opt."""
+    chunk = MLSTM_CHUNK
+    for o in ctx.opts:
+        if o.startswith("mchunk="):
+            chunk = int(o[len("mchunk="):])
+    return chunk
+
+
 def _block_train(kind: str, x, p, mt, ctx, cfg, *, return_state=False):
+    if kind == "mlstm":
+        return mlstm_block(x, p["mlstm"], mt["mlstm"], ctx, cfg,
+                           chunk=_mlstm_chunk(ctx),
+                           return_state=return_state)
+    if kind == "slstm":
+        return slstm_block(x, p["slstm"], mt["slstm"], ctx, cfg,
+                           return_state=return_state)
     if kind == "rglru":
         out = rglru_block(x, p["rglru"], mt["rglru"], ctx, cfg,
                           return_state=return_state)
@@ -235,7 +260,7 @@ def _block_train(kind: str, x, p, mt, ctx, cfg, *, return_state=False):
             return _mix(kind, x, p, mt, ctx, cfg), st
         return _mix(kind, out, p, mt, ctx, cfg)
     if kind not in ("attn", "local"):
-        raise _not_ported(f"the {kind} block", 16)
+        raise ValueError(kind)
     window = cfg.window if kind == "local" else None
     mode = M.attn_mode_for(cfg, ctx.tp)
     out = attn_block(x, p["attn"], mt["attn"], ctx, cfg, mode=mode,
@@ -247,12 +272,15 @@ def _block_train(kind: str, x, p, mt, ctx, cfg, *, return_state=False):
 
 
 def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
+    if kind in ("mlstm", "slstm"):
+        fn = mlstm_block if kind == "mlstm" else slstm_block
+        return fn(x, p[kind], mt[kind], ctx, cfg, state=state, decode=True)
     if kind == "rglru":
         x, st = rglru_block(x, p["rglru"], mt["rglru"], ctx, cfg,
                             state=state, decode=True)
         return _mix(kind, x, p, mt, ctx, cfg, serve=True), st
     if kind not in ("attn", "local"):
-        raise _not_ported(f"the {kind} block", 16)
+        raise ValueError(kind)
     window = cfg.window if kind == "local" else None
     H, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     pa, ma = p["attn"], mt["attn"]
@@ -437,19 +465,26 @@ def _state_to_cache(cfg, ctx, st, T: int, s_max: int, kind: str,
 
 
 def _cache_init(cfg, ctx, B_loc: int, s_max: int, device) -> dict:
-    """Zero caches; every leaf its own tensor (decode writes in place).
-    With a tp axis every leaf has the stacked tp ranks' axis after the unit
-    dim: an attention leaf each rank's S/tp chunk (tp, B, S/tp, kv, hd), an
-    ``rglru`` leaf its channel shard."""
+    """Empty caches (zeros; an xLSTM stabilizer ``m`` at -1e30); every
+    leaf its own tensor (decode writes in place).  With a tp axis every
+    leaf has the stacked tp ranks' axis after the unit dim: an attention
+    leaf each rank's S/tp chunk (tp, B, S/tp, kv, hd), an ``rglru`` leaf
+    its channel shard, an ``mlstm`` leaf its heads' (and v-slice's) state
+    and conv channel shard, an ``slstm`` leaf a replica."""
     tp = (ctx.tp,) if ctx.tp_axis else ()
+    recurrent = {
+        "rglru": lambda: rglru_state_init(cfg, B_loc, ctx, ctx.compute_dtype,
+                                          device),
+        "mlstm": lambda: mlstm_state_init(cfg, B_loc, ctx, ctx.compute_dtype,
+                                          device),
+        "slstm": lambda: slstm_state_init(cfg, B_loc, device)}
 
     def one(kind, lead=()):
-        if kind == "rglru":              # each tp rank's channel shard
-            st = rglru_state_init(cfg, B_loc, ctx, ctx.compute_dtype, device)
-            return {n: a.new_zeros(lead + tp + tuple(a.shape))
-                    for n, a in st.items()}
+        if kind in recurrent:
+            return {n: a.expand(lead + tp + tuple(a.shape)).clone()
+                    for n, a in recurrent[kind]().items()}
         if kind not in ("attn", "local"):
-            raise _not_ported(f"the {kind} block's decode state", 16)
+            raise ValueError(kind)
         window = cfg.window if kind == "local" else None
         S = min(window, s_max) if window else s_max
         shape = lead + tp + (B_loc, ctx.shard(S), cfg.n_kv, cfg.head_dim)

@@ -30,7 +30,11 @@ train step on the card to the CPU; the kernels without a backward refuse a
 grad-carrying call.  Serving on the stacked cluster (``serve_fsdp``, 2x4
 and ``2x(2x2)``, the reduced qwen3-0.6b and the hybrid at tp 2): prefill
 and two decode steps on the card against the CPU within 1e-4 relative, and
-``RecordedDecoder`` bit-identical to the sync decode on the card.
+``RecordedDecoder`` bit-identical to the sync decode on the card.  The
+xLSTM family (no hand-written kernel): ``xlstm-1.3b``'s full-width mLSTM
+and sLSTM blocks (forward, gradients, decode) and the reduced model's
+hier train step and cluster serving on 2x4 and ``2x(2x2)``, card against
+CPU.
 """
 
 import dataclasses
@@ -823,3 +827,99 @@ def test_moe_block_on_the_card_is_deterministic_and_matches_the_cpu(cuda):
         assert (u[same] - v[same]).abs().max() <= 1e-4 * v.abs().max()
     if bool(same.all()):
         assert (a[2] - c[2]).abs().max() <= 1e-4 * c[2].abs().max()
+
+
+def test_xlstm_blocks_on_the_card_match_the_cpu(cuda):
+    """``xlstm-1.3b``'s full-width blocks (d 2048, 4 heads of 1024, d_inner
+    4096) on 2 x 250 tokens (the mLSTM's ragged last chunk): forward and
+    the gradients of x and every weight, then 2 decode steps from the
+    prefill state, card against CPU within 1e-4 relative; no hand-written
+    kernel launches (the reference's blocks reach no Pallas kernel)."""
+    from repro_torch.models import meta, xlstm
+    cfg = get_config("xlstm-1.3b")
+    ctx = ParallelCtx.single()
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 250, cfg.d_model), generator=g)
+    steps = torch.randn((2, 2, 1, cfg.d_model), generator=g)
+    for kind, fn in (("mlstm", xlstm.mlstm_block),
+                     ("slstm", xlstm.slstm_block)):
+        defs = meta.block_defs(kind, cfg, 1, False)[kind]
+        p = {k: torch.randn(m.shape, generator=g) * 0.02
+             for k, m in defs.items()}
+
+        def run(dev, p=p, defs=defs, fn=fn):
+            xd = x.to(dev).requires_grad_(True)
+            pd = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+            y, st = fn(xd, pd, defs, ctx, cfg, return_state=True)
+            grads = torch.autograd.grad((y * y).sum(), [xd] + list(
+                pd.values()))
+            out = [y.detach()] + list(grads)
+            with torch.no_grad():
+                for s in steps:
+                    yd, st = fn(s.to(dev), pd, defs, ctx, cfg, state=st,
+                                decode=True)
+                    out.append(yd)
+            return [t.cpu() for t in out]
+
+        before = (kflash.launches, klru.launches, kmatmul.launches)
+        card = run(cuda)
+        assert (kflash.launches, klru.launches, kmatmul.launches) == before
+        for a, b in zip(card, run(torch.device("cpu"))):
+            assert torch.isfinite(a).all(), kind
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max(), kind
+
+
+@pytest.mark.parametrize("label", ["2x4", "2x(2x2)"])
+def test_xlstm_cluster_train_step_on_the_card_matches_the_cpu(cuda, label):
+    """The reduced ``xlstm-1.3b`` (one unit, d 128, 2 heads) hier step on
+    ``label``: the card against the CPU, loss rtol 2e-4, gnorm 5e-3, the
+    state under ``PERF.md`` §2's rule with at most 1e-5 of the params
+    excused."""
+    from repro_torch.analysis.state_rule import state_close
+    from repro_torch.core import tree as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.steps import make_cluster_train_step
+    cfg = get_config("xlstm-1.3b").reduced(d_model=128, n_heads=2)
+    toks = torch.randint(0, cfg.vocab, (8, 161),
+                         generator=torch.Generator().manual_seed(1))
+    res, params = [], None
+    for dev in (cuda, torch.device("cpu")):
+        vc = VirtualCluster.from_label(label, device=dev)
+        bundle = make_cluster_train_step(cfg, vc)
+        if params is None:
+            params = T.tree_map(lambda t: t.cpu(),
+                                bundle.model.init_params(0))
+        p_dev = T.tree_map(lambda t: t.to(dev), params)
+        m, v = adamw_init(p_dev)
+        state = bundle.layout_state({"params": p_dev, "m": m, "v": v,
+                                     "step": torch.zeros(
+                                         (), dtype=torch.int32)})
+        state, met = bundle.step(state, bundle.layout_batch(
+            {"tokens": toks}))
+        res.append((float(met["loss"][0]), float(met["gnorm"][0]),
+                    T.tree_map(lambda t: t.cpu(),
+                               bundle.unlayout_state(state))))
+    (lg, gg, sg), (lc, gc, sc) = res
+    assert abs(lg - lc) <= 2e-4 * abs(lc) and abs(gg - gc) <= 5e-3 * gc
+    excused, total, _ = state_close(sg, sc, 1, f"xlstm {label} card vs CPU")
+    assert excused <= 1e-5 * total, (excused, total)
+
+
+@pytest.mark.parametrize("label", ["2x4", "2x(2x2)"])
+def test_xlstm_cluster_decode_on_the_card(cuda, label):
+    """The reduced ``xlstm-1.3b`` served on ``label``: prefill and two
+    decode steps on the card against the CPU within 1e-4 relative, and
+    ``RecordedDecoder`` bit-identical to the sync decode on the card."""
+    from repro_torch.core import tree as T
+    from repro_torch.serving.recorded import RecordedDecoder
+    card, c_card, _ = _serve_run(cuda, label, steps=3, arch="xlstm-1.3b")
+    cpu, _, _ = _serve_run(torch.device("cpu"), label, steps=3,
+                           arch="xlstm-1.3b")
+    for a, b in zip(card, cpu):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    rec, c_rec, _ = _serve_run(cuda, label, decode=RecordedDecoder, steps=3,
+                               arch="xlstm-1.3b")
+    assert all(torch.equal(a, b) for a, b in zip(card, rec))
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(c_card),
+                                                 T.leaves(c_rec)))
