@@ -154,7 +154,8 @@ its recompute rule on finite operands whose dk overflows.
    node before and after (C1), the trajectory from step 2 ``==``
    ``reference_run`` on 1x4 from step 2, and a save and restore of the
    final state timed (bytes, ms) and restored bit for bit; (b) phase 11
-   (a)'s full-depth step, 3 steps each under ``()``, ``prefetch``,
+   (a)'s step at 14 of its 28 layers, 3 steps each under ``()``,
+   ``prefetch``,
    ``overlap`` and ``stepgraph``: step ms and tokens/s, prefetch and
    stepgraph losses and gnorms ``==`` eager's, overlap's within rtol 2e-4
    / 5e-3; (c) ``python -m repro_torch.bench --families step_time`` on 2x4
@@ -164,10 +165,11 @@ its recompute rule on finite operands whose dk overflows.
    a resumed run to 4 whose steps 3-4 losses ``==`` the straight run's.
 
 14. serving on the stacked cluster (after phase 13): ``qwen3-0.6b`` at
-   full width and depth, f32, seeded weights, ``serve_fsdp`` (every serve
+   full width and 14 of its 28 layers, f32, seeded weights,
+   ``serve_fsdp`` (every serve
    weight once per node in the window store), run once per memory domain
    — (a) hier on 2x4: 8 prompts of 224-2016 tokens prefilled once per node
-   (the flash kernel; 2 x 28 x 8 launches), then 32 decode steps at
+   (the flash kernel; 2 x 14 x 8 launches), then 32 decode steps at
    per-slot positions with ``model.decode_fn`` (sync) and with
    ``RecordedDecoder``: every step's logits and the final cache
    ``torch.equal``, one schedule with one gather per fsdp leaf, step p50 /
@@ -191,8 +193,9 @@ its recompute rule on finite operands whose dk overflows.
 15. the MoE family (after phase 14): ``granite-moe-3b-a800m`` at full
    width (d 1536, 24 q / 8 kv heads x 64, 40 experts top 8, d_ff_expert
    512, vocab 49155), f32, seeded weights, capacity 1.25 — (a) hier on
-   2x4 at full depth with ``serve_fsdp``: phase 14's 8 prompts prefilled
-   once per node (2 x 32 x 8 flash launches), 32 greedy decode steps with
+   2x4 at 16 of its 32 layers with ``serve_fsdp``: phase 14's 8 prompts
+   prefilled once per node (2 x 16 x 8 flash launches), 32 greedy decode
+   steps with
    the sync decode (the dropped share of the routing assignments counted
    each step) and ``RecordedDecoder``: ``torch.equal`` logits and cache,
    one gather per node-stored leaf (the experts' d_ff windows included),
@@ -203,8 +206,8 @@ its recompute rule on finite operands whose dk overflows.
    decode steps within 1e-4 relative and one hier train step under
    ``PERF.md`` §2's rule; (c) naive against hier on 2x4 at 4 layers:
    weight bytes per node C1 = 4.0 exactly; (d) ``make_cluster_train_step``
-   hier, 8 x 2048, 3 steps on 2x4 (ep 1) and ``2x(2x2)`` (ep 2) at the
-   deepest depth whose state fits (printed with its bytes), one profiled
+   hier, 8 x 2048, 3 steps on 2x4 (ep 1) and ``2x(2x2)`` (ep 2) at 8
+   layers (the deepest depth whose state fits is printed), one profiled
    step each (tp collectives with the MoE reduce-scatter, the MoE block's
    parts), then the training C1 at 2 layers (4.0 on 2x4 with hier vs
    naive under §2's rule, 2.0 on ``2x(2x2)``).
@@ -214,7 +217,8 @@ its recompute rule on finite operands whose dk overflows.
    vocab 50304), f32, seeded weights; its blocks reach no Pallas kernel in
    the reference and launch no hand-written kernel here (every kernel
    count is zeroed before each run and must read 0 after it) — (a) hier
-   on 2x4 at full depth with ``serve_fsdp``: phase 14's 8 prompts (none a
+   on 2x4 at 2 of its 6 units with ``serve_fsdp``: phase 14's 8 prompts
+   (none a
    whole number of 128-token mLSTM chunks) prefilled once per node, the
    decode state's bytes, 32 greedy decode steps with the sync decode and
    ``RecordedDecoder``: ``torch.equal`` logits and state, one gather per
@@ -225,29 +229,62 @@ its recompute rule on finite operands whose dk overflows.
    ``PERF.md`` §2's rule; (c) naive against hier on 2x4 at 8 layers:
    weight C1 = 4.0 exactly; (d) the sLSTM loop alone at a training
    domain's shape (ms and device activities a step, forward and
-   backward), then ``make_cluster_train_step`` hier, 8 x 2048, 2 steps on
-   2x4 and ``2x(2x2)`` at the deepest whole number of units whose state
-   fits (printed with its bytes; the peak allocated is printed), the
+   backward), then ``make_cluster_train_step`` hier, 8 x 1024, 2 steps on
+   2x4 and ``2x(2x2)`` at one unit (the whole units whose state fits are
+   printed with their bytes; the peak allocated is printed), the
    loop's share of the step, then the training C1 at 8 layers (4.0 on
-   2x4 with hier vs naive under §2's rule, 2.0 on ``2x(2x2)``), the hier
-   bundles each profiling one step of 8 x 256 (2 mLSTM chunks: the parts,
+   2x4 with hier vs naive under §2's rule, 2.0 on ``2x(2x2)``), the 2x4
+   hier bundle profiling one step of 8 x 256 (2 mLSTM chunks: the parts,
    the tp collectives); (e) the
    head groups: one train step on ``1x(1x8)`` (tp 8 over 4 heads, g 2) at
    8 layers against the single-device step under §2's rule.
+
+17. the frontends and the production-mesh entry points (after phase 16),
+   f32, seeded weights — (a) ``internvl2-1b`` (``vit``: 256 patches of
+   1024 in place of a row's first token embeddings; 14 q / 2 kv heads of
+   64) at full width and depth through ``runtime.steps.make_train_step``
+   on ``small_topo(2, 2, 2)`` (``launch.mesh.make_mesh_from_topo``), hier,
+   8 x 2048, 3 steps over ``data.synthetic.FrontendLM``: step ms, masked
+   tokens/s, the state's bytes, the flash launches (a layer's one a node
+   run: 7 q / 1 kv heads a tp rank folded into the batch), and C1
+   naive/hier = 2.0 exactly; hier against naive at 2 layers (8 x 512) and
+   card against CPU (4 x 288), one step each under §2's rule; (b) hier
+   serving on 2x4 with ``serve_fsdp``: phase 14's prompts each led by its
+   256 patches, 32 greedy decode steps, the sync decode ``torch.equal`` to
+   ``RecordedDecoder`` (one gather per node-stored leaf), stored weights 2
+   node copies, weight C1 naive/hier = 4.0 exactly; then
+   ``make_serve_steps`` on ``1x(1x8)``: 32 decode steps of 8 rows from an
+   empty cache with the ``decode2d`` opt ((g_h, g_s) = (2, 4)) against
+   the 1-D decode within rtol / atol 2e-4; (c) ``musicgen-medium``
+   (``encodec``: 128-wide frames, 24 q / 24 kv heads of 64): hier serving
+   on 2x4 at full depth, a 512-frame prefill and 8 frame decode steps
+   against the 520-frame prefill within 1e-4 relative; card against CPU
+   at 2 layers (prefill, 2 decode steps, one ``make_train_step`` step
+   under §2's rule); ``make_train_step`` hier on 2x4, 8 x 2048 frames, 2
+   steps at the deepest whole number of layers whose state fits; (d)
+   ``repro_torch.apps.quickstart``, ``serve_lm`` and ``train_100m`` as
+   processes of their own with ``--device cuda``, side by side: the loss
+   below ln V - 0.5, 5 of 5 streams equal their solo runs and the live
+   tuner's line, and ``train_100m`` stopped after its step-2 checkpoint
+   and resumed (``resumed_from`` 2).
 
 Phase 2 holds the flash forward and backward kernels at phase 12's shapes
 too: (8, 2048, 8 q / 4 kv, 128) and (2, 256, 36 q / 4 kv, 128) against
 2048 keys at q_offset 256 and 1792; and at phase 15's (hd 64): the
 training forward and backward (4, 2048, 24 q / 8 kv, 64) and one
-2016-token prompt's forward, each timed beside SDPA and its bound.
+2016-token prompt's forward, each timed beside SDPA and its bound; and at
+phase 17's (a GQA group of 7): (4, 2048, 14 q / 2 kv, 64) and the head_tp
+rank's (8, 2048, 7 q / 1 kv, 64), forward and backward, with the
+backward's ``head_splits``.
 
 Kernel launch counts are zeroed just before each main path (phases 3-7,
 phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
 12 (a), each of phase 13's runs, phase 14's prefills, phase 15's
-prefills and training runs, and phase 16's runs, which launch none) and
-read just after; the JSON's flash rows sum the main paths that launch
-them.  The recompute counters (the non-finite rule's, and the flash
-backward's) are zeroed before phase 3 and must read 0 after phase 16.
+prefills and training runs, phase 16's runs, which launch none, and
+phase 17's training runs and prefills) and read just after; the JSON's
+flash rows sum the main paths that launch them.  The recompute counters
+(the non-finite rule's, and the flash backward's) are zeroed before phase
+3 and must read 0 after phase 17.
 The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -611,6 +648,9 @@ def decode_both(m_g, m_c, p_g, p_c, cache_g, cache_c, logits_g, pos: int,
 # phase 14's prompts: 8 lengths 224 .. 2016 (256 k - 32), so 32 decode
 # steps end at position 2047 of an s_max of 2048; even, so tp 2 splits them
 SERVE_CLUSTER_LENGTHS = tuple(256 * k - 32 for k in range(1, 9))
+# phase 14 serves qwen3-0.6b at 14 of its 28 layers: its decode is
+# host-bound, and the script's time limit holds phase 17 too
+SERVE_CLUSTER_LAYERS = 14
 SERVE_CLUSTER_SMAX, SERVE_CLUSTER_STEPS = 2048, 32
 
 
@@ -639,7 +679,8 @@ def serve_cluster_phase(dev, scratch: str) -> int:
     from repro_torch.substrate.cluster import P
     from repro_torch.substrate.collectives import recording
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                              n_layers=SERVE_CLUSTER_LAYERS)
     lengths, S, steps = (SERVE_CLUSTER_LENGTHS, SERVE_CLUSTER_SMAX,
                          SERVE_CLUSTER_STEPS)
     nb = len(lengths)
@@ -1005,6 +1046,9 @@ def serve_cluster_phase(dev, scratch: str) -> int:
 
 
 MOE_NAME = "granite-moe-3b-a800m"
+# phase 15 serves at 16 of the model's 32 layers and trains at 8 (of the
+# 16 whose state fits): the script's time limit holds phase 17 too
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 16, 8
 
 
 def moe_phase(dev) -> dict:
@@ -1086,16 +1130,18 @@ def moe_phase(dev) -> dict:
           f"{cfg.vocab_padded}), {cfg.n_layers} layers, capacity_factor "
           f"{cfg.moe.capacity_factor}, f32")
 
-    # (a) hier serving on 2x4 at full depth, serve_fsdp: phase 14's
+    # (a) hier serving on 2x4 at MOE_SERVE_LAYERS, serve_fsdp: phase 14's
     # workload, the sync decode and RecordedDecoder
     t_a = time.perf_counter()
     vc = VirtualCluster(pods=2, chips=4, device=dev)
-    m = model_on(vc, cfg)
+    cfgA = dataclasses.replace(cfg, n_layers=MOE_SERVE_LAYERS)
+    m = model_on(vc, cfgA)
     params = m.init_params(15)
     w_bytes = nbytes(params)
-    print(f"[moe] parameters {sum(t.numel() for t in T.leaves(params))} "
+    print(f"[moe] serving at {cfgA.n_layers} of {cfg.n_layers} layers: "
+          f"parameters {sum(t.numel() for t in T.leaves(params))} "
           f"({w_bytes / 1e9:.3f} GB of f32, vocab padding included; "
-          f"config.param_count() {cfg.param_count()})")
+          f"config.param_count() {cfgA.param_count()})")
     with vc.bind():
         train = vc.layout(params, specs(m, False))
         cache = m.cache_init(nb, S)
@@ -1116,11 +1162,11 @@ def moe_phase(dev) -> dict:
         first = torch.stack(first)
         del train
         free()
-        want_fl = vc.pods * cfg.n_layers * nb
+        want_fl = vc.pods * cfgA.n_layers * nb
         print(f"[moe] 2x4 hier: prefill of {nb} prompts ({lengths[0]}-"
               f"{lengths[-1]} tokens, one run per node) {pre_ms:.1f} ms; "
               f"flash_attention launches {fl} ({vc.pods} nodes x "
-              f"{cfg.n_layers} layers x {nb})")
+              f"{cfgA.n_layers} layers x {nb})")
         if fl != want_fl:
             raise AssertionError(f"moe prefill launches {fl} != {want_fl}")
         base = traffic.device_bytes(dev)
@@ -1364,10 +1410,11 @@ def moe_phase(dev) -> dict:
     rest = 4 * sum(t.numel() for k_, v_ in lay1.items() if k_ != "units"
                    for t in T.leaves({k_: v_}))
     free_b = torch.cuda.mem_get_info(dev)[0]
-    L = min(cfg.n_layers, int((free_b - 16 * 2 ** 30 - 9 * rest)
-                              // (9 * per_layer)))
+    fit = min(cfg.n_layers, int((free_b - 16 * 2 ** 30 - 9 * rest)
+                                // (9 * per_layer)))
+    L = min(fit, MOE_TRAIN_LAYERS)
     cfgL = dataclasses.replace(cfg, n_layers=L)
-    print(f"[moe] training depth {L} of {cfg.n_layers}: per node "
+    print(f"[moe] training depth {L} of {cfg.n_layers} ({fit} fit): per node "
           f"{(rest + L * per_layer) / 1e9:.3f} GB of params ({per_layer / 1e9:.3f}"
           f" GB a layer), state x 2 node copies x (params, m, v, grads) "
           f"{8 * (rest + L * per_layer) / 1e9:.2f} GB of "
@@ -1527,6 +1574,11 @@ XLSTM_NAME = "xlstm-1.3b"
 #: carries).  A one-unit step on 2x(2x2) peaked 43.4 GB above its 19.5 GB
 #: of state on an H100 (2x4: 38.3 GB); this keeps ~6 GB more
 XLSTM_TRAIN_TRANSIENTS = 46 * 2 ** 30
+# phase 16 (a) serves at 2 of xlstm-1.3b's 6 units and (d) trains one unit
+# at 8 x 1024 tokens: the sLSTM time loop makes both host-bound (~6,400
+# launches a decode step, ~68 device activities a training time step), and
+# the script's time limit holds phase 17 too
+XLSTM_SERVE_UNITS, XLSTM_TRAIN_T = 2, 1024
 
 
 def xlstm_phase(dev, cfg=None) -> dict:
@@ -1625,12 +1677,16 @@ def xlstm_phase(dev, cfg=None) -> dict:
     # 32 greedy decode steps, sync and recorded
     t_a = time.perf_counter()
     vc = VirtualCluster(pods=2, chips=4, device=dev)
-    m = model_on(vc, cfg)
+    cfgA = dataclasses.replace(cfg, n_layers=XLSTM_SERVE_UNITS
+                               * len(cfg.pattern))
+    m = model_on(vc, cfgA)
     params = m.init_params(24)
     w_bytes = nbytes(params)
-    print(f"[xlstm] parameters {sum(t.numel() for t in T.leaves(params))} "
-          f"({w_bytes / 1e9:.3f} GB of f32, vocab padding included; "
-          f"config.param_count() {cfg.param_count()})")
+    print(f"[xlstm] serving at {cfgA.n_units} of {cfg.n_units} units "
+          f"({cfgA.n_layers} layers): parameters "
+          f"{sum(t.numel() for t in T.leaves(params))} ({w_bytes / 1e9:.3f} "
+          f"GB of f32, vocab padding included; config.param_count() "
+          f"{cfgA.param_count()})")
     with vc.bind():
         train = vc.layout(params, specs(m, False))
         cache = m.cache_init(nb, S)
@@ -1658,7 +1714,8 @@ def xlstm_phase(dev, cfg=None) -> dict:
               f"({vc.pods * sum(lengths) / pre_ms * 1e3:.1f} tokens/s over "
               f"both nodes' runs); decode state {per_node / 1e9:.3f} GB per "
               f"node for {nb} rows (mLSTM {by_kind['mlstm'] / 1e9:.3f} GB: "
-              f"C / n / m / conv of {cfg.n_units * cfg.pattern.count('mlstm')}"
+              f"C / n / m / conv of "
+              f"{cfgA.n_units * cfg.pattern.count('mlstm')}"
               f" layers, sLSTM {by_kind['slstm'] / 1e9:.4f} GB)")
         del train
         free()
@@ -1868,10 +1925,10 @@ def xlstm_phase(dev, cfg=None) -> dict:
     free()
     print(f"[phase] xlstm (c) {time.perf_counter() - t_c:.1f} s")
 
-    # (d) training, 8 x 2048 tokens, hier, on 2x4 and 2x(2x2).  First the
-    # sLSTM loop alone at a training domain's shape (4 x 2048: a node's 4
-    # ranks' rows): ms a step and device activities a step (kernels,
-    # copies), forward and forward + backward
+    # (d) training, 8 x XLSTM_TRAIN_T tokens, hier, on 2x4 and 2x(2x2).
+    # First the sLSTM loop alone at a training domain's shape (4 x
+    # XLSTM_TRAIN_T: a node's 4 ranks' rows): ms a step and device
+    # activities a step (kernels, copies), forward and forward + backward
     t_d = time.perf_counter()
     sdefs = meta.block_defs("slstm", cfg, 1, False)["slstm"]
     gs = torch.Generator(device=dev).manual_seed(28)
@@ -1892,7 +1949,7 @@ def xlstm_phase(dev, cfg=None) -> dict:
         slstm_run(64, bw)
         sync()
         t1 = time.perf_counter()
-        slstm_run(2048, bw)
+        slstm_run(XLSTM_TRAIN_T, bw)
         sync()
         ms_ = (time.perf_counter() - t1) * 1e3
         r = profile_run(lambda bw=bw: slstm_run(128, bw))
@@ -1900,12 +1957,12 @@ def xlstm_phase(dev, cfg=None) -> dict:
     # a train step's share: 2 domains x (forward, then the remat's forward
     # and the backward)
     loop_ms = 2 * (loop[False][0] + loop[True][0])
-    print(f"[xlstm] the sLSTM loop alone, one block at (4, 2048, d "
+    print(f"[xlstm] the sLSTM loop alone, one block at (4, {XLSTM_TRAIN_T}, d "
           f"{cfg.d_model}) f32: forward {loop[False][0]:.1f} ms "
-          f"({1e3 * loop[False][0] / 2048:.1f} us a step, "
+          f"({1e3 * loop[False][0] / XLSTM_TRAIN_T:.1f} us a step, "
           f"{loop[False][1]:.1f} device activities a step at T 128); "
           f"forward + backward {loop[True][0]:.1f} ms "
-          f"({1e3 * loop[True][0] / 2048:.1f} us a step, "
+          f"({1e3 * loop[True][0] / XLSTM_TRAIN_T:.1f} us a step, "
           f"{loop[True][1]:.1f} device activities a step)")
     del ps
 
@@ -1918,12 +1975,15 @@ def xlstm_phase(dev, cfg=None) -> dict:
     rest = 4 * sum(t.numel() for k_, v_ in lay1.items() if k_ != "units"
                    for t in T.leaves({k_: v_}))
     free_b = torch.cuda.mem_get_info(dev)[0]
-    U = max(0, min(cfg.n_units, int((free_b - XLSTM_TRAIN_TRANSIENTS
-                                     - 9 * rest) // (9 * per_unit))))
-    if U < 1:
+    fit = max(0, min(cfg.n_units, int((free_b - XLSTM_TRAIN_TRANSIENTS
+                                       - 9 * rest) // (9 * per_unit))))
+    if fit < 1:
         raise AssertionError("xlstm: not one unit's training state fits")
+    # one unit: the host-bound sLSTM loop costs every unit's step seconds
+    # (ROADMAP Queue 2), and the script's time limit holds phase 17 too
+    U = 1
     cfgU = dataclasses.replace(cfg, n_layers=U * len(cfg.pattern))
-    print(f"[xlstm] training state: {U} of {cfg.n_units} units fit "
+    print(f"[xlstm] training state: {fit} of {cfg.n_units} units fit "
           f"({cfgU.n_layers} layers: per node "
           f"{(rest + U * per_unit) / 1e9:.3f} GB of params, "
           f"{per_unit / 1e9:.3f} GB a unit; 2 node copies x (params, m, v, "
@@ -1932,9 +1992,9 @@ def xlstm_phase(dev, cfg=None) -> dict:
           f"{XLSTM_TRAIN_TRANSIENTS / 2 ** 30:.0f} GiB for a unit's "
           f"activations; full depth would need "
           f"{8 * (rest + cfg.n_units * per_unit) / 1e9:.1f} GB); run at "
-          f"{U} units, 2 steps: the host-bound sLSTM loop (ROADMAP Queue 2) "
+          f"{U} unit, 2 steps: the host-bound sLSTM loop (ROADMAP Queue 2) "
           f"costs every unit's step ~{loop_ms / 1e3:.1f} s")
-    batches = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=2048,
+    batches = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=XLSTM_TRAIN_T,
                                      global_batch=8, seed=7))
     batches = [batches.next_batch() for _ in range(2)]
     for label in ("2x4", "2x(2x2)"):
@@ -1957,14 +2017,16 @@ def xlstm_phase(dev, cfg=None) -> dict:
             if not (np.isfinite(loss) and np.isfinite(gnorm)):
                 raise AssertionError(f"xlstm train {label}: loss {loss}")
             print(f"[train] {cfg.name} {cfgU.n_layers} layers hier {label} "
-                  f"8x2048 step {i + 1}: loss {loss:.6f} gnorm {gnorm:.6f} "
-                  f"step {ms[-1]:.1f} ms {8 * 2048 / ms[-1] * 1e3:.1f} "
+                  f"8x{XLSTM_TRAIN_T} step {i + 1}: loss {loss:.6f} "
+                  f"gnorm {gnorm:.6f} "
+                  f"step {ms[-1]:.1f} ms "
+                  f"{8 * XLSTM_TRAIN_T / ms[-1] * 1e3:.1f} "
                   f"tokens/s")
         read(f"training on {label}")
         nb_["grads"] = bundle.stats["grad_bytes"]
         tp = bundle.model.ctx.tp
         print(f"[xlstm] train {label} (tp {tp}, {cfgU.n_layers} layers): "
-              f"step 2 {ms[1]:.1f} ms, {8 * 2048 / ms[1] * 1e3:.1f} "
+              f"step 2 {ms[1]:.1f} ms, {8 * XLSTM_TRAIN_T / ms[1] * 1e3:.1f} "
               f"tokens/s; state "
               + ", ".join(f"{k_} {v_ / 1e9:.3f} GB" for k_, v_ in nb_.items())
               + f"; peak allocated "
@@ -1975,8 +2037,8 @@ def xlstm_phase(dev, cfg=None) -> dict:
         del bundle, state, laid
         free()
 
-    # one step of 8 x 256 tokens at one unit under the profiler, on each
-    # topology: 2 mLSTM chunks, so the prefix loop runs (an 8 x 2048 step's
+    # one step of 8 x 256 tokens at one unit under the profiler, on 2x4:
+    # 2 mLSTM chunks, so the prefix loop runs (an 8 x 2048 step's
     # trace holds ~400k device activities, minutes to read back).  The
     # parts' device and host ms, the tp collectives
     prof_batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=256,
@@ -2012,7 +2074,7 @@ def xlstm_phase(dev, cfg=None) -> dict:
 
     # the training C1 at 8 layers: hier against naive on 2x4, one step of
     # 8 x 128 tokens from a common state under PERF.md §2's rule, and the
-    # state bytes on 2x(2x2); the hier bundles' profiled steps
+    # state bytes on 2x(2x2); the 2x4 hier bundle's profiled step
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
                                    global_batch=8, seed=8)).next_batch()
     vc = VirtualCluster(pods=2, chips=4, device=dev)
@@ -2049,8 +2111,6 @@ def xlstm_phase(dev, cfg=None) -> dict:
                                          global_batch=8)
         state = bundle.init_layout_state(27)
         c1_tp[mode] = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
-        if mode == "hier":
-            profile_step(bundle, state, "2x(2x2)")
         del bundle, state
         free()
     c1_tp = {g_: c1_tp["naive"][g_] / c1_tp["hier"][g_]
@@ -2110,6 +2170,584 @@ def xlstm_phase(dev, cfg=None) -> dict:
     del res, s8, s1, p8
     free()
     print(f"[phase] xlstm (e) {time.perf_counter() - t_e:.1f} s")
+    return launches
+
+
+FRONTEND_VLM, FRONTEND_AUDIO = "internvl2-1b", "musicgen-medium"
+# activations beside the training state of a musicgen-medium domain run
+# (4 x 2048 frames, d 1536: the layers' remat checkpoints, one layer's
+# recompute, the streamed loss): the depth rule of phase 17 (c)
+FRONTEND_TRAIN_TRANSIENTS = 16 * 2 ** 30
+
+
+def frontends_phase(dev, scratch: str) -> dict:
+    """Phase 17: the ``vit`` / ``encodec`` frontends and the production-
+    mesh entry points at ``internvl2-1b``'s and ``musicgen-medium``'s full
+    width (f32, seeded weights), then the three apps.  Returns the flash
+    forward / backward launches of its main-path runs (each zeroed just
+    before and read just after)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.analysis import traffic
+    from repro_torch.analysis.state_rule import state_close
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.core.topology import MeshTopology
+    from repro_torch.data.synthetic import DataConfig, FrontendLM
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.launch.mesh import make_mesh_from_topo, small_topo
+    from repro_torch.models import ParallelCtx, build, meta
+    from repro_torch.models.domains import NodeCache
+    from repro_torch.models.meta import store_dim
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.steps import cluster_ctx, make_serve_steps, \
+        make_train_step
+    from repro_torch.serving.recorded import RecordedDecoder
+    from repro_torch.substrate import VirtualCluster
+    from repro_torch.substrate.cluster import P
+
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    cpu = torch.device("cpu")
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in T.leaves(tree))
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def zero():
+        kflash.launches = kbwd.launches = 0
+
+    def read(what):
+        fl, bw = kflash.launches, kbwd.launches
+        launches["flash_attention"] += fl
+        launches["flash_attention_bwd"] += bw
+        print(f"[frontends] flash launches in {what}: forward {fl}, "
+              f"backward {bw}")
+        return fl, bw
+
+    def stream(cfg, seq, batch, seed):
+        return FrontendLM(cfg, DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=batch, seed=seed))
+
+    def common_state(bundle, params):
+        """The state of ``params`` (global, any device) laid out on the
+        bundle's cluster, zero moments."""
+        pp = T.tree_map(lambda t: t.to(bundle.vc.device), params)
+        m_, v_ = adamw_init(pp)
+        return bundle.layout_state({"params": pp, "m": m_, "v": v_,
+                                    "step": torch.zeros((),
+                                                        dtype=torch.int32)})
+
+    def one_step(cfg, topo, d_, mode, params, batch):
+        """One make_train_step step from ``params``: loss, gnorm, the
+        global updated state on the CPU."""
+        vc = make_mesh_from_topo(topo, device=d_)
+        bundle = make_train_step(cfg, topo, vc, mode=mode,
+                                 compute_dtype=torch.float32)
+        state = common_state(bundle, params)
+        state, mt = bundle.step(state, bundle.layout_batch(batch))
+        glob = bundle.unlayout_state(state)
+        out = (float(mt["loss"][0]), float(mt["gnorm"][0]),
+               T.tree_map(lambda t: t.cpu(), {g_: glob[g_] for g_ in
+                                              ("params", "m", "v")}))
+        del bundle, state, glob
+        free()
+        return out
+
+    def held(a, b, what):
+        """Two one-step runs under PERF.md §2's rule."""
+        (la, ga, sa), (lb, gb, sb) = a, b
+        if not (abs(la - lb) <= 2e-4 * abs(lb)
+                and abs(ga - gb) <= 5e-3 * gb):
+            raise AssertionError(f"{what}: loss {la} / {lb}, gnorm {ga} / "
+                                 f"{gb}")
+        ex, tot, w_ = state_close(sa, sb, 1, what)
+        return (f"loss {la:.6f} / {lb:.6f}, gnorm {ga:.6f} / {gb:.6f}, m "
+                f"and v within the rule (worst m {w_['m']:.3g}, v "
+                f"{w_['v']:.3g}), params but {ex} of {tot} ill-conditioned")
+
+    def specs(m, serve):
+        ctx = m.ctx
+        return m.param_specs(serve=serve, tp_axis=ctx.tp_axis,
+                             fsdp_axis=ctx.fsdp_axes[0] if ctx.fsdp_axes
+                             else None)
+
+    def model_on(vc, c, mode="hier", d_=dev):
+        ctx = cluster_ctx(vc, mode=mode, opts=("serve_fsdp",))
+        sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+        return build(c, ctx, data=math.prod(sizes[a] for a in
+                                            ctx.fsdp_axes), device=d_)
+
+    vlm, audio = get_config(FRONTEND_VLM), get_config(FRONTEND_AUDIO)
+    for c in (vlm, audio):
+        print(f"[frontends] {c.name}: {c.frontend} frontend (d_frontend "
+              f"{c.d_frontend}" + (f", {c.n_prefix} patches a row"
+                                   if c.n_prefix else "")
+              + f"), d {c.d_model}, {c.n_heads} q / {c.n_kv} kv heads x "
+              f"{c.head_dim}, d_ff {c.d_ff}, vocab {c.vocab}, "
+              f"{c.n_layers} layers, {c.param_count() / 1e9:.3f} B params "
+              f"({4 * c.param_count() / 1e9:.2f} GB f32)")
+
+    # (a) internvl2-1b training through make_train_step on small_topo(2, 2,
+    # 2) (2 pods x (2 data x 2 model)), hier, 8 x 2048 tokens (the first 256
+    # of a row its patches), full depth, 3 steps
+    t_a = time.perf_counter()
+    topo = small_topo(2, 2, 2)
+    vc = make_mesh_from_topo(topo, device=dev)
+    bundle = make_train_step(vlm, topo, vc, mode="hier",
+                             compute_dtype=torch.float32)
+    state = bundle.init_layout_state(31)
+    nb_h = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+    data = stream(vlm, 2048, 8, 17)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    ms = []
+    for i in range(3):
+        laid = bundle.layout_batch(data.next_batch())
+        sync()
+        t1 = time.perf_counter()
+        state, mt = bundle.step(state, laid)
+        loss, gnorm = float(mt["loss"][0]), float(mt["gnorm"][0])
+        n_tok = float(mt["tokens"][0])
+        sync()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"internvl train: loss {loss}")
+        print(f"[train] {vlm.name} full depth make_train_step hier "
+              f"{vc.label} 8x2048 (256 patches a row) step {i + 1}: loss "
+              f"{loss:.6f} gnorm {gnorm:.6f} step {ms[-1]:.1f} ms; "
+              f"{n_tok:.0f} masked tokens, {n_tok / ms[-1] * 1e3:.1f} "
+              f"masked tokens/s ({8 * 2048 / ms[-1] * 1e3:.1f} positions/s)")
+    fl, bw = read("internvl2-1b training")
+    want_bw = vc.pods * vlm.n_layers * 3
+    if bw != want_bw or fl != 2 * bw:
+        raise AssertionError(f"internvl train launches {fl} / {bw}, want "
+                             f"{2 * want_bw} / {want_bw}")
+    if n_tok != 8 * (2048 - vlm.n_prefix + 1):
+        raise AssertionError(f"internvl masked tokens {n_tok}")
+    nb_h["grads"] = bundle.stats["grad_bytes"]
+    print(f"[frontends] internvl2-1b train {vc.label} (tp "
+          f"{bundle.model.ctx.tp}, head_tp: {vlm.n_heads // 2} q / "
+          f"{vlm.n_kv // 2} kv heads a rank): steps 2-3 "
+          f"{sum(ms[1:]) / 2:.1f} ms; state "
+          + ", ".join(f"{k_} {v_ / 1e9:.3f} GB" for k_, v_ in nb_h.items())
+          + f" (2 node copies of each of 2 tp shards); peak allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    del bundle, state, laid
+    free()
+    naive = make_train_step(vlm, topo, vc, mode="naive",
+                            compute_dtype=torch.float32)
+    state = naive.init_layout_state(31)
+    c1 = {g_: nbytes(state[g_]) / nb_h[g_] for g_ in ("params", "m", "v")}
+    del naive, state
+    free()
+    print(f"[frontends] internvl2-1b training C1 naive/hier by group on "
+          f"{vc.label}: {c1} (the store size 2)")
+    if set(c1.values()) != {2.0}:
+        raise AssertionError(f"internvl training C1 {c1}")
+    # hier against naive at 2 layers on the card (8 x 512: 256 patches and
+    # 256 tokens a row), and card against CPU (4 x 288)
+    vlm2 = dataclasses.replace(vlm, n_layers=2)
+    one = build(vlm2, ParallelCtx.single(), device=dev)
+    p2 = T.tree_map(lambda t: t.cpu(), one.init_params(32))
+    del one
+    b512 = stream(vlm, 512, 8, 18).next_batch()
+    line = held(one_step(vlm2, topo, dev, "hier", p2, b512),
+                one_step(vlm2, topo, dev, "naive", p2, b512),
+                "internvl hier vs naive")
+    print(f"[frontends] internvl2-1b hier vs naive, {vc.label}, 2 layers, "
+          f"one step of 8 x 512: {line}")
+    b288 = stream(vlm, 288, 4, 19).next_batch()
+    line = held(one_step(vlm2, topo, dev, "hier", p2, b288),
+                one_step(vlm2, topo, cpu, "hier", p2, b288),
+                "internvl card vs CPU")
+    print(f"[frontends] internvl2-1b card vs CPU, hier {vc.label}, 2 "
+          f"layers, one step of 4 x 288: {line}")
+    del p2
+    free()
+    print(f"[phase] frontends (a) {time.perf_counter() - t_a:.1f} s")
+
+    # (b) internvl2-1b serving: hier on 2x4 with serve_fsdp, phase 14's
+    # prompts each led by its 256 patches, the sync decode against
+    # RecordedDecoder and the weight C1; then make_serve_steps on 1x(1x8):
+    # decode2d against the 1-D decode
+    t_b = time.perf_counter()
+    lengths = [vlm.n_prefix + n for n in SERVE_CLUSTER_LENGTHS]
+    S, steps, nb = (max(lengths) + SERVE_CLUSTER_STEPS,
+                    SERVE_CLUSTER_STEPS, len(lengths))
+    src = stream(vlm, max(lengths), nb, 20).next_batch()
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    m = model_on(vc, vlm)
+    params = m.init_params(33)
+    w_bytes = nbytes(params)
+    with vc.bind():
+        train = vc.layout(params, specs(m, False))
+        cache = m.cache_init(nb, S)
+        first = []
+        zero()
+        sync()
+        t0 = time.perf_counter()
+        for i, n in enumerate(lengths):
+            row = src["tokens"][i:i + 1, :n]
+            batch = {"tokens": np.concatenate([row, row[:, -1:]], 1),
+                     "patches": src["patches"][i:i + 1]}
+            c, lg = m.prefill_fn(train, {k: vc.layout(torch.from_numpy(v),
+                                                      P())
+                                         for k, v in batch.items()}, S)
+            cache.copy_row(c, 0, len(first))
+            first.append(lg[0, 0, 0])
+            del c
+        sync()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        fl, _ = read("internvl2-1b prefills")
+        if fl != vc.pods * vlm.n_layers * nb:
+            raise AssertionError(f"internvl prefill launches {fl}")
+        first = torch.stack(first)
+        del train
+        free()
+        base = traffic.device_bytes(dev)
+        serve = vc.layout(params, specs(m, True))
+        stored = traffic.device_bytes(dev) - base
+
+        def decode_loop(decode, cache_):
+            tok, pos = first.argmax(-1), torch.tensor(lengths)
+            out, ms_ = [], []
+            for _ in range(steps):
+                sync()
+                t1 = time.perf_counter()
+                cache_, lg_ = decode(serve, cache_,
+                                     vc.layout(tok[:, None].int(), P()),
+                                     vc.layout(pos, P()))
+                sync()
+                ms_.append((time.perf_counter() - t1) * 1e3)
+                out.append(lg_[0, :, 0].clone())
+                tok, pos = out[-1].argmax(-1), pos + 1
+            return out, ms_, cache_
+
+        c_sync = NodeCache(T.tree_map(lambda t: t.clone(), dict(cache)),
+                           cache.domains)
+        sync_out, s_ms, c_sync = decode_loop(m.decode_fn, c_sync)
+        dec = RecordedDecoder(m)
+        rec_out, r_ms, c_rec = decode_loop(dec, cache)
+        same = all(torch.equal(a, b) for a, b in zip(sync_out, rec_out)) \
+            and all(torch.equal(a, b) for a, b in zip(
+                T.leaves(dict(c_sync)), T.leaves(dict(c_rec))))
+        (sched,) = dec.schedules.values()
+        n_g = sum(n_.family == "gather" for n_ in sched.graph.nodes)
+        n_store = sum(store_dim(mt_) is not None
+                      for mt_ in T.leaves(m.serve_defs))
+        for label, t_ in (("sync", s_ms), ("recorded", r_ms)):
+            tail = t_[1:]
+            print(f"[frontends] internvl2-1b 2x4 {label}: decode step p50 "
+                  f"{1e3 * pct(tail, 0.5):.0f} us p99 "
+                  f"{1e3 * pct(tail, 0.99):.0f} us (steps 2-{len(t_)}), "
+                  f"{nb * len(tail) / sum(tail) * 1e3:.1f} tokens/s")
+        print(f"[frontends] internvl2-1b 2x4 hier serve_fsdp: prefill of "
+              f"{nb} prompts ({lengths[0]}-{lengths[-1]} positions, the "
+              f"first {vlm.n_prefix} patches) {pre_ms:.1f} ms; recorded == "
+              f"sync (every step's logits and the final cache, "
+              f"torch.equal) {same}; gathers {n_g} (node-stored leaves "
+              f"{n_store}); stored weights {stored / 1e9:.3f} GB "
+              f"({stored / w_bytes:.2f} x {w_bytes / 1e9:.3f} GB)")
+        if not same or n_g != n_store or stored != vc.pods * w_bytes:
+            raise AssertionError(f"internvl serving: recorded == sync "
+                                 f"{same}, gathers {n_g} / {n_store}, "
+                                 f"stored {stored}")
+        if not all(torch.isfinite(x).all() for x in sync_out):
+            raise AssertionError("internvl: non-finite decode logits")
+        del serve, cache, c_sync, c_rec, sync_out, rec_out
+        free()
+        # the weight C1: the naive serve layout's bytes over hier's, and
+        # one decode step of each from an empty cache agreeing
+        outs, w_b = {}, {}
+        tok = vc.layout(first.argmax(-1)[:, None].int(), P())
+        for mode in ("hier", "naive"):
+            mm = model_on(vc, vlm, mode=mode)
+            base = traffic.device_bytes(dev)
+            sp = vc.layout(params, specs(mm, True))
+            w_b[mode] = traffic.device_bytes(dev) - base
+            _, lg = mm.decode_fn(sp, mm.cache_init(nb, 64), tok,
+                                 vc.layout(torch.zeros(nb, dtype=torch.long),
+                                           P()))
+            outs[mode] = lg[0].clone()
+            del sp, mm
+            free()
+    c1w = w_b["naive"] / w_b["hier"]
+    err = rel_err(outs["hier"], outs["naive"])
+    print(f"[frontends] internvl2-1b naive vs hier on 2x4: weight bytes "
+          f"per node C1 naive/hier {c1w} (chips 4); a decode step's logits "
+          f"rel_err {err:.3g}")
+    if c1w != 4.0 or err > 1e-4:
+        raise AssertionError(f"internvl weight C1 {c1w}, rel_err {err}")
+    del params
+    free()
+
+    # make_serve_steps on 1x(1x8) (tp 8: internvl2-1b's (g_h, g_s) = (2,
+    # 4)): 32 decode steps from an empty cache, the 2-D layout against the
+    # 1-D one on the same weights and tokens, every step's logits within
+    # 2e-4
+    topo8 = MeshTopology({"data": 1, "model": 8})
+    vc8 = make_mesh_from_topo(topo8, device=dev)
+    B8, S8 = 8, 64
+    feed = torch.from_numpy(stream(vlm, S8, B8, 21).next_batch()["tokens"])
+    base_p = build(vlm, ParallelCtx.single(), device=dev).init_params(34)
+    res = {}
+    for opts in ((), ("decode2d",)):
+        sb = make_serve_steps(vlm, topo8, vc8, global_batch=B8, s_max=S8,
+                              opts=opts, compute_dtype=torch.float32)
+        pp = meta.decode2d_params(base_p, vlm, 8) if opts else base_p
+        lay = sb.layout_params(pp)
+        del pp
+        cache = sb.cache_init()
+        out, ms_ = [], []
+        for t in range(SERVE_CLUSTER_STEPS):
+            sync()
+            t1 = time.perf_counter()
+            cache, lg = sb.decode(lay, cache,
+                                  sb.layout_tokens(feed[:, t:t + 1]), t)
+            sync()
+            ms_.append((time.perf_counter() - t1) * 1e3)
+            out.append(sb.unlayout_logits(lg).cpu())
+        res[bool(opts)] = (out, ms_, nbytes(lay),
+                           nbytes(dict(cache)) if opts else None)
+        del sb, lay, cache
+        free()
+    g_h, g_s = meta.decode2d_groups(vlm, 8)
+    worst = 0.0
+    for a, b in zip(res[True][0], res[False][0]):
+        worst = max(worst, float(((a - b).abs() / (2e-4 + 2e-4 * b.abs()))
+                                 .max()))
+    print(f"[frontends] internvl2-1b make_serve_steps 1x(1x8), decode2d "
+          f"(g_h, g_s) = ({g_h}, {g_s}) against the 1-D decode, "
+          f"{SERVE_CLUSTER_STEPS} steps of {B8} rows from an empty cache "
+          f"(s_max {S8}): worst |diff| / (2e-4 + 2e-4 |1-D|) {worst:.3g}; "
+          f"step p50 {pct(res[True][1][1:], 0.5):.1f} ms (2-D) / "
+          f"{pct(res[False][1][1:], 0.5):.1f} ms (1-D); serve weights "
+          f"{res[True][2] / 1e9:.3f} / {res[False][2] / 1e9:.3f} GB")
+    if not worst <= 1.0:
+        raise AssertionError(f"decode2d vs 1-D: {worst}")
+    del base_p, res
+    free()
+    print(f"[phase] frontends (b) {time.perf_counter() - t_b:.1f} s")
+
+    # (c) musicgen-medium: hier serving on 2x4 at full depth (a prefill of
+    # frames, then frame decode against a longer prefill), card against
+    # CPU at 2 layers, then make_train_step at the deepest depth whose
+    # state fits
+    t_c = time.perf_counter()
+    T0, n_dec = 512, 8
+    fr = stream(audio, T0 + n_dec, 2, 22).next_batch()
+    m = model_on(vc, audio)
+    params = m.init_params(35)
+    with vc.bind():
+        train = vc.layout(params, specs(m, False))
+        zero()
+
+        def pre(n):
+            b_ = {k: vc.layout(torch.from_numpy(np.ascontiguousarray(
+                v[:, :n])), P()) for k, v in fr.items()}
+            return m.prefill_fn(train, b_, T0 + n_dec)
+        sync()
+        t1 = time.perf_counter()
+        cache, _ = pre(T0)
+        sync()
+        pre_ms = (time.perf_counter() - t1) * 1e3
+        _, want = pre(T0 + n_dec)
+        del train
+        free()
+        serve = vc.layout(params, specs(m, True))
+        ms_ = []
+        for i in range(n_dec):
+            frame = torch.from_numpy(np.ascontiguousarray(
+                fr["frames"][:, T0 + i:T0 + i + 1]))
+            sync()
+            t1 = time.perf_counter()
+            cache, lg = m.decode_fn(serve, cache, vc.layout(frame, P()),
+                                    vc.layout(torch.tensor(T0 + i), P()))
+            sync()
+            ms_.append((time.perf_counter() - t1) * 1e3)
+        fl, _ = read("musicgen-medium prefills")
+        del serve, cache
+        free()
+    err = rel_err(lg[0], want[0])
+    print(f"[frontends] musicgen-medium 2x4 hier serve_fsdp, full depth: "
+          f"prefill of 2 x {T0} frames {pre_ms:.1f} ms, then {n_dec} frame "
+          f"decode steps (p50 {pct(ms_[1:], 0.5):.1f} ms) against the "
+          f"prefill of {T0 + n_dec} frames: last logits rel_err {err:.3g}")
+    if err > 1e-4 or fl != 2 * vc.pods * audio.n_layers:
+        raise AssertionError(f"musicgen decode vs prefill {err}, launches "
+                             f"{fl}")
+    del params
+    free()
+    # card against CPU at 2 layers: prefill and 2 decode steps on 2x4, and
+    # one make_train_step step
+    au2 = dataclasses.replace(audio, n_layers=2)
+    one = build(au2, ParallelCtx.single(), device=dev)
+    p2 = T.tree_map(lambda t: t.cpu(), one.init_params(36))
+    del one
+
+    def serve2(d_):
+        vc_d = VirtualCluster(pods=2, chips=4, device=d_)
+        m2 = model_on(vc_d, au2, d_=d_)
+        pp = T.tree_map(lambda t: t.to(d_), p2)
+        with vc_d.bind():
+            c_, lg_ = m2.prefill_fn(vc_d.layout(pp, specs(m2, False)), {
+                k: vc_d.layout(torch.from_numpy(np.ascontiguousarray(
+                    v[:, :256])), P()) for k, v in fr.items()}, 512)
+            sp = vc_d.layout(pp, specs(m2, True))
+            outs = [lg_[0].cpu()]
+            for i in range(2):
+                frame = torch.from_numpy(np.ascontiguousarray(
+                    fr["frames"][:, 256 + i:257 + i]))
+                c_, lg_ = m2.decode_fn(sp, c_, vc_d.layout(frame, P()),
+                                       vc_d.layout(torch.tensor(256 + i),
+                                                   P()))
+                outs.append(lg_[0].cpu())
+        return outs
+
+    errs = [rel_err(a, b) for a, b in zip(serve2(dev), serve2(cpu))]
+    topo24 = MeshTopology({"pod": 2, "data": 4, "model": 1})
+    b128 = stream(audio, 128, 8, 23).next_batch()
+    line = held(one_step(au2, topo24, dev, "hier", p2, b128),
+                one_step(au2, topo24, cpu, "hier", p2, b128),
+                "musicgen card vs CPU")
+    print(f"[frontends] musicgen-medium card vs CPU, 2x4 hier, 2 layers: "
+          f"prefill 2 x 256 frames and 2 decode steps, logits rel_err "
+          f"{[f'{e:.3g}' for e in errs]}; one make_train_step step of 8 x "
+          f"128 frames: {line}")
+    if max(errs) > 1e-4:
+        raise AssertionError(f"musicgen card vs CPU {errs}")
+    del p2
+    free()
+    # make_train_step on 2x4 ({pod 2, data 4, model 1}), hier, 8 x 2048
+    # frames, at the deepest whole number of layers whose state fits
+    # (params, m, v, grads: 2 node copies each, and a domain's gradient,
+    # beside a domain run's activations)
+    one = build(dataclasses.replace(audio, n_layers=1), ParallelCtx.single(),
+                device="meta")
+    lay1 = one.abstract_params(one.param_specs())
+    per_layer = 4 * sum(t.numel() for t in T.leaves(lay1["units"]))
+    rest = 4 * sum(t.numel() for k_, v_ in lay1.items() if k_ != "units"
+                   for t in T.leaves({k_: v_}))
+    free_b = torch.cuda.mem_get_info(dev)[0]
+    L = max(0, min(audio.n_layers, int((free_b - FRONTEND_TRAIN_TRANSIENTS
+                                        - 9 * rest) // (9 * per_layer))))
+    if L < 1:
+        raise AssertionError("musicgen: not one layer's training state "
+                             "fits")
+    cfgL = dataclasses.replace(audio, n_layers=L)
+    print(f"[frontends] musicgen-medium training state: {L} of "
+          f"{audio.n_layers} layers fit (per node "
+          f"{(rest + L * per_layer) / 1e9:.3f} "
+          f"GB of params, {per_layer / 1e9:.3f} GB a layer; 2 node copies x "
+          f"(params, m, v, grads) {8 * (rest + L * per_layer) / 1e9:.2f} GB "
+          f"of {free_b / 1e9:.1f} GB free beside "
+          f"{FRONTEND_TRAIN_TRANSIENTS / 2 ** 30:.0f} GiB for a domain "
+          f"run's activations; full depth would need "
+          f"{8 * (rest + audio.n_layers * per_layer) / 1e9:.1f} GB)")
+    vc24 = make_mesh_from_topo(topo24, device=dev)
+    bundle = make_train_step(cfgL, topo24, vc24, mode="hier",
+                             compute_dtype=torch.float32)
+    state = bundle.init_layout_state(37)
+    nb_ = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+    data = stream(audio, 2048, 8, 24)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    ms = []
+    for i in range(2):
+        laid = bundle.layout_batch(data.next_batch())
+        sync()
+        t1 = time.perf_counter()
+        state, mt = bundle.step(state, laid)
+        loss, gnorm = float(mt["loss"][0]), float(mt["gnorm"][0])
+        sync()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"musicgen train: loss {loss}")
+        print(f"[train] {audio.name} {L} layers make_train_step hier "
+              f"{vc24.label} 8x2048 frames step {i + 1}: loss {loss:.6f} "
+              f"gnorm {gnorm:.6f} step {ms[-1]:.1f} ms "
+              f"{8 * 2048 / ms[-1] * 1e3:.1f} tokens/s")
+    fl, bw = read("musicgen-medium training")
+    nb_["grads"] = bundle.stats["grad_bytes"]
+    print(f"[frontends] musicgen-medium train {vc24.label} ({L} layers): "
+          f"step 2 {ms[1]:.1f} ms; state "
+          + ", ".join(f"{k_} {v_ / 1e9:.3f} GB" for k_, v_ in nb_.items())
+          + f" (2 node copies); peak allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    if bw != vc24.pods * L * 2 or fl != 2 * bw:
+        raise AssertionError(f"musicgen train launches {fl} / {bw}")
+    del bundle, state, laid
+    free()
+    print(f"[phase] frontends (c) {time.perf_counter() - t_c:.1f} s")
+
+    # (d) the three apps, each a process of its own on the card, run side
+    # by side: quickstart, serve_lm, and train_100m stopped after its
+    # checkpoint at step 2 and then resumed to step 4
+    t_d = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    ck = os.path.join(scratch, "train_100m")
+
+    started = []
+
+    def app(name, *args):
+        started.append(subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.apps.{name}", "--device",
+             "cuda", *args], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+        return started[-1]
+
+    def done(p, name):
+        out, _ = p.communicate(timeout=600)
+        if p.returncode:
+            raise AssertionError(f"{name} exited {p.returncode}: "
+                                 f"{out[-2000:]}")
+        return out
+
+    t100 = ["--steps", "2", "--save-every", "2", "--ckpt", ck]
+    try:
+        procs = {"train_100m": app("train_100m", *t100),
+                 "quickstart": app("quickstart"),
+                 "serve_lm": app("serve_lm")}
+        outs = {"train_100m": done(procs.pop("train_100m"), "train_100m")}
+        t100[1] = "4"
+        resume = app("train_100m", *t100)       # beside the other two
+        outs.update({k: done(p, k) for k, p in procs.items()})
+        resumed = done(resume, "train_100m (resumed)")
+    finally:
+        for p in started:                   # none outlives the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    qs = [ln for ln in outs["quickstart"].splitlines()
+          if ln.startswith("final loss")]
+    solo = outs["serve_lm"].count("== solo run")
+    tuner = [ln for ln in outs["serve_lm"].splitlines()
+             if ln.startswith("live tuner")]
+    stop = [ln for ln in outs["train_100m"].splitlines()
+            if "resumed_from=" in ln]
+    last = [ln for ln in resumed.splitlines() if "resumed_from=" in ln]
+    print(f"[frontends] apps on the card (3 processes side by side, the "
+          f"resume after train_100m's first run): quickstart {qs}; "
+          f"serve_lm {solo} of 5 streams == "
+          f"their solo runs, {tuner}; train_100m stopped at 2 "
+          f"{stop}"
+          f", resumed {last}; {time.perf_counter() - t_d:.1f} s")
+    if not qs or "structure learned: True" not in qs[0] or solo != 5 \
+            or not tuner or not last \
+            or int(last[0].split("resumed_from=")[1]) <= 0:
+        raise AssertionError("an app failed its check: "
+                             + "\n".join(outs.values()) + resumed)
+    shutil.rmtree(ck, ignore_errors=True)
+    print(f"[phase] frontends (d) {time.perf_counter() - t_d:.1f} s")
     return launches
 
 
@@ -2853,6 +3491,69 @@ def main() -> int:
                   f"kernel {b_lib / b_ms:.3f}")
             del o, lse
         del q, k, v, do, qs, ks, vs, dos
+        gc.collect()
+        torch.cuda.empty_cache()
+    # internvl2-1b's heads (14 q / 2 kv at hd 64: a GQA group of 7) at
+    # phase 17's training shapes: a 2x4 node's run (4 folded sequences x
+    # 2048, every head) and a 2x(2x2) node's head_tp run (its 4 sequences
+    # x 2 tp ranks folded into the batch, 7 q / 1 kv heads a rank); each
+    # forward and backward against its plain version, timed beside SDPA
+    # and the bound, with the backward's head split (a power of 2 capped
+    # at the group: unequal shares of 7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, (B, H, KV) in (
+            ("internvl2-1b train, 2x4 node", (4, 14, 2)),
+            ("internvl2-1b train, 2x(2x2) node, head_tp rank", (8, 7, 1))):
+        T, hd = 2048, 64
+        q, do = (torch.randn((B, T, H, hd), generator=g, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn((B, T, KV, hd), generator=g, device=dev)
+                for _ in range(2))
+        kw = dict(causal=True, window=None, q_offset=0, layout="bthd")
+        splits = kbwd.head_splits(B, KV, T, hd, H // KV, sms)
+        what = f"flash_attention f32 {name} {(B, H, KV, T, hd)}"
+        f_err = check_flash(ops.flash_attention(q, k, v, **kw),
+                            kflash.flash_attention_plain(q, k, v, **kw),
+                            torch.float32, what)
+        f_ms = cuda_ms(lambda: kflash.flash_attention_cuda(q, k, v, **kw), 5)
+        f_plain = cuda_ms(lambda: kflash.flash_attention_plain(q, k, v,
+                                                               **kw), 3)
+        qs, ks, vs, dos = (x.transpose(1, 2).contiguous().requires_grad_(
+            x is not do) for x in (q, k, v, do))
+        f_lib = cuda_ms(lambda: sdpa(qs.detach(), ks.detach(), vs.detach(),
+                                     is_causal=True, enable_gqa=True), 5)
+        flops = attn_flops(B, T, T, H, hd, causal=True, window=None)
+        f_bnd = f32_bounds(flops, 4 * (2 * q.numel() + 2 * k.numel()))
+        print(f"[kernel] {what}: max|err| {f_err:.3g}  kernel {f_ms:.3f} ms "
+              f"({flops / f_ms / 1e9:.1f} TFLOP/s)  plain {f_plain:.3f} ms  "
+              f"scaled_dot_product_attention {f_lib:.3f} ms  "
+              f"{bounds_text(f_bnd)} ({flops:.4g} FLOP); of the 3xTF32 "
+              f"bound {f_bnd['bound_ms'] / f_ms:.3f}, SDPA / kernel "
+              f"{f_lib / f_ms:.3f}")
+        what = f"flash_attention_bwd f32 {name} {(B, H, KV, T, hd)}"
+        o, lse, errs, abs_err = bwd_check(q, k, v, do, torch.float32, what,
+                                          **kw)
+        b_ms = cuda_ms(lambda: kbwd.flash_attention_bwd_cuda(
+            q, k, v, o, do, lse, **kw), 3)
+        b_plain = plain_bwd_ms(q, k, v, do, **kw)
+        with torch.enable_grad():
+            out = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+            b_lib = cuda_ms(lambda: torch.autograd.grad(
+                out, (qs, ks, vs), dos, retain_graph=True), 3)
+        del out
+        moved = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+        b_bnd = f32_bounds(2.5 * flops, moved)
+        print(f"[kernel] {what}: head_splits {splits} of a group of "
+              f"{H // KV} (shares of {-(-(H // KV) // splits)}); rel err dq "
+              f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e}, max |err| "
+              f"{abs_err:.3g}  kernel {b_ms:.3f} ms "
+              f"({2.5 * flops / b_ms / 1e9:.1f} TFLOP/s)  plain (backward "
+              f"alone) {b_plain:.3f} ms  scaled_dot_product_attention "
+              f"backward {b_lib:.3f} ms  {bounds_text(b_bnd)} "
+              f"({2.5 * flops:.4g} FLOP); of the 3xTF32 bound "
+              f"{b_bnd['bound_ms'] / b_ms:.3f}, SDPA / kernel "
+              f"{b_lib / b_ms:.3f}")
+        del q, k, v, do, qs, ks, vs, dos, o, lse
         gc.collect()
         torch.cuda.empty_cache()
     # the backward's non-finite classes, as the forward's above, with dO too
@@ -3823,19 +4524,22 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (b) phase 11 (a)'s full-depth step under each schedule
-        params = meta.init_params(model_defs, tcfg, torch.Generator(
-            device=dev).manual_seed(11), dev)
-        batches = train_batches(tcfg, 2048, 3)
+        # (b) phase 11 (a)'s step under each schedule, at half its depth
+        # (the script's time limit)
+        hcfg = dataclasses.replace(tcfg, n_layers=tcfg.n_layers // 2)
+        params = meta.init_params(meta.model_defs(hcfg, 1, 1, "hier"), hcfg,
+                                  torch.Generator(device=dev).manual_seed(
+                                      11), dev)
+        batches = train_batches(hcfg, 2048, 3)
         sched = {}
         for opts in ((), ("prefetch",), ("overlap",), ("stepgraph",)):
             name = "+".join(opts) or "eager"
-            bundle, state, _ = train_setup(tcfg, vc, "hier", params,
+            bundle, state, _ = train_setup(hcfg, vc, "hier", params,
                                            opts=opts)
             kflash.launches = kbwd.launches = 0
             state, rows = run_steps(bundle, state, batches,
-                                    f"qwen3-0.6b full depth hier 2x4 "
-                                    f"8x2048 {name}")
+                                    f"qwen3-0.6b {hcfg.n_layers} layers hier "
+                                    f"2x4 8x2048 {name}")
             take_launches(f"{name} run")
             sched[name] = rows
             del bundle, state
@@ -3956,13 +4660,27 @@ def main() -> int:
         launches[k_] = launches.get(k_, 0) + v_
     print(f"[phase] xlstm {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 17. the frontends and the production-mesh entry points ------------
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_frontends_")
+    try:
+        fe_launches = frontends_phase(dev, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    print(f"[frontends] flash launches in phase 17: {fe_launches}")
+    for k_, v_ in fe_launches.items():
+        if v_ <= 0:
+            raise AssertionError(f"phase 17 never launched {k_}")
+        launches[k_] += v_
+    print(f"[phase] frontends {time.perf_counter() - t_phase:.1f} s")
+
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
-    print(f"[nonfinite] tiles recomputed over phases 3-16: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-17: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")

@@ -10,7 +10,10 @@ bfloat16 arrays cross as their 16-bit patterns; they come back as float32
 reference model's parameter tree onto a device as the port's;
 ``train_state_from_reference`` / ``train_state_to_reference`` carry a
 cluster train step's state ``{"params", "m", "v", "step"}`` across, so both
-packages start the same step from the same state.
+packages start the same step from the same state — a ``make_train_step``
+bundle's under its ``state_specs`` too, the ``frontend`` leaf of a
+``vit`` / ``encodec`` model with the rest.  The 2-D decode layout's
+weights come from a baseline tree through ``models.meta.decode2d_params``.
 """
 
 from __future__ import annotations

@@ -70,3 +70,33 @@ class SyntheticLM:
     def __iter__(self) -> Iterator[dict]:
         while True:
             yield self.next_batch()
+
+
+class FrontendLM(SyntheticLM):
+    """``SyntheticLM``'s stream with a frontend's inputs, for a ``vit`` or
+    ``encodec`` model (``configs.base.ModelConfig.frontend``): ``vit``
+    batches add ``patches`` (local_batch, n_prefix, d_frontend); ``encodec``
+    ones are ``frames`` (local_batch, T, d_frontend) with the token stream's
+    next-token ``labels`` (local_batch, T).  The frontend inputs are normal
+    draws from (seed, step, host), so the stream stays a pure function of
+    the step."""
+
+    def __init__(self, model_cfg, cfg: DataConfig, **kw):
+        super().__init__(cfg, **kw)
+        self.model_cfg = model_cfg
+
+    def next_batch(self) -> dict:
+        step = self.step
+        out = super().next_batch()
+        mc = self.model_cfg
+        b_loc, T = out["tokens"].shape[0], self.cfg.seq_len
+        rng = np.random.default_rng((self.cfg.seed, step, self.host_id, 1))
+        if mc.frontend == "vit":
+            out["patches"] = rng.normal(
+                size=(b_loc, mc.n_prefix, mc.d_frontend)).astype(np.float32)
+        elif mc.frontend == "encodec":
+            tokens = out.pop("tokens")
+            out["frames"] = rng.normal(
+                size=(b_loc, T, mc.d_frontend)).astype(np.float32)
+            out["labels"] = tokens[:, 1:]
+        return out

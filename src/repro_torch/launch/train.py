@@ -17,6 +17,13 @@ one line per step — the loss (in full), gnorm, the step's milliseconds
 training state's device bytes by group (params / m / v / grads) and, on
 the card, the flash-attention kernel's forward and backward launch
 counts.
+A ``vit`` / ``encodec`` config (``internvl2-1b``, ``musicgen-medium``)
+trains through ``runtime.steps.make_train_step`` on the production mesh of
+the same shape (``topology_of``: ``PODSxCHIPS`` is ``{pod, data: CHIPS,
+model: 1}``, ``PODSx(DPxTP)`` ``{pod, data: DP, model: TP}``), as the
+reference's launcher builds every run, over ``data.synthetic.FrontendLM``'s
+stream (the token stream plus the frontend's inputs); a token config keeps
+the cluster step.
 ``--reduced`` is the arch's ``reduced()`` config (``--n-layers``,
 ``--d-model``); ``--layers N`` cuts the arch to N layers at its full
 width.  The steps run through ``runtime.train_loop.train``: with
@@ -35,12 +42,30 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import tree as T
-from repro_torch.data.synthetic import DataConfig
+from repro_torch.core.topology import MeshTopology
+from repro_torch.data.synthetic import DataConfig, FrontendLM
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import flash_attention_bwd as kflash_bwd
-from repro_torch.runtime.steps import make_cluster_train_step
+from repro_torch.launch.mesh import make_mesh_from_topo
+from repro_torch.runtime.steps import (make_cluster_train_step,
+                                       make_train_step)
 from repro_torch.runtime.train_loop import train
 from repro_torch.substrate import VirtualCluster
+
+
+def topology_of(label: str) -> MeshTopology:
+    """The production-mesh topology of a cluster label: ``PODSxCHIPS`` ->
+    ``{pod: PODS, data: CHIPS, model: 1}``, ``PODSx(DPxTP)`` -> ``{pod:
+    PODS, data: DP, model: TP}`` (no pod axis for one node)."""
+    vc = VirtualCluster.from_label(label, device="meta")
+    shape = vc.fast_shape if len(vc.fast_shape) == 2 \
+        else vc.fast_shape + (1,)
+    if len(shape) != 2:
+        raise ValueError(f"label {label!r}: the production mesh factors a "
+                         f"node as (data, model)")
+    sizes = {"pod": vc.pods} if vc.pods > 1 else {}
+    sizes.update(data=shape[0], model=shape[1])
+    return MeshTopology(sizes)
 
 
 def state_bytes(state: dict, grad_bytes: int) -> dict:
@@ -89,11 +114,22 @@ def main(argv=None) -> int:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is visible "
                          "(pass --device cpu)")
-    vc = VirtualCluster.from_label(args.topology, device=dev)
     opts = tuple(o for o in args.opts.split(",") if o)
-    bundle = make_cluster_train_step(cfg, vc, mode=args.mode, lr=args.lr,
-                                     clip=args.clip,
-                                     global_batch=args.batch, opts=opts)
+    stream = None
+    if cfg.frontend:
+        topo = topology_of(args.topology)
+        vc = make_mesh_from_topo(topo, device=dev)
+        bundle = make_train_step(cfg, topo, vc, mode=args.mode, lr=args.lr,
+                                 clip=args.clip, opts=opts,
+                                 compute_dtype=torch.float32)
+
+        def stream(dc, start_step):
+            return FrontendLM(cfg, dc, start_step=start_step)
+    else:
+        vc = VirtualCluster.from_label(args.topology, device=dev)
+        bundle = make_cluster_train_step(cfg, vc, mode=args.mode, lr=args.lr,
+                                         clip=args.clip,
+                                         global_batch=args.batch, opts=opts)
     print(f"[train] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}) "
           f"{args.mode} on {vc.label} ({args.device}), global batch "
           f"{args.batch} x {args.seq} tokens, lr {args.lr}, opts "
@@ -115,7 +151,7 @@ def main(argv=None) -> int:
                                     global_batch=args.batch,
                                     seed=args.seed),
                 ckpt_dir=args.ckpt, save_every=args.save_every, log_every=0,
-                seed=args.seed, on_step=log_step)
+                seed=args.seed, on_step=log_step, stream=stream)
     if rep.resumed_from:
         print(f"[train] resumed from step {rep.resumed_from}")
     state = rep.state

@@ -61,6 +61,25 @@ class Domains:
     def count(self) -> int:
         return self.ranks // self.members
 
+    def fold(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        """Domain ``d``'s rows of a rank-sharded stacked batch leaf ``x``
+        ``(R, b, ...)``: its store ranks' rows in rank order (their tp
+        ranks hold the same rows), ``(store * b, ...)``."""
+        a = d * self.members
+        rows = x[a:a + self.members:self.tp]
+        return rows.reshape((-1,) + tuple(x.shape[2:]))
+
+    def unfold(self, per_domain: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Inverse of ``fold`` for per-domain outputs over the folded rows
+        (``([tp,] store * b, ...)``) -> stacked ``(R, b, ...)``: each rank
+        gets its own rows (its tp rank's)."""
+        x = torch.stack(list(per_domain))
+        if not self.tp_dim:
+            x = x.unsqueeze(1)                       # (D, tp, s * b, ...)
+        rest = tuple(x.shape[3:])
+        x = x.reshape((x.shape[0], self.tp, self.store, -1) + rest)
+        return x.movedim(2, 1).reshape((self.ranks, -1) + rest)
+
     def to_ranks(self, per_domain: Sequence[torch.Tensor]) -> torch.Tensor:
         """Per-domain values (``(tp, ...)`` with a tp axis) -> stacked
         ``(R, ...)``: each rank gets its domain's value (its tp rank's)."""

@@ -25,7 +25,10 @@ run reads the leaf as one buffer along it (``store_dim``).  Where the
 reference's ``serve_fsdp`` defs give such a leaf an FSDP dim too, its
 ``param_specs`` maps the store axis to two dims (a spec JAX refuses); the
 port stores the leaf along its ``data_dim`` alone.  The 2-D decode layout
-(``decode2d``) waits for ROADMAP Queue 1 item 17.
+(the ``decode2d`` opt, serve defs at tp > 1 on an arch with a
+``decode2d_groups`` factorization) stores ``wq`` / ``wkv`` / ``wo`` by
+head group, ``(tp, ...)`` with ``tp_dim`` 0; ``relayout_attn_decode2d`` /
+``decode2d_params`` put baseline weights into it.
 """
 
 from __future__ import annotations
@@ -105,11 +108,25 @@ def decode2d_groups(cfg: ModelConfig, tp: int):
 
 def attn_defs(cfg: ModelConfig, tp: int, serve: bool,
               opts=frozenset()) -> dict[str, PMeta]:
-    if serve and "decode2d" in opts and decode2d_groups(cfg, tp):
-        raise not_ported("the 2-D decode layout (decode2d, "
-                         "relayout_attn_decode2d)", 17)
     d, H, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     mode = attn_mode_for(cfg, tp)
+    d2d = decode2d_groups(cfg, tp) if (serve and "decode2d" in opts) \
+        else None
+    if d2d:
+        # 2-D decode: the weights sharded by head group, stored (tp, ...)
+        # with tp rank r holding head group r // g_s (duplicated over the
+        # group's g_s seq ranks; no per-step gather)
+        g_h, _ = d2d
+        out = {
+            "ln": PMeta((d,), init="zeros"),
+            "wq": PMeta((tp, d, H * hd // g_h), tp_dim=0),
+            "wkv": PMeta((tp, d, 2, kv * hd // g_h), tp_dim=0),
+            "wo": PMeta((tp, H * hd // g_h, d), tp_dim=0, init="out"),
+        }
+        if cfg.qk_norm:
+            out["q_norm"] = PMeta((hd,), init="zeros")
+            out["k_norm"] = PMeta((hd,), init="zeros")
+        return out
     if serve:
         # decode: every tp rank computes all heads (the cache is T-sharded)
         q_tp = kv_tp = o_tp = None
@@ -335,3 +352,57 @@ def param_specs(defs: dict, cfg: ModelConfig, *, tp_axis: Optional[str],
             spec[store_dim(meta) + off] = fsdp_axis
         return P(*spec)
     return map_defs(mk, defs)
+
+
+def relayout_attn_decode2d(w, cfg: ModelConfig, tp: int, kind: str):
+    """A baseline attention weight re-laid out into the decode2d storage:
+    entry r is tp rank r's head-group slice (head group ``r // g_s``,
+    duplicated over the group's g_s seq ranks).  ``kind``: ``wq`` (d,
+    H*hd) | ``wkv`` (d, 2, kv*hd) | ``wo`` (H*hd, d)."""
+    g = decode2d_groups(cfg, tp)
+    if not g:
+        raise ValueError(f"{cfg.name} has no decode2d factorization at "
+                         f"tp={tp}")
+    g_h, g_s = g
+    hd = cfg.head_dim
+    out = []
+    for r in range(tp):
+        hg = r // g_s
+        if kind == "wq":
+            n = cfg.n_heads * hd // g_h
+            out.append(w[:, hg * n:(hg + 1) * n])
+        elif kind == "wkv":
+            n = cfg.n_kv * hd // g_h
+            out.append(w[:, :, hg * n:(hg + 1) * n])
+        elif kind == "wo":
+            n = cfg.n_heads * hd // g_h
+            out.append(w[hg * n:(hg + 1) * n, :])
+        else:
+            raise ValueError(kind)
+    return torch.stack(out)
+
+
+def decode2d_params(params: dict, cfg: ModelConfig, tp: int) -> dict:
+    """A baseline parameter tree (``init_params`` of the train or serve
+    defs) as the decode2d serve layout's: every attention block's ``wq`` /
+    ``wkv`` / ``wo`` re-laid out by ``relayout_attn_decode2d`` (each unit's
+    slice of a unit-stacked leaf), every other leaf as it is."""
+    def blocks(tree, stacked):
+        out = {}
+        for key, blk in tree.items():
+            blk = dict(blk)
+            if "attn" in blk:
+                attn = dict(blk["attn"])
+                for kind in ("wq", "wkv", "wo"):
+                    w = attn[kind]
+                    attn[kind] = (torch.stack([relayout_attn_decode2d(
+                        u, cfg, tp, kind) for u in w]) if stacked
+                        else relayout_attn_decode2d(w, cfg, tp, kind))
+                blk["attn"] = attn
+            out[key] = blk
+        return out
+    out = dict(params)
+    out["units"] = blocks(params["units"], True)
+    if "rem" in params:
+        out["rem"] = blocks(params["rem"], False)
+    return out

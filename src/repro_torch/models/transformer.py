@@ -13,16 +13,18 @@ kernel, a one-step decode), the ``mlstm`` / ``slstm`` blocks
 or the ``mchunk=N`` opt, and the sLSTM time loop; each a one-step
 decode), the dense ffn and the MoE channel mix
 (``models/moe.py``: the train path on prefill and the loss, the serve path
-on decode), the token frontend, prefill with the cache
+on decode), the frontends (``_embed_sp``: tokens; ``vit`` patches in
+place of the first ``n_prefix`` token embeddings, their labels masked;
+``encodec`` frames with their own labels, and a frame as the decode
+input), prefill with the cache
 re-layout (ring slots for a window; recurrent state passed through),
 decode with per-slot positions, and the training loss (``_loss``): the
 unit walk with a per-unit remat (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``), the bounded prefetch of the units' window
 reads (kept outside the remat region, as the reference keeps them) and the
-streamed cross-entropy.  What raises ``NotImplementedError``: the
-``vit`` / ``encodec`` frontends (ROADMAP Queue 1 item 16).  Training
-through the ``rglru`` block is not offered on the card: the lru_scan
-kernel has no backward yet and refuses a grad-carrying call.
+streamed cross-entropy.  Training through the ``rglru`` block is not
+offered on the card: the lru_scan kernel has no backward yet and refuses a
+grad-carrying call.
 
 With a tp axis (``models.parallel``: the tp ranks stacked on a leading
 axis) the training loss runs the reference's sequence-parallel layout: the
@@ -37,7 +39,10 @@ every rank) with split-K attention over the T-sharded cache, the tp-sharded
 ffn and the vocab-parallel embedding and logits; an ``rglru`` block's
 recurrent state stays sharded over tp along its channels, an ``mlstm``
 block's over its heads (and v-slices) and its conv channels, and an
-``slstm`` block's is replicated.
+``slstm`` block's is replicated.  With the ``decode2d`` opt at tp > 1
+(``meta.decode2d_groups``) decode attention runs the 2-D layout instead
+(``_decode_attn_2d``): g_h head groups x g_s seq groups, the attention
+weights stored by head group and an S/g_s x kv/g_h cache a rank.
 
 On a cluster ctx (one with a node communicator: ``runtime.steps.
 cluster_ctx``) the entry points ``prefill_fn`` / ``decode_fn`` /
@@ -55,6 +60,7 @@ attention blocks write each slot's new position
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -63,14 +69,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as T
 from repro_torch.models import meta as M
-from repro_torch.models.attention import (attn_block, cache_write,
-                                          decode_attention)
+from repro_torch.models.attention import (_kv_head_map, attn_block,
+                                          cache_write, decode_attention)
 from repro_torch.models.domains import (Domains, NodeCache, domain_params,
                                         domain_run)
 from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
                                        rms_norm, rope_decode, sinusoidal_pe,
                                        unembed_xent, unembed_xent_rows)
-from repro_torch.models.meta import not_ported as _not_ported
 from repro_torch.models.moe import moe_block
 from repro_torch.models.parallel import (ParallelCtx, ParamGroup,
                                          prefetch_walk)
@@ -140,24 +145,38 @@ class ClusterModel(Model):
     inference).  ``prefill_fn`` / ``decode_fn`` / ``cache_init`` take the
     cluster's stacked ``(R, ...)`` parameters (laid out under
     ``param_specs``: the train specs for prefill, the serve specs for
-    decode) and the batch stacked per rank, replicated (the reference's
-    ``P()`` token and position specs), and run the single-device model once
-    per memory domain (``models.domains``).  The batch is replicated, so a
-    domain takes its first member's rows (no folding); logits come back
-    stacked per rank; the decode cache is a ``NodeCache``, one per
-    domain."""
+    decode) and the batch stacked per rank, and run the single-device model
+    once per memory domain (``models.domains``).  By default the batch is
+    replicated (the reference's ``P()`` token and position specs), so a
+    domain takes its first member's rows; with ``sharded=True`` each
+    data-parallel rank holds its own rows (the reference's ``P(dp)`` batch
+    of ``make_serve_steps``) and a domain folds its store ranks' rows into
+    one batch, as the train step does (``Domains.fold``).  Every batch leaf
+    goes with the rows (``tokens``, ``patches``, ``frames`` / ``labels``).
+    Logits come back stacked per rank; the decode cache is a
+    ``NodeCache``, one per domain (holding a domain's folded rows when
+    sharded)."""
 
-    def prefill_fn(self, params, batch, s_max: int, *, unroll: int = 1):
-        """``batch["tokens"]`` ``(R, B, T+1)``.  Returns the ``NodeCache``
-        and the stacked last-token logits ``(R, B, 1, V)``."""
+    def prefill_fn(self, params, batch, s_max: int, *, unroll: int = 1,
+                   sharded: bool = False):
+        """``batch`` leaves stacked per rank (``tokens`` ``(R, B, T+1)``;
+        ``patches`` ``(R, B, P, d_f)``; ``frames`` ``(R, B, T, d_f)`` and
+        ``labels`` ``(R, B, T)``).  Returns the ``NodeCache`` and the
+        stacked last-token logits ``(R, B, 1, V)``."""
         lay = Domains.of(self.ctx)
-        tokens = torch.as_tensor(batch["tokens"])
+        leaves = {k: torch.as_tensor(v) for k, v in batch.items()}
+        device = next(iter(leaves.values())).device
+        # folded rows: the MoE block dispatches each member's apart
+        run_ctx = dataclasses.replace(self.ctx, fold=lay.store) if sharded \
+            else self.ctx
         cache, logits = None, []
         for d in range(lay.count):
             dom = domain_params(self.ctx, lay, self.defs, params, d)
-            with domain_run(self.ctx, lay, d, tokens.device):
-                c, lg = _prefill(self.cfg, self.ctx, self.defs, dom,
-                                 {"tokens": tokens[d * lay.members]}, s_max)
+            rows = {k: lay.fold(v, d) if sharded else v[d * lay.members]
+                    for k, v in leaves.items()}
+            with domain_run(self.ctx, lay, d, device):
+                c, lg = _prefill(self.cfg, run_ctx, self.defs, dom, rows,
+                                 s_max)
             if cache is None:
                 cache = T.tree_map(lambda x: x.new_empty(
                     (lay.count,) + tuple(x.shape)), c)
@@ -165,22 +184,27 @@ class ClusterModel(Model):
                 dst[d].copy_(src)
             logits.append(lg)
             del c
-        return NodeCache(cache, lay), lay.to_ranks(logits)
+        out = lay.unfold(logits) if sharded else lay.to_ranks(logits)
+        return NodeCache(cache, lay), out
 
     def decode_fn(self, params, cache, token, pos, *, unroll: int = 1,
-                  reads: Optional[list] = None):
-        """``token`` ``(R, B, 1)`` and ``pos`` ``(R,)`` / ``(R, B)``
-        replicated, ``cache`` the ``NodeCache`` (updated in place and
-        returned).  ``reads``: per parameter leaf (``core.tree`` order) its
-        node buffers from ``domains.node_window(...).read_node()``, or
-        ``None`` — the recorded decoder's pre-read weights
-        (``serving.recorded``), run with ``fsdp_axes=()``."""
+                  reads: Optional[list] = None, sharded: bool = False):
+        """``token`` ``(R, B, 1)`` (``encodec``: a frame ``(R, B, 1,
+        d_f)``) and ``pos`` ``(R,)`` / ``(R, B)``, replicated or, with
+        ``sharded``, each rank's own rows; ``cache`` the ``NodeCache``
+        (updated in place and returned).  ``reads``: per parameter leaf
+        (``core.tree`` order) its node buffers from
+        ``domains.node_window(...).read_node()``, or ``None`` — the
+        recorded decoder's pre-read weights (``serving.recorded``), run with
+        ``fsdp_axes=()``."""
         if not isinstance(cache, NodeCache):
             raise TypeError("decode on the cluster takes the NodeCache of "
                             "model.cache_init / model.prefill_fn")
         lay = Domains.of(self.ctx)
-        # the node's run stands for its store ranks' copies of the batch
-        run_ctx = dataclasses.replace(self.ctx, node_copies=lay.store)
+        # a replicated batch: the node's run stands for its store ranks'
+        # copies of it; a sharded one: the node's rows are its token set
+        run_ctx = dataclasses.replace(
+            self.ctx, node_copies=1 if sharded else lay.store)
         if reads is not None:
             run_ctx = dataclasses.replace(run_ctx, fsdp_axes=())
         token, pos = torch.as_tensor(token), torch.as_tensor(pos)
@@ -189,17 +213,23 @@ class ClusterModel(Model):
             dom = domain_params(self.ctx, lay, self.serve_defs, params, d,
                                 reads)
             a = d * lay.members
+            tok = lay.fold(token, d) if sharded else token[a]
+            ps = lay.fold(pos, d) if sharded and pos.dim() > 1 else pos[a]
             with domain_run(self.ctx, lay, d, token.device):
                 _, lg = _decode(self.cfg, run_ctx, self.serve_defs, dom,
-                                cache.domain(d), token[a], pos[a])
+                                cache.domain(d), tok, ps)
             logits.append(lg)
-        return cache, lay.to_ranks(logits)
+        out = lay.unfold(logits) if sharded else lay.to_ranks(logits)
+        return cache, out
 
-    def cache_init(self, B_loc: int, s_max: int) -> NodeCache:
-        """Empty decode caches (``_cache_init``'s), one per memory
-        domain."""
+    def cache_init(self, B_loc: int, s_max: int, *,
+                   sharded: bool = False) -> NodeCache:
+        """Empty decode caches (``_cache_init``'s), one per memory domain:
+        ``B_loc`` rows, or with ``sharded`` the domain's store ranks'
+        ``B_loc`` rows each."""
         lay = Domains.of(self.ctx)
-        one = _cache_init(self.cfg, self.ctx, B_loc, s_max, self.device)
+        rows = B_loc * lay.store if sharded else B_loc
+        one = _cache_init(self.cfg, self.ctx, rows, s_max, self.device)
         return NodeCache(T.tree_map(lambda x: x.expand(
             (lay.count,) + tuple(x.shape)).clone(), one), lay)
 
@@ -271,6 +301,97 @@ def _block_train(kind: str, x, p, mt, ctx, cfg, *, return_state=False):
     return _mix(kind, out, p, mt, ctx, cfg)
 
 
+def _decode2d(cfg, ctx):
+    """The (g_h, g_s) factorization of the tp axis when decode runs the 2-D
+    layout (the ``decode2d`` opt at tp > 1 on an arch that has one)."""
+    if not (ctx.has("decode2d") and ctx.tp_axis):
+        return None
+    return M.decode2d_groups(cfg, ctx.tp)
+
+
+def _decode_attn_2d(x, p, mt, state, ctx, cfg, *, pos, window):
+    """2-D decode attention: the tp axis factored into g_h head groups x
+    g_s seq groups (tp rank r: head group ``r // g_s``, seq index ``r %
+    g_s``).  The attention weights are stored by head group (``meta.
+    attn_defs``' decode2d branch: no per-step gather), each rank holds an
+    S/g_s chunk of its head group's kv heads, and the partial softmax
+    merges within the g_s ranks of the head group (``group_all_gather`` of
+    the maxima, ``group_psum`` of the sums); the out projection of each
+    head group's seq index 0 is summed over tp.  ``pos`` must be a scalar
+    shared by the batch."""
+    pos = torch.as_tensor(pos)
+    if pos.dim() != 0:
+        raise ValueError("decode2d decode attention needs a scalar pos; "
+                         "per-slot position vectors (continuous batching) "
+                         "are only supported on the 1D decode path")
+    g_h, g_s = M.decode2d_groups(cfg, ctx.tp)
+    H, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    Hg, kvg = H // g_h, kv // g_h
+    pa, ma = p["attn"], mt["attn"]
+    lead = tuple(x.shape[:-2])                  # (tp, B)
+    h = rms_norm(x, ctx.at(ctx.gather_w(pa["ln"], ma["ln"].fsdp_dim),
+                           x.dim()), cfg.norm_eps)
+    # each rank's head-group slot of the stored (tp, 1, ...) weights
+    wq = ctx.gather_w(pa["wq"], ma["wq"].fsdp_dim)[:, 0]     # (tp, d, ..)
+    wkv = ctx.gather_w(pa["wkv"], ma["wkv"].fsdp_dim)[:, 0]
+    wo = ctx.gather_w(pa["wo"], ma["wo"].fsdp_dim)[:, 0]
+    q = ctx.mm(h, wq).reshape(lead + (1, Hg, hd))
+    kvp = ctx.mm(h, wkv.flatten(-2)).reshape(lead + (1, 2, kvg, hd))
+    k_new, v_new = kvp[..., 0, :, :], kvp[..., 1, :, :]
+    if cfg.qk_norm:
+        q = rms_norm(q, ctx.at(ctx.gather_w(
+            pa["q_norm"], ma["q_norm"].fsdp_dim), q.dim()), cfg.norm_eps)
+        k_new = rms_norm(k_new, ctx.at(ctx.gather_w(
+            pa["k_norm"], ma["k_norm"].fsdp_dim), k_new.dim()),
+            cfg.norm_eps)
+    if cfg.pos == "rope":
+        rdt = ctx.compute_dtype if ctx.has("bf16_rope") else None
+        q = rope_decode(q, pos, cfg.rope_theta, rdt)
+        k_new = rope_decode(k_new, pos, cfg.rope_theta, rdt)
+
+    # the cache write: the slot's owner among the head group's seq ranks
+    kc, vc = state["k"], state["v"]             # (tp, B, S/g_s, kvg, hd)
+    S_loc = kc.shape[-3]
+    dev = kc.device
+    pos = pos.to(dev)
+    gpos = pos % window if window is not None else pos
+    s_idx = ctx.tp_rank % g_s                   # (tp,)
+    owner = gpos // S_loc
+    local = gpos - owner * S_loc
+    hit = (torch.arange(S_loc, device=dev) == local)[None, :] \
+        & (s_idx == owner)[:, None]             # (tp, S/g_s)
+    hit = hit[:, None, :, None, None]
+    kc = torch.where(hit, k_new.to(kc.dtype), kc)
+    vc = torch.where(hit, v_new.to(vc.dtype), vc)
+
+    # partial attention over the rank's S/g_s chunk
+    slot = (s_idx * S_loc)[:, None] + torch.arange(S_loc, device=dev)
+    if window is not None:
+        gidx = pos - ((pos - slot) % window)
+        valid = (gidx >= 0) & (gidx <= pos) & (pos - gidx < window)
+    else:
+        valid = slot <= pos                     # (tp, S/g_s)
+    kvmap = _kv_head_map(Hg, 0, Hg, kvg, device=dev)
+    kq = kc.index_select(-2, kvmap).float()     # (tp, B, S/g_s, Hg, hd)
+    vq = vc.index_select(-2, kvmap).float()
+    sc = torch.einsum("rbqhd,rbkhd->rbhqk", q.float() / math.sqrt(hd), kq)
+    sc = torch.where(valid[:, None, None, None, :], sc,
+                     torch.full((), -1e30, device=dev))
+    m_loc = sc.amax(dim=-1)                     # (tp, B, Hg, 1)
+    mg = ctx.group_all_gather(m_loc.unsqueeze(1), group=g_s, dim=0)
+    m_all = mg.amax(dim=1)
+    pexp = torch.exp(sc - m_all[..., None])
+    den = ctx.group_psum(pexp.sum(dim=-1), group=g_s)
+    o = ctx.group_psum(torch.einsum("rbhqk,rbkhd->rbhqd", pexp, vq),
+                       group=g_s)
+    o = (o / den[..., None].clamp_min(1e-30)).transpose(2, 3)  # (tp,B,1,Hg,hd)
+    y = ctx.mm(o.reshape(lead + (1, Hg * hd)).to(ctx.compute_dtype), wo)
+    # every head group's seq index 0 contributes its heads' projection
+    y = torch.where((s_idx == 0)[:, None, None, None], y,
+                    torch.zeros((), dtype=y.dtype, device=dev))
+    return x + ctx.psum_tp(y), {"k": kc, "v": vc}
+
+
 def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
     if kind in ("mlstm", "slstm"):
         fn = mlstm_block if kind == "mlstm" else slstm_block
@@ -282,6 +403,10 @@ def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
     if kind not in ("attn", "local"):
         raise ValueError(kind)
     window = cfg.window if kind == "local" else None
+    if _decode2d(cfg, ctx):
+        x, st = _decode_attn_2d(x, p, mt, state, ctx, cfg, pos=pos,
+                                window=window)
+        return _mix(kind, x, p, mt, ctx, cfg, serve=True), st
     H, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     pa, ma = p["attn"], mt["attn"]
     h = rms_norm(x, ctx.at(ctx.gather_w(pa["ln"], ma["ln"].fsdp_dim),
@@ -318,30 +443,86 @@ def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
 # Embedding glue
 # ---------------------------------------------------------------------------
 
+def _stack_tp(x: torch.Tensor, ctx, nd: int) -> torch.Tensor:
+    """A batch leaf of ``nd`` dims as every stacked tp rank's copy (no copy
+    without a tp axis, or when it is stacked already)."""
+    if ctx.tp_axis and x.dim() == nd:
+        return x.expand((ctx.tp,) + tuple(x.shape))
+    return x
+
+
 def _embed_sp(cfg, ctx, defs, params, batch, *, T: int):
     """The sequence-parallel input embedding (B, T/tp, d) plus the FULL
-    (labels, mask) of shape (B, T) — the token frontend; stacked per tp
-    rank with a tp axis (the rows are every rank's)."""
-    if cfg.frontend:
-        raise _not_ported(f"the {cfg.frontend} frontend", 16)
-    emb = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
-    tokens = torch.as_tensor(batch["tokens"], device=emb.device)  # (B, T+1)
-    if ctx.tp_axis and tokens.dim() == 2:
-        tokens = tokens.expand((emb.shape[0],) + tuple(tokens.shape))
-    ids = tokens[..., :T]
-    labels = tokens[..., 1:T + 1]
-    x = embed(ids, emb, ctx, sp=bool(ctx.tp_axis))
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=emb.device)
+    (labels, mask) of shape (B, T); stacked per tp rank with a tp axis
+    (the rows are every rank's).  The token frontend looks the ids up in
+    the vocab-parallel embedding; ``encodec`` projects each rank's T/tp
+    slice of ``batch["frames"]`` (B, T, d_f) through ``w_fe`` and takes
+    ``batch["labels"]`` (B, T) with a mask of ones; ``vit`` projects
+    ``batch["patches"]`` (B, P, d_f) and puts patch ``t`` in place of the
+    token embedding at every global position ``t < n_prefix`` (each tp
+    rank its own chunk's positions), and masks the loss of the labels a
+    patch predicts (``t + 1 < n_prefix``)."""
+    tp = bool(ctx.tp_axis)
+    if cfg.frontend == "encodec":
+        w_fe = ctx.gather_w(params["frontend"], defs["frontend"].fsdp_dim)
+        dev = w_fe.device
+        frames = _stack_tp(torch.as_tensor(batch["frames"], device=dev),
+                           ctx, 3)                  # ([tp,] B, T, d_f)
+        if tp:
+            T_loc = ctx.shard(T)
+            frames = torch.stack([frames[i].narrow(1, r * T_loc, T_loc)
+                                  for i, r in enumerate(ctx.tp_ranks())])
+        x = ctx.mm(frames.to(ctx.compute_dtype), w_fe)
+        labels = _stack_tp(torch.as_tensor(batch["labels"], device=dev),
+                           ctx, 2)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=dev)
+    else:
+        emb = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
+        dev = emb.device
+        tokens = _stack_tp(torch.as_tensor(batch["tokens"], device=dev),
+                           ctx, 2)                  # ([tp,] B, T+1)
+        ids = tokens[..., :T]
+        labels = tokens[..., 1:T + 1]
+        x = embed(ids, emb, ctx, sp=tp)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=dev)
+        if cfg.frontend == "vit":
+            w_fe = ctx.gather_w(params["frontend"],
+                                defs["frontend"].fsdp_dim)
+            patches = _stack_tp(torch.as_tensor(batch["patches"],
+                                                device=dev), ctx, 3)
+            pe = ctx.mm(patches.to(ctx.compute_dtype), w_fe)  # (.., B, P, d)
+            P_ = cfg.n_prefix
+            T_loc = x.shape[-2]
+            pos = torch.arange(T_loc, device=dev)
+            if tp:                                          # (tp, T/tp)
+                pos = pos + (ctx.tp_rank * T_loc)[:, None]
+            idx = pos.clamp(0, P_ - 1)
+            if tp:
+                pex = torch.take_along_dim(pe, idx[:, None, :, None],
+                                           dim=2)
+            else:
+                pex = pe.index_select(1, idx)
+            is_patch = (pos < P_)[..., None, :, None]
+            x = torch.where(is_patch, pex, x)
+            mask = mask * ((torch.arange(T, device=dev) + 1) >= P_)
     if cfg.tie_embeddings:  # gemma-style input scaling
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.pos == "sinusoidal":
         T_loc = x.shape[-2]
-        pos = torch.arange(T_loc, device=emb.device)
-        if ctx.tp_axis:                                # (R, T/tp)
+        pos = torch.arange(T_loc, device=dev)
+        if tp:                                         # (R, T/tp)
             pos = pos + (ctx.tp_rank * T_loc)[:, None]
         pe = sinusoidal_pe(pos, cfg.d_model).to(x.dtype)
         x = x + ctx.at(pe, x.dim())
     return x, labels, mask
+
+
+def _seq_len(cfg, batch) -> int:
+    """The sequence length T of a batch: the frames' for ``encodec``,
+    else the tokens' less the last label column."""
+    if cfg.frontend == "encodec":
+        return torch.as_tensor(batch["frames"]).shape[-2]
+    return torch.as_tensor(batch["tokens"]).shape[-1] - 1
 
 
 def _unembed_weight(cfg, ctx, defs, params):
@@ -399,7 +580,7 @@ def _loss(cfg, ctx, defs, params, batch, *, rows: bool = False):
     """(nll sum, token count) — local partials the caller reduces (per
     stacked rank with a tp axis); with ``rows`` the (..., B) per-row
     partials."""
-    T = torch.as_tensor(batch["tokens"]).shape[1] - 1
+    T = _seq_len(cfg, batch)
     x, labels, mask = _embed_sp(cfg, ctx, defs, params, batch, T=T)
     x = _scan_units(cfg, ctx, defs, params, x)
     for i, k in enumerate(cfg.remainder_kinds):
@@ -472,6 +653,7 @@ def _cache_init(cfg, ctx, B_loc: int, s_max: int, device) -> dict:
     its channel shard, an ``mlstm`` leaf its heads' (and v-slice's) state
     and conv channel shard, an ``slstm`` leaf a replica."""
     tp = (ctx.tp,) if ctx.tp_axis else ()
+    d2d = _decode2d(cfg, ctx)
     recurrent = {
         "rglru": lambda: rglru_state_init(cfg, B_loc, ctx, ctx.compute_dtype,
                                           device),
@@ -487,7 +669,13 @@ def _cache_init(cfg, ctx, B_loc: int, s_max: int, device) -> dict:
             raise ValueError(kind)
         window = cfg.window if kind == "local" else None
         S = min(window, s_max) if window else s_max
-        shape = lead + tp + (B_loc, ctx.shard(S), cfg.n_kv, cfg.head_dim)
+        if d2d:                       # the head group's kv, S/g_s slots
+            g_h, g_s = d2d
+            shape = lead + tp + (B_loc, S // g_s, cfg.n_kv // g_h,
+                                 cfg.head_dim)
+        else:
+            shape = lead + tp + (B_loc, ctx.shard(S), cfg.n_kv,
+                                 cfg.head_dim)
         return {n: torch.zeros(shape, dtype=ctx.compute_dtype, device=device)
                 for n in ("k", "v")}
 
@@ -502,7 +690,7 @@ def _cache_init(cfg, ctx, B_loc: int, s_max: int, device) -> dict:
 def _prefill(cfg, ctx, defs, params, batch, s_max: int):
     """Run the prompt (``batch["tokens"]`` (B, T+1); the last column is
     the label of token T-1), return (cache, last-token logits (B, 1, V))."""
-    T = torch.as_tensor(batch["tokens"]).shape[1] - 1
+    T = _seq_len(cfg, batch)
     x, _, _ = _embed_sp(cfg, ctx, defs, params, batch, T=T)
     states = {f"b{i}": [] for i in range(len(cfg.pattern))}
     for u in range(cfg.n_units):
@@ -551,15 +739,21 @@ def _store_state(state: dict, new: dict) -> None:
 
 
 def _decode(cfg, ctx, defs, params, cache, token, pos):
-    """One decode step.  token: (B, 1) int; pos: current position — a
-    scalar shared by the batch, or a (B,) vector of per-slot positions.
+    """One decode step.  token: (B, 1) int, or a (B, 1, d_f) frame for
+    ``encodec``; pos: current position — a scalar shared by the batch, or
+    a (B,) vector of per-slot positions.
     Returns (cache, logits (B, 1, V)); the cache is updated in place."""
-    emb = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
-    pos = torch.as_tensor(pos, device=emb.device)
-    token = torch.as_tensor(token, device=emb.device)
-    if ctx.tp_axis and token.dim() == 2:      # every tp rank's copy
-        token = token.expand((emb.shape[0],) + tuple(token.shape))
-    x = embed(token, emb, ctx)
+    if cfg.frontend == "encodec":             # token: a (B, 1, d_f) frame
+        w_fe = ctx.gather_w(params["frontend"], defs["frontend"].fsdp_dim)
+        dev = w_fe.device
+        token = _stack_tp(torch.as_tensor(token, device=dev), ctx, 3)
+        x = ctx.mm(token.to(ctx.compute_dtype), w_fe)
+    else:
+        emb = ctx.gather_w(params["embed"], defs["embed"].fsdp_dim)
+        dev = emb.device
+        token = _stack_tp(torch.as_tensor(token, device=dev), ctx, 2)
+        x = embed(token, emb, ctx)
+    pos = torch.as_tensor(pos, device=dev)
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.pos == "sinusoidal":

@@ -57,8 +57,21 @@ square by ``tp`` as well.
 
 ``make_step_bench`` is the ``step_time`` bench family's body: the same
 step over flattened state, returning loss, grad norm and a parameter
-checksum.  ``make_train_step`` / ``make_ctx`` need the production mesh
-(ROADMAP Queue 1 item 17); they raise.
+checksum.
+
+**The production mesh.**  ``make_ctx`` / ``build_model`` /
+``batch_specs`` / ``make_train_step`` / ``make_serve_steps`` are the
+reference's entry points over a ``MeshTopology`` whose mesh is its
+stacked cluster (``launch.mesh.make_mesh_from_topo``: ``pod`` the bridge,
+``("data", "model")`` the node as (store, tp)); ``make_ctx`` keeps
+``tp_axis="model"`` at size 1 too and the store ``("data",)`` in hier.  ``make_train_step`` is the same body as the
+cluster step (``_train_bundle``) with the batch split over the
+data-parallel axes, every batch leaf (``tokens``; ``patches`` for a
+``vit`` model; ``frames`` / ``labels`` for ``encodec``) folded per domain,
+the ``int8_bridge`` opt / ``compress`` hook on the bridge and a bf16
+default compute dtype, as the reference's.  ``make_serve_steps`` wraps the
+serve-side domain run (``transformer.ClusterModel``), with the 2-D decode
+layout under the ``decode2d`` opt.
 """
 
 from __future__ import annotations
@@ -75,22 +88,16 @@ from repro_torch.analysis.traffic import device_bytes
 from repro_torch.comm import Communicator
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as T
-from repro_torch.models.domains import domain_view, units_flags
-from repro_torch.models.meta import not_ported, store_dim
+from repro_torch.models.domains import (Domains, domain_view,
+                                        units_flags)
+from repro_torch.core.topology import MeshTopology
+from repro_torch.models.meta import store_dim
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import Model, _loss, build
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                      adamw_update_, per_rank)
 from repro_torch.substrate.cluster import Mesh, P, bind_mesh
 from repro_torch.substrate.collectives import muted
-
-
-def make_ctx(*args, **kwargs):
-    raise not_ported("the production-mesh ctx (launch/mesh.py)", 17)
-
-
-def make_train_step(*args, **kwargs):
-    raise not_ported("the production-mesh train step (launch/mesh.py)", 17)
 
 
 def cluster_ctx(vc, *, mode: str = "hier", compute_dtype=torch.float32,
@@ -161,8 +168,10 @@ class TrainStepBundle:
         return self.vc.unlayout(state, self.state_specs)
 
     def layout_batch(self, batch: dict) -> dict:
-        return self.vc.layout({"tokens": torch.as_tensor(batch["tokens"])},
-                              self.batch_spec)
+        """A global batch -> stacked per rank under ``batch_spec``: every
+        leaf it names (``tokens``; ``patches``; ``frames`` / ``labels``)."""
+        return self.vc.layout({k: torch.as_tensor(batch[k])
+                               for k in self.batch_spec}, self.batch_spec)
 
     def abstract_state(self) -> dict:
         """The global state's shapes and dtypes as ``meta``-device tensors
@@ -182,12 +191,14 @@ class TrainStepBundle:
         return T.unflatten(state, out)
 
 
-def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
-                  stats: dict):
-    """Forward + backward once per memory domain.  Returns the stacked
-    per-rank gradients (the parameters' layout), loss and token partials
-    (``(R,)`` each); ``stats["grad_bytes"]`` gets the gradients' device
-    bytes (``analysis.traffic.device_bytes`` on the card).
+def _domain_grads(cfg, ctx: ParallelCtx, defs, params, batch: dict,
+                  store: int, stats: dict):
+    """Forward + backward once per memory domain over the stacked batch
+    (every leaf ``(R, b, ...)``: ``tokens``, ``patches``, ``frames`` /
+    ``labels``).  Returns the stacked per-rank gradients (the parameters'
+    layout), loss and token partials (``(R,)`` each);
+    ``stats["grad_bytes"]`` gets the gradients' device bytes
+    (``analysis.traffic.device_bytes`` on the card).
 
     A domain's members are ``s`` store ranks times ``t`` tp ranks,
     consecutive in rank order with tp innermost (hier: a node, ``s`` its
@@ -196,7 +207,9 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
     without a tp axis) under a mesh of the tp axis alone: a window leaf is
     ``(t, s, *shard)`` (one window per tp rank, read over the store ranks),
     any other the store's first member's copies ``(t, *local)``."""
-    R = tokens.shape[0]
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    first = next(iter(batch.values()))
+    R, device = first.shape[0], first.device
     tp = bool(ctx.tp_axis)
     s = store if ctx.mode == "hier" and ctx.fsdp_axes else 1
     t = ctx.tp if tp else 1
@@ -205,15 +218,16 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
     metas = T.leaves(defs)
     units = T.leaves(units_flags(params))
     window = [s > 1 and store_dim(m) is not None for m in metas]
-    on_card = tokens.device.type == "cuda"
-    base = device_bytes(tokens.device) if on_card else 0
+    on_card = device.type == "cuda"
+    base = device_bytes(device) if on_card else 0
     grads = [torch.zeros_like(w) for w in leaves]
     stats["grad_bytes"] = (
-        device_bytes(tokens.device) - base if on_card
+        device_bytes(device) - base if on_card
         else sum(g.numel() * g.element_size() for g in grads))
-    loss = torch.zeros(R, dtype=torch.float32, device=tokens.device)
-    cnt = torch.zeros(R, dtype=torch.float32, device=tokens.device)
-    mesh = Mesh((ctx.tp_axis,), (t,), (), tokens.device) if tp else None
+    loss = torch.zeros(R, dtype=torch.float32, device=device)
+    cnt = torch.zeros(R, dtype=torch.float32, device=device)
+    mesh = Mesh((ctx.tp_axis,), (t,), (), device) if tp else None
+    lay = Domains(R, s, t, tp)
     # the node's rows folded into one batch: the MoE block dispatches each
     # member's rows apart (the reference's per-rank capacity)
     run_ctx = dataclasses.replace(ctx, fold=s)
@@ -232,15 +246,16 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
         dom = [domain_view(w[a:a + n], s, t, win, u, tp).detach()
                .requires_grad_(True)
                for w, win, u in zip(leaves, window, units)]
-        # the store ranks' rows (their tp ranks hold the same rows)
-        rows = tokens[a:a + n:t].reshape((-1,) + tuple(tokens.shape[2:]))
+        # the store ranks' rows of every leaf (their tp ranks hold the
+        # same rows)
+        rows = {k: lay.fold(v, a // n) for k, v in batch.items()}
         # every domain runs the same program: the traffic record keeps the
         # first one's collectives as each rank's
         with torch.enable_grad(), (bind_mesh(mesh) if tp
                                    else contextlib.nullcontext()), (
                 muted() if a else contextlib.nullcontext()):
             nll, count = _loss(cfg, run_ctx, defs, T.unflatten(params, dom),
-                               {"tokens": rows}, rows=True)
+                               rows, rows=True)
             got = torch.autograd.grad(nll.sum(), dom, allow_unused=True)
         for g, dst, win, u in zip(got, grads, window, units):
             if g is not None:
@@ -255,7 +270,8 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, tokens, store: int,
 
 def _bridge_and_clip(ctx: ParallelCtx, world, node, grads, loss_sum, cnt,
                      meta_leaves, data: int, clip: float, *,
-                     stats_scheme: str = "auto", schedule_sink=None):
+                     stats_scheme: str = "auto", schedule_sink=None,
+                     compress=None, precision: str = "exact"):
     """The step after the backward: the world allreduce of the loss and
     token partials, the gradient bridge (``ParallelCtx.reduce_grads``;
     with the ``stepgraph`` opt all of it recorded into one graph and run as
@@ -264,8 +280,10 @@ def _bridge_and_clip(ctx: ParallelCtx, world, node, grads, loss_sum, cnt,
     are the step's own buffers, scaled in place.  ``stats_scheme="auto"``
     is the train step's (``scheme="auto"`` under ``result="replicated"``,
     never bucketed); the step bench pins ``"naive"``, as the reference's
-    does, so its program is one fixed schedule per topology.  Returns the
-    gradient leaves, the global loss and token sums and the grad norm."""
+    does, so its program is one fixed schedule per topology.  ``compress``
+    and ``precision`` go to the bridge (``make_train_step``'s legacy hook
+    and its ``int8_bridge`` opt).  Returns the gradient leaves, the global
+    loss and token sums and the grad norm."""
     auto = stats_scheme == "auto"
     stat_kw = dict(result="replicated") if auto else dict(
         scheme=stats_scheme)
@@ -276,7 +294,8 @@ def _bridge_and_clip(ctx: ParallelCtx, world, node, grads, loss_sum, cnt,
             scheme=stats_scheme)
         rl = rec.allreduce(loss_sum, axes=world.axes, key="loss", **rec_kw)
         rc = rec.allreduce(cnt, axes=world.axes, key="cnt", **rec_kw)
-        grads = ctx.reduce_grads(grads, meta_leaves, recorder=rec)
+        grads = ctx.reduce_grads(grads, meta_leaves, recorder=rec,
+                                 compress=compress, precision=precision)
         res = rec.run()
         if schedule_sink is not None:
             schedule_sink.append(res.report())
@@ -285,7 +304,8 @@ def _bridge_and_clip(ctx: ParallelCtx, world, node, grads, loss_sum, cnt,
     else:
         loss_g = world.allreduce(loss_sum, **stat_kw)
         cnt_g = world.allreduce(cnt, **stat_kw)
-        grads = ctx.reduce_grads(grads, meta_leaves)
+        grads = ctx.reduce_grads(grads, meta_leaves, compress=compress,
+                                 precision=precision)
     gl = T.leaves(grads)     # the step's own buffers: in place
     del grads
     for g in gl:
@@ -310,35 +330,20 @@ def _bridge_and_clip(ctx: ParallelCtx, world, node, grads, loss_sum, cnt,
     return gl, loss_g, cnt_g, gnorm
 
 
-def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
-                            lr: float = 3e-4, weight_decay: float = 0.1,
-                            clip: float = 1.0, unroll: int = 1,
-                            global_batch: int = 8, opts=(),
-                            compute_dtype=torch.float32) -> TrainStepBundle:
-    """The train step over a ``VirtualCluster``'s own mesh and axis names.
-
-    When ``global_batch`` does not divide the data-parallel rank count the
-    batch is REPLICATED instead of sharded — every rank computes the full
-    batch and the token count absorbs the overcount.  ``unroll`` is the
-    reference's scan unroll and does not change the port's Python loop."""
-    del unroll
-    if cfg.frontend not in (None, "", "tokens"):
-        raise ValueError(f"cluster train step only drives the token "
-                         f"frontend, not {cfg.frontend!r}")
-    ctx = cluster_ctx(vc, mode=mode, compute_dtype=compute_dtype, opts=opts)
-    sizes = dict(zip(vc.axis_names, vc.axis_shapes))
-    data = math.prod(sizes[a] for a in (
-        ctx.fsdp_axes or tuple(a for a in ctx.dp_axes
-                               if a != ctx.pod_axis)))
+def _train_bundle(cfg, vc, ctx: ParallelCtx, data: int, bspec, *,
+                  lr: float, weight_decay: float, clip: float,
+                  compress=None, precision: str = "exact"
+                  ) -> TrainStepBundle:
+    """The train step over ``vc`` with ``ctx``: the model built with the
+    node's ``data`` store size, the state under the params' specs, the
+    batch under ``bspec`` — the one body of ``make_cluster_train_step`` and
+    ``make_train_step``."""
     model = build(cfg, ctx, data=data, device=vc.device)
     defs = model.defs
     pspecs = model.param_specs(tp_axis=ctx.tp_axis,
                                fsdp_axis=ctx.fsdp_axes[0]
                                if ctx.fsdp_axes else None)
     state_specs = {"params": pspecs, "m": pspecs, "v": pspecs, "step": P()}
-    n_dp = math.prod(sizes[a] for a in ctx.dp_axes)
-    shard_batch = global_batch % n_dp == 0
-    bspec = {"tokens": P(ctx.dp_axes) if shard_batch else P()}
     meta_leaves = T.leaves(defs)
     world = Communicator.from_cluster(vc)
     node = world.split_type_shared()
@@ -350,8 +355,9 @@ def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
         with torch.no_grad():
             gl, loss_g, cnt_g, gnorm = _bridge_and_clip(
                 ctx, world, node, *_domain_grads(
-                    cfg, ctx, defs, params, batch["tokens"], data, stats),
-                meta_leaves, data, clip)
+                    cfg, ctx, defs, params, batch, data, stats),
+                meta_leaves, data, clip, compress=compress,
+                precision=precision)
             step = state["step"] + 1
             metrics = {"loss": loss_g / cnt_g, "gnorm": gnorm,
                        "tokens": cnt_g}
@@ -370,6 +376,117 @@ def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
 
     return TrainStepBundle(fn=smapped, step=step, state_specs=state_specs,
                            batch_spec=bspec, model=model, vc=vc, stats=stats)
+
+
+def make_cluster_train_step(cfg: ModelConfig, vc, *, mode: str = "hier",
+                            lr: float = 3e-4, weight_decay: float = 0.1,
+                            clip: float = 1.0, unroll: int = 1,
+                            global_batch: int = 8, opts=(),
+                            compute_dtype=torch.float32) -> TrainStepBundle:
+    """The train step over a ``VirtualCluster``'s own mesh and axis names.
+
+    When ``global_batch`` does not divide the data-parallel rank count the
+    batch is REPLICATED instead of sharded — every rank computes the full
+    batch and the token count absorbs the overcount.  ``unroll`` is the
+    reference's scan unroll and does not change the port's Python loop.
+    The token frontend only, as in the reference (``make_train_step``
+    drives the ``vit`` / ``encodec`` ones)."""
+    del unroll
+    if cfg.frontend not in (None, "", "tokens"):
+        raise ValueError(f"cluster train step only drives the token "
+                         f"frontend, not {cfg.frontend!r}")
+    ctx = cluster_ctx(vc, mode=mode, compute_dtype=compute_dtype, opts=opts)
+    sizes = dict(zip(vc.axis_names, vc.axis_shapes))
+    data = math.prod(sizes[a] for a in (
+        ctx.fsdp_axes or tuple(a for a in ctx.dp_axes
+                               if a != ctx.pod_axis)))
+    n_dp = math.prod(sizes[a] for a in ctx.dp_axes)
+    shard_batch = global_batch % n_dp == 0
+    bspec = {"tokens": P(ctx.dp_axes) if shard_batch else P()}
+    return _train_bundle(cfg, vc, ctx, data, bspec, lr=lr,
+                         weight_decay=weight_decay, clip=clip)
+
+
+# ---------------------------------------------------------------------------
+# The production mesh: a MeshTopology over the stacked cluster
+# ---------------------------------------------------------------------------
+
+def make_ctx(topo: MeshTopology, mode: str,
+             compute_dtype=torch.bfloat16, opts=()) -> ParallelCtx:
+    """The production ctx of a topology (the reference's): ``tp_axis``
+    ``"model"`` (at size 1 too), the node store ``("data",)`` in hier,
+    batch over ``(pod, data)``, the bridge over ``pod`` where the topology
+    has more than one."""
+    if "model" not in topo.axis_sizes or "data" not in topo.axis_sizes:
+        raise ValueError(f"the production ctx needs 'data' and 'model' axes, "
+                         f"got {tuple(topo.axis_sizes)}")
+    if topo.fast_axes[-1] != "model":
+        raise ValueError("'model' must be the innermost fast axis (the tp "
+                         f"ranks consecutive), got {topo.fast_axes}")
+    has_pod = "pod" in topo.axis_sizes and topo.num_pods > 1
+    return ParallelCtx(
+        tp_axis="model",
+        fsdp_axes=("data",) if mode == "hier" else (),
+        dp_axes=("pod", "data") if has_pod else ("data",),
+        pod_axis="pod" if has_pod else None,
+        tp=topo.size("model"),
+        mode=mode,
+        compute_dtype=compute_dtype,
+        opts=frozenset(opts))
+
+
+def build_model(cfg: ModelConfig, topo: MeshTopology, mode: str,
+                compute_dtype=torch.bfloat16, opts=(), device="cuda"
+                ) -> Model:
+    """The model over ``make_ctx(topo, ...)``: a ``ClusterModel``."""
+    ctx = make_ctx(topo, mode, compute_dtype, opts)
+    return build(cfg, ctx, data=topo.size("data"), device=device)
+
+
+def batch_specs(cfg: ModelConfig, topo: MeshTopology) -> dict:
+    """The batch's specs on the production mesh: every leaf split over the
+    data-parallel axes (``tokens``; ``patches`` for ``vit``; ``frames`` /
+    ``labels`` for ``encodec``)."""
+    dp = tuple(a for a in ("pod", "data") if a in topo.axis_sizes
+               and not (a == "pod" and topo.num_pods == 1))
+    if cfg.frontend == "encodec":
+        return {"frames": P(dp), "labels": P(dp)}
+    out = {"tokens": P(dp)}
+    if cfg.frontend == "vit":
+        out["patches"] = P(dp)
+    return out
+
+
+def make_train_step(cfg: ModelConfig, topo: MeshTopology, mesh, *,
+                    mode: str = "hier", lr: float = 3e-4,
+                    weight_decay: float = 0.1, clip: float = 1.0,
+                    unroll: int = 1, compress=None, opts=(),
+                    compute_dtype=torch.bfloat16) -> TrainStepBundle:
+    """The train step on the production mesh: ``mesh`` is the stacked
+    cluster of ``topo`` (``launch.mesh.make_mesh_from_topo``), the ctx
+    ``make_ctx``'s, the batch split over the data-parallel axes
+    (``batch_specs``), every frontend driven.  The ``int8_bridge`` opt asks
+    the bridge for ``precision="lossy"`` (without ``compress``, the legacy
+    explicit hook); the grad norm weights each leaf by its replication over
+    the node (``model`` for a tp-replicated leaf, ``data`` for one not
+    stored sharded).  Same body as ``make_cluster_train_step``
+    (``_train_bundle``).  ``unroll`` is the reference's scan unroll and
+    does not change the port's Python loop."""
+    del unroll
+    vc = mesh
+    if tuple(vc.axis_names) != tuple(
+            a for a in topo.axis_names()
+            if not (a in topo.slow_axes and topo.num_pods == 1)):
+        raise ValueError(f"mesh axes {vc.axis_names} are not the topology's "
+                         f"{topo.axis_names()} (launch.mesh."
+                         f"make_mesh_from_topo)")
+    ctx = make_ctx(topo, mode, compute_dtype, opts)
+    precision = "lossy" if (compress is None
+                            and "int8_bridge" in opts) else "exact"
+    return _train_bundle(cfg, vc, ctx, topo.size("data"),
+                         batch_specs(cfg, topo), lr=lr,
+                         weight_decay=weight_decay, clip=clip,
+                         compress=compress, precision=precision)
 
 
 def make_step_bench(cfg: ModelConfig, vc, *, opts=(), unroll: int = 1,
@@ -417,7 +534,8 @@ def make_step_bench(cfg: ModelConfig, vc, *, opts=(), unroll: int = 1,
         with torch.no_grad():
             gl, loss_g, cnt_g, gnorm = _bridge_and_clip(
                 ctx, world, node, *_domain_grads(
-                    cfg, ctx, defs, params, args[-1], data, stats),
+                    cfg, ctx, defs, params, {"tokens": args[-1]}, data,
+                    stats),
                 meta_leaves, data, clip, stats_scheme="naive",
                 schedule_sink=schedule_sink)
             new_params, _, _ = adamw_update(
@@ -448,3 +566,109 @@ def make_step_bench(cfg: ModelConfig, vc, *, opts=(), unroll: int = 1,
     elems = sum(math.prod(t.shape) for t in T.leaves(
         model.abstract_params(pspecs)))
     return body, in_specs, out_specs, make_args, elems
+
+
+# ---------------------------------------------------------------------------
+# Serve steps on the production mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServeStepBundle:
+    """``make_serve_steps``' prefill and decode over the stacked cluster.
+
+    ``prefill(params, batch)`` takes the params laid out under
+    ``prefill_param_specs`` (the train layout) and the batch stacked under
+    ``batch_spec``; it returns the ``NodeCache`` and the stacked last-token
+    logits ``(R, b_loc, 1, V)``.  ``decode(params, cache, token, pos)``
+    takes the params under ``param_specs`` (the serve layout; with the
+    ``decode2d`` opt the head-group layout), the ``NodeCache``, the
+    stacked tokens ``(R, b_loc, 1)`` (``encodec``: frames) and ``pos`` —
+    a position shared by the batch or stacked ``(R, b_loc)`` per-slot
+    positions (1-D decode only); the cache is updated in place.  A batch
+    that the data-parallel ranks divide is split over them (each node folds
+    its ranks' rows into one run), else replicated, as the reference's
+    small batches are."""
+
+    prefill: Any
+    decode: Any
+    param_specs: Any          # serve layout
+    prefill_param_specs: Any  # train layout (prefill runs in it)
+    batch_spec: Any
+    model: Model
+    s_max: int
+    b_loc: int
+    vc: Any
+    sharded: bool
+
+    def layout_params(self, params: dict, *, serve: bool = True) -> dict:
+        """Global params -> stacked, under the serve (decode) or train
+        (prefill) specs."""
+        return self.vc.layout(params, self.param_specs if serve
+                              else self.prefill_param_specs)
+
+    def layout_batch(self, batch: dict) -> dict:
+        """A global batch -> stacked per rank under ``batch_spec``."""
+        return self.vc.layout({k: torch.as_tensor(batch[k])
+                               for k in self.batch_spec}, self.batch_spec)
+
+    def layout_tokens(self, token) -> torch.Tensor:
+        """A global decode input ``(B, 1)`` / ``(B, 1, d_f)`` -> stacked
+        per rank, split like the batch."""
+        spec = next(iter(self.batch_spec.values()))
+        return self.vc.layout(torch.as_tensor(token), spec)
+
+    def cache_init(self):
+        """An empty ``NodeCache`` for ``b_loc`` rows a rank."""
+        with self.vc.bind():
+            return self.model.cache_init(self.b_loc, self.s_max,
+                                         sharded=self.sharded)
+
+    def unlayout_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Stacked ``(R, b_loc, 1, V)`` -> the global ``(B, 1, V)``."""
+        spec = next(iter(self.batch_spec.values()))
+        return self.vc.unlayout(logits, spec)
+
+
+def make_serve_steps(cfg: ModelConfig, topo: MeshTopology, mesh, *,
+                     mode: str = "hier", global_batch: int, s_max: int,
+                     unroll: int = 1, opts=(),
+                     compute_dtype=torch.bfloat16) -> ServeStepBundle:
+    """Prefill and decode on the production mesh (``mesh`` the stacked
+    cluster of ``topo``): the model over ``make_ctx`` run once per memory
+    domain (``transformer.ClusterModel``), prefill in the train layout,
+    decode in the serve layout — the 2-D head-group x seq-group layout
+    with the ``decode2d`` opt (``meta.decode2d_groups``).  A global batch
+    the data-parallel ranks divide is split over them, else replicated."""
+    del unroll
+    vc = mesh
+    model = build_model(cfg, topo, mode, compute_dtype, opts,
+                        device=vc.device)
+    ctx = model.ctx
+    bspec = batch_specs(cfg, topo)
+    dp = next(iter(bspec.values()))[0] if bspec else ()
+    n_dp = math.prod(topo.size(a) for a in dp)
+    shard = global_batch % n_dp == 0 and global_batch >= n_dp
+    b_loc = global_batch // n_dp if shard else global_batch
+    if not shard:
+        bspec = {k: P() for k in bspec}
+    fsdp = ctx.fsdp_axes[0] if ctx.fsdp_axes else None
+    pspecs_serve = model.param_specs(serve=True, tp_axis=ctx.tp_axis,
+                                     fsdp_axis=fsdp)
+    pspecs_train = model.param_specs(tp_axis=ctx.tp_axis, fsdp_axis=fsdp)
+
+    def prefill(params, batch):
+        with vc.bind():
+            return model.prefill_fn(params, batch, s_max, sharded=shard)
+
+    def decode(params, cache, token, pos):
+        pos = torch.as_tensor(pos, device=vc.device)
+        if pos.dim() == 0:             # a shared position, every rank's
+            pos = pos.expand(vc.num_devices)
+        with vc.bind():
+            return model.decode_fn(params, cache, token, pos, sharded=shard)
+
+    return ServeStepBundle(prefill=prefill, decode=decode,
+                           param_specs=pspecs_serve,
+                           prefill_param_specs=pspecs_train,
+                           batch_spec=bspec, model=model, s_max=s_max,
+                           b_loc=b_loc, vc=vc, sharded=shard)

@@ -40,12 +40,15 @@ def _sync(bundle) -> None:
 def train(bundle, *, steps: int, data_cfg: DataConfig,
           ckpt_dir: Optional[str] = None, save_every: int = 50,
           log_every: int = 10, seed: int = 0,
-          on_step: Optional[Callable] = None) -> TrainReport:
+          on_step: Optional[Callable] = None,
+          stream: Optional[Callable] = None) -> TrainReport:
     """Train ``bundle`` (a ``TrainStepBundle``) to ``steps``, resuming from
     ``ckpt_dir``'s newest intact step when it has one.  ``on_step(step,
     metrics)`` sees each step's metrics, with ``"seconds"`` added: the
-    step's wall time, ended by a device synchronize.  Returns the laid-out
-    state in the report."""
+    step's wall time, ended by a device synchronize.  ``stream(data_cfg,
+    start_step=...)`` makes the batch stream (``SyntheticLM`` by default;
+    ``data.synthetic.FrontendLM`` for a frontend model).  Returns the
+    laid-out state in the report."""
     start = 0
     if ckpt_dir:
         mgr = RestartManager(Checkpointer(ckpt_dir), save_every=save_every,
@@ -57,7 +60,7 @@ def train(bundle, *, steps: int, data_cfg: DataConfig,
         mgr = None
         state = bundle.init_layout_state(seed)
 
-    stream = SyntheticLM(data_cfg, start_step=start)
+    stream = (stream or SyntheticLM)(data_cfg, start_step=start)
     straggler = StragglerPolicy()
     losses, times = [], []
     t_total = time.time()

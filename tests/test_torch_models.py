@@ -297,7 +297,7 @@ def test_unported_parts_raise_naming_their_roadmap_item():
     # and tests/test_torch_serving_cluster.py hold them to the reference):
     # serve defs replicate attention over tp, one domain's prefill at tp 2
     # writes each rank's S/tp chunk and gives the tp-1 logits; the 2-D
-    # decode layout waits for item 17
+    # decode layout (item 17) stores the attention weights by head group
     tctx = ParallelCtx(tp_axis="model", tp=2)
     qcfg = configs.get_config("qwen3-0.6b")
     assert meta.model_defs(qcfg, 2, 1, "hier")["units"]["b0"]["attn"][
@@ -305,9 +305,15 @@ def test_unported_parts_raise_naming_their_roadmap_item():
     sdefs = meta.model_defs(qcfg, 2, 1, "hier", serve=True)
     assert sdefs["units"]["b0"]["attn"]["wq"].tp_dim is None
     assert sdefs["units"]["b0"]["ffn"]["w_in"].tp_dim == 2
-    with pytest.raises(NotImplementedError, match="decode2d.*item 17"):
-        meta.model_defs(qcfg, 2, 1, "hier", serve=True,
-                        opts=frozenset({"decode2d"}))
+    d2d = meta.model_defs(qcfg, 2, 1, "hier", serve=True,
+                          opts=frozenset({"decode2d"}))["units"]["b0"]["attn"]
+    g_h, _ = meta.decode2d_groups(qcfg, 2)
+    H, kv, hd, d = qcfg.n_heads, qcfg.n_kv, qcfg.head_dim, qcfg.d_model
+    assert {k: (m_.shape, m_.tp_dim) for k, m_ in d2d.items()
+            if k in ("wq", "wkv", "wo")} == {
+        "wq": ((2, d, H * hd // g_h), 0),
+        "wkv": ((2, d, 2, kv * hd // g_h), 0),
+        "wo": ((2, H * hd // g_h, d), 0)}
     tm = build(qcfg.reduced(), dataclasses.replace(
         tctx, compute_dtype=torch.float32), device="cpu")
     sm = build(qcfg.reduced(), CTX, device="cpu")
@@ -351,10 +357,12 @@ def test_unported_parts_raise_naming_their_roadmap_item():
                               pattern=("mlstm",))
     assert set(build(cfg, CTX, device="cpu").defs["units"]["b0"]) == \
         {"mlstm"}
+    # the vit frontend is ported (item 16): it builds and runs
     m = build_by_name("internvl2-1b", reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        m.prefill_fn(m.init_params(0), make_batch(m.cfg, 1, 4,
-                                                  device="cpu"), 8)
+    assert m.defs["frontend"].shape == (m.cfg.d_frontend, m.cfg.d_model)
+    loss, cnt = m.loss_fn(m.init_params(0), make_batch(m.cfg, 2, 8,
+                                                       device="cpu"))
+    assert torch.isfinite(loss) and cnt == 2 * (8 + 1 - m.cfg.n_prefix)
     m = build_by_name("qwen3-0.6b", reduced=True, device="cpu")
     loss, cnt = m.loss_fn(m.init_params(0), make_batch(m.cfg, 2, 8,
                                                        device="cpu"))
