@@ -119,7 +119,14 @@ launches it (4 x 16 heads, 8 kv heads, 2048, hd 128, causal), at the
 global 8 x 2048 and at the hybrid's windowed hd-256 layer, beside the
 plain backward and SDPA's f32 backward, with its share of the 3xTF32 bound
 and SDPA's time over its own; then its non-finite classes (8 cases) and
-its recompute rule on finite operands whose dk overflows.
+its recompute rule on finite operands whose dk overflows.  It holds the
+lru_scan backward kernel (``kernels.lru_scan_bwd``) to its plain version
+(f32 2e-4, bf16 5e-2 of the largest gradient; ragged T and C not a
+multiple of its 64 channels; the a = 1 case against the reversed
+``cumsum``), checks that ``ops.lru_scan`` with grad launches it, and
+times it f32 at phase 18's training shape (4, 2048, 4096) and at phase
+9's prefill groups beside the plain version, its bound and, for
+orientation, ``torch.cumsum`` of the flipped cotangent.
 
 11. training (after phase 9): ``qwen3-0.6b`` at full width, f32, seeded
    random weights, on the 2x4 cluster, 8 x 2048 tokens a step — (a) hier
@@ -217,7 +224,7 @@ its recompute rule on finite operands whose dk overflows.
    vocab 50304), f32, seeded weights; its blocks reach no Pallas kernel in
    the reference and launch no hand-written kernel here (every kernel
    count is zeroed before each run and must read 0 after it) — (a) hier
-   on 2x4 at 2 of its 6 units with ``serve_fsdp``: phase 14's 8 prompts
+   on 2x4 at 1 of its 6 units with ``serve_fsdp``: phase 14's 8 prompts
    (none a
    whole number of 128-token mLSTM chunks) prefilled once per node, the
    decode state's bytes, 32 greedy decode steps with the sync decode and
@@ -267,6 +274,20 @@ its recompute rule on finite operands whose dk overflows.
    below ln V - 0.5, 5 of 5 streams equal their solo runs and the live
    tuner's line, and ``train_100m`` stopped after its step-2 checkpoint
    and resumed (``resumed_from`` 2).
+18. hybrid training (after phase 17): ``recurrentgemma-9b`` at full width
+   (d 4096, d_rnn 4096, 16 heads x 256 with 1 kv head, d_ff 12288, vocab
+   256000 tied; f32, seeded weights) at one pattern unit (``rglru, rglru,
+   local``, ~1.7e9 params) through ``make_cluster_train_step`` in hier on
+   one 1x4 node, 4 x 2048 tokens, 3 steps: finite losses, step ms and
+   tokens/s from step 2, the peak memory, the state per node against
+   naive's reckoned 4 copies (C1), and the lru_scan forward / backward
+   and flash forward / backward launches a step.
+
+Phase 11 (a) also prints the dry run of its own step
+(``launch.dryrun.trace_cell`` on meta tensors: the same config, cluster,
+shape and dtype) — its roofline terms per rank, its kernel calls, which
+must equal the launches, and the measured step's share of the 8 ranks'
+compute term on the card.
 
 Phase 2 holds the flash forward and backward kernels at phase 12's shapes
 too: (8, 2048, 8 q / 4 kv, 128) and (2, 256, 36 q / 4 kv, 128) against
@@ -280,11 +301,12 @@ backward's ``head_splits``.
 Kernel launch counts are zeroed just before each main path (phases 3-7,
 phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
 12 (a), each of phase 13's runs, phase 14's prefills, phase 15's
-prefills and training runs, phase 16's runs, which launch none, and
-phase 17's training runs and prefills) and read just after; the JSON's
-flash rows sum the main paths that launch them.  The recompute counters
-(the non-finite rule's, and the flash backward's) are zeroed before phase
-3 and must read 0 after phase 17.
+prefills and training runs, phase 16's runs, which launch none,
+phase 17's training runs and prefills, and phase 18's training run) and
+read just after; the JSON's flash and scan rows sum the main paths that
+launch them.  The recompute counters (the non-finite rule's, and the
+flash backward's) are zeroed before phase 3 and must read 0 after phase
+18.
 The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -405,17 +427,16 @@ def pct(xs, q):
         else 0.0
 
 
-# H100 SXM dense peaks (FLOP/s) by route: an fp32-accurate product as
-# 3xTF32 on the tensor cores (three TF32 products per FLOP), as fp32 FMA on
-# the CUDA cores, or a bf16 product on the tensor cores
-PEAK = {"3xtf32": 495e12 / 3, "fma": 67e12, "bf16": 989e12}
-
-
 def bound(flops: float, moved: float, route: str) -> tuple[float, str]:
     """The least time the card could take (ms) by ``route``: the larger of
-    ``moved`` bytes at 3.35 TB/s and ``flops`` at the route's rate, and
-    which."""
-    ops_ms, bytes_ms = flops / PEAK[route] * 1e3, moved / 3.35e12 * 1e3
+    ``moved`` bytes at the HBM rate and ``flops`` at the route's dense
+    peak — an fp32-accurate product as 3xTF32 on the tensor cores (three
+    TF32 products per FLOP), as fp32 FMA on the CUDA cores, or a bf16
+    product on the tensor cores — and which.  The H100 constants are
+    ``repro_torch.analysis.roofline``'s (3.35 TB/s; 495 / 3, 67 and 989
+    TFLOP/s), the dry run's too."""
+    from repro_torch.analysis.roofline import HBM_BW, PEAK
+    ops_ms, bytes_ms = flops / PEAK[route] * 1e3, moved / HBM_BW * 1e3
     if ops_ms >= bytes_ms:
         return ops_ms, "operations"
     return bytes_ms, "bytes"
@@ -1574,11 +1595,11 @@ XLSTM_NAME = "xlstm-1.3b"
 #: carries).  A one-unit step on 2x(2x2) peaked 43.4 GB above its 19.5 GB
 #: of state on an H100 (2x4: 38.3 GB); this keeps ~6 GB more
 XLSTM_TRAIN_TRANSIENTS = 46 * 2 ** 30
-# phase 16 (a) serves at 2 of xlstm-1.3b's 6 units and (d) trains one unit
+# phase 16 (a) serves at 1 of xlstm-1.3b's 6 units and (d) trains one unit
 # at 8 x 1024 tokens: the sLSTM time loop makes both host-bound (~6,400
 # launches a decode step, ~68 device activities a training time step), and
-# the script's time limit holds phase 17 too
-XLSTM_SERVE_UNITS, XLSTM_TRAIN_T = 2, 1024
+# the script's time limit holds phases 17 and 18 too, on a slow host as well
+XLSTM_SERVE_UNITS, XLSTM_TRAIN_T = 1, 1024
 
 
 def xlstm_phase(dev, cfg=None) -> dict:
@@ -1602,6 +1623,7 @@ def xlstm_phase(dev, cfg=None) -> dict:
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import flash_attention_bwd as kbwd
     from repro_torch.kernels import lru_scan as klru
+    from repro_torch.kernels import lru_scan_bwd as klrub
     from repro_torch.kernels import matmul as kmatmul
     from repro_torch.kernels import quant as kquant
     from repro_torch.models import ParallelCtx, build, meta
@@ -1619,7 +1641,7 @@ def xlstm_phase(dev, cfg=None) -> dict:
     cfg = cfg or get_config(XLSTM_NAME)
     kernels = {"matmul": kmatmul, "q4_matmul": kquant,
                "flash_attention": kflash, "flash_attention_bwd": kbwd,
-               "lru_scan": klru}
+               "lru_scan": klru, "lru_scan_bwd": klrub}
     launches = dict.fromkeys(kernels, 0)
 
     def zero():
@@ -2751,6 +2773,109 @@ def frontends_phase(dev, scratch: str) -> dict:
     return launches
 
 
+HYBRID_NAME = "recurrentgemma-9b"
+# phase 18 trains one pattern unit (rglru, rglru, local: 3 of 38 layers) at
+# full width: ~1.7e9 params, 27.3 GB of params, m, v and grads for the one
+# node copy
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_STEPS = 3, 3
+
+
+def hybrid_train_phase(dev) -> dict:
+    """Phase 18: ``recurrentgemma-9b`` trained at full width (d 4096, d_rnn
+    4096, 16 heads x 256 with 1 kv head, d_ff 12288, vocab 256000 tied;
+    f32, seeded weights) at one pattern unit, through
+    ``make_cluster_train_step`` in hier on one 1x4 node, 4 x 2048 tokens,
+    ``HYBRID_TRAIN_STEPS`` steps: the lru_scan kernel forward (twice a step
+    under the remat) and its backward kernel, the flash kernel forward and
+    backward.  Returns the four kernels' launches over the run (zeroed just
+    before it, read just after)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.analysis import traffic
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import lru_scan as klru
+    from repro_torch.kernels import lru_scan_bwd as klrub
+    from repro_torch.runtime.steps import make_cluster_train_step
+    from repro_torch.substrate import VirtualCluster
+
+    cfg = dataclasses.replace(get_config(HYBRID_NAME),
+                              n_layers=HYBRID_TRAIN_LAYERS)
+    vc = VirtualCluster(pods=1, chips=4, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bundle = make_cluster_train_step(cfg, vc, mode="hier", lr=3e-4,
+                                     clip=1.0, global_batch=4)
+    torch.cuda.synchronize(dev)
+    base = traffic.device_bytes(dev)
+    state = bundle.init_layout_state(seed=41)     # drawn on the card
+    torch.cuda.synchronize(dev)
+    held = traffic.device_bytes(dev) - base       # params, m, v (and step)
+    logical = sum(t.numel() * t.element_size() for t in T.leaves(
+        bundle.model.abstract_params(bundle.state_specs["params"])))
+    batches = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=2048,
+                                     global_batch=4, seed=43))
+    kernels = {"lru_scan": klru, "lru_scan_bwd": klrub,
+               "flash_attention": kflash, "flash_attention_bwd": kbwd}
+    for k_ in kernels.values():
+        k_.launches = 0
+    rows = []
+    for i in range(HYBRID_TRAIN_STEPS):
+        batch = bundle.layout_batch(batches.next_batch())
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, mt = bundle.step(state, batch)
+        loss, gnorm = float(mt["loss"][0]), float(mt["gnorm"][0])
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"hybrid training step {i + 1}: loss {loss} "
+                                 f"gnorm {gnorm}")
+        rows.append({"loss": loss, "gnorm": gnorm, "ms": ms})
+        print(f"[train] {cfg.name} {cfg.n_layers} layers (one unit) hier "
+              f"1x4 4x2048 step {i + 1}: loss {loss:.6f} gnorm "
+              f"{gnorm:.6f} step {ms:.1f} ms {4 * 2048 / ms * 1e3:.1f} "
+              f"tokens/s")
+    launches = {n: k_.launches for n, k_ in kernels.items()}
+    grads = bundle.stats["grad_bytes"]
+    per_step = {n: v / HYBRID_TRAIN_STEPS for n, v in launches.items()}
+    tail = rows[1:]
+    step_ms = sum(r["ms"] for r in tail) / len(tail)
+    # naive keeps a private replica of params, m, v and grads on each of
+    # the node's 4 ranks: 4 logical copies (~110 GB), which the card cannot
+    # hold, so it is reckoned, not run
+    naive = vc.chips * 4 * logical
+    hier = held + grads
+    print(f"[train] {cfg.name} one unit: steps 2-{HYBRID_TRAIN_STEPS} "
+          f"{step_ms:.1f} ms a step, {4 * 2048 / step_ms * 1e3:.1f} tokens/s "
+          f"(4 x 2048 tokens); losses {[r['loss'] for r in rows]}; "
+          f"peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.1f} "
+          f"GB; launches a step {per_step}")
+    print(f"[train] {cfg.name} state per node (1 node copy, measured): "
+          f"params + m + v {held / 1e9:.3f} GB, grads {grads / 1e9:.3f} GB, "
+          f"total {hier / 1e9:.3f} GB ({hier / (4 * logical):.5f} of the "
+          f"logical params / m / v / grads, the step counter and the "
+          f"allocator's rounding the rest); naive (4 private copies, "
+          f"reckoned: 4 x params / m / v / grads of {logical / 1e9:.3f} GB "
+          f"each) {naive / 1e9:.3f} GB; C1 naive/hier {naive / hier:.4f}")
+    if not 3.99 <= naive / hier <= 4.0:
+        raise AssertionError(f"hybrid training state C1 {naive / hier}: "
+                             f"hier holds more than one node copy")
+    for n, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"phase 18 never launched {n}")
+    del bundle, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def collectives_bench(dev, g, *, sweep_elems, elems: int, big: int,
                       mm: int, tree: dict, table_path: str) -> None:
     """Phase 10: (a) the quick bench sweep, validated, folded into a table
@@ -2951,6 +3076,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import flash_attention_bwd as kbwd
     from repro_torch.kernels import lru_scan as klru
+    from repro_torch.kernels import lru_scan_bwd as klrub
     from repro_torch.kernels import matmul as kmatmul
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as kquant
@@ -2959,6 +3085,8 @@ def main() -> int:
     from repro_torch.models import meta
     from repro_torch.models.attention import attn_flops
     from repro_torch.bench import __main__ as bench_cli
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as train_cli
     from repro_torch.runtime.elastic import (ElasticRuntime, FaultEvent,
                                              FaultPlan, reference_run)
@@ -2993,6 +3121,7 @@ def main() -> int:
     kflash.library()
     kbwd.library()
     klru.library()
+    klrub.library()
 
     # -- 2. kernel vs its plain version ----------------------------------------
     t_phase = time.perf_counter()
@@ -3611,16 +3740,15 @@ def main() -> int:
     for name, fn in (("matmul", lambda: ops.matmul(x_, x_)),
                      ("q4_matmul", lambda: ops.q4_matmul(
                          x_, *quantize_q4(torch.ones((8, 8), device=dev),
-                                          group=8), group=8)),
-                     ("lru_scan", lambda: ops.lru_scan(x_[None], x_[None]))):
+                                          group=8), group=8))):
         try:
             fn()
         except NotImplementedError:
             continue
         raise AssertionError(f"ops.{name} returned a result without a "
                              "gradient for an input that requires grad")
-    print("[kernel] ops.matmul, ops.q4_matmul and ops.lru_scan refuse a "
-          "grad-carrying call on the card (no backward kernel yet)")
+    print("[kernel] ops.matmul and ops.q4_matmul refuse a grad-carrying "
+          "call on the card (no backward kernel)")
     del x_
 
     # lru_scan against its plain version: tests/test_kernels.py's shapes,
@@ -3682,6 +3810,91 @@ def main() -> int:
           f"{lru_main_ms:.3f} ms  bound {lru_main_bound:.3f} ms "
           f"({lru_main_bound / lru_main_ms:.2f} of bound)")
     lru_top = lru_main[-1]         # the largest main-path launch
+
+    # the lru_scan backward kernel against its plain version (the reverse
+    # scan dx = g, da = g h_{t-1}; f32 2e-4, bf16 5e-2 of the largest
+    # gradient): tests/test_kernels.py's shapes, ragged T and C not a
+    # multiple of the 64-channel block, then at the training shape as phase
+    # 18 launches it (a 1x4 node's 4 folded sequences x 2048, d_rnn 4096)
+    # and at phase 9's prefill groups, timed beside the plain version, the
+    # a = 1 case (a reversed cumsum) and the bound
+    def lru_bwd_check(shape, dtype, what):
+        a, x = lru_inputs(shape, dtype)
+        h = ops.lru_scan(a, x)
+        gh = torch.randn(shape, generator=g, device=dev).to(dtype)
+        got = klrub.lru_scan_bwd_cuda(a, h, gh)
+        torch.cuda.synchronize()
+        want = klrub.lru_scan_bwd_plain(a, h, gh)
+        tol = 2e-4 if dtype == torch.float32 else 5e-2
+        errs, abs_err = [], 0.0
+        for name, u, w in zip(("dx", "da"), got, want):
+            diff = (u.float() - w.float()).abs().max().item()
+            e = diff / w.float().abs().max().item()
+            if not (e <= tol and torch.isfinite(u).all()
+                    and u.dtype == w.dtype and u.shape == w.shape):
+                raise AssertionError(f"{what}: {name} rel err {e} > {tol}")
+            errs.append(e)
+            abs_err = max(abs_err, diff)
+        return a, h, gh, errs, abs_err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((1, 256, 128), (2, 512, 64), (1, 100, 48),
+                      (2, 129, 70), (3, 1000, 200)):
+            what = f"lru_scan_bwd {str(dtype)[6:]} {shape}"
+            errs = lru_bwd_check(shape, dtype, what)[3]
+            print(f"[kernel] {what}: rel err dx {errs[0]:.2e} da "
+                  f"{errs[1]:.2e}")
+    ones = torch.ones((1, 1000, 96), device=dev)
+    dx_, da_ = klrub.lru_scan_bwd_cuda(ones, ops.lru_scan(ones, ones), ones)
+    err = (dx_ - ones.flip(1).cumsum(1).flip(1)).abs().max().item()
+    if err or da_[:, 0].abs().max().item():
+        raise AssertionError(f"lru_scan_bwd a = 1: max |err| {err} vs the "
+                             "reversed cumsum")
+    print("[kernel] lru_scan_bwd a = 1 carry over 1000 steps vs the "
+          "reversed cumsum: max|err| 0, da at t = 0 is 0")
+    # ops.lru_scan with grad: the forward kernel, then the backward kernel
+    a, x = (t.requires_grad_(True) for t in lru_inputs((2, 300, 70),
+                                                       torch.float32))
+    before = (klru.launches, klrub.launches)
+    h = ops.lru_scan(a, x)
+    gh = torch.randn(h.shape, generator=g, device=dev)
+    da_, dx_ = torch.autograd.grad(h, (a, x), gh)
+    if (klru.launches - before[0], klrub.launches - before[1]) != (1, 1):
+        raise AssertionError("ops.lru_scan with grad did not launch the "
+                             "forward and backward kernels once each")
+    want = klrub.lru_scan_bwd_plain(a.detach(), h.detach(), gh)
+    for u, w in zip((dx_, da_), want):
+        if not (u - w).abs().max().item() <= 2e-4 * w.abs().max().item():
+            raise AssertionError("ops.lru_scan's gradient differs from "
+                                 "lru_scan_bwd_plain")
+    print("[kernel] ops.lru_scan with grad: one lru_scan and one "
+          "lru_scan_bwd launch, gradients as lru_scan_bwd_plain's")
+    del a, x, h, gh, da_, dx_, ones
+    bwd_lru_rows = {}
+    for B, T, C in [(4, 2048, C)] + main_shapes:
+        what = f"lru_scan_bwd f32 ({B}, {T}, {C})"
+        a, h, gh, errs, abs_err = lru_bwd_check((B, T, C), torch.float32,
+                                                what)
+        row = {"err": abs_err,
+               "ms": cuda_ms(lambda: klrub.lru_scan_bwd_cuda(a, h, gh), 20),
+               "plain_ms": cuda_ms(
+                   lambda: klrub.lru_scan_bwd_plain(a, h, gh), 2),
+               "cumsum_ms": cuda_ms(
+                   lambda: torch.cumsum(gh.flip(1), 1), 20)}
+        moved = 5.0 * B * T * C * 4     # a, h, gh read once; dx, da written
+        row["bound_ms"], row["bound_by"] = bound(3.0 * B * T * C, moved,
+                                                 "fma")
+        print(f"[kernel] {what}: rel err dx {errs[0]:.2e} da {errs[1]:.2e}"
+              f", max|err| {abs_err:.3g}  kernel {row['ms']:.3f} ms "
+              f"({moved / row['ms'] / 1e6:.1f} GB/s, "
+              f"{row['bound_ms'] / row['ms']:.2f} of the bound)  plain "
+              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}; {moved / 1e9:.3f} GB)  library: none "
+              f"computes it (for orientation only, the a = 1 case: "
+              f"torch.cumsum of the flipped gh {row['cumsum_ms']:.3f} ms)")
+        bwd_lru_rows[(B, T, C)] = row
+        del a, h, gh
+    lrub_top = bwd_lru_rows[(4, 2048, C)]    # phase 18's launch shape
     print(f"[phase] kernel {time.perf_counter() - t_phase:.1f} s")
 
     # -- main path: zero the counts, drive phases 3-7, read them -----------------
@@ -4140,6 +4353,38 @@ def main() -> int:
     train_row = {"ms": sum(r["ms"] for r in rows[1:]) / (len(rows) - 1),
                  "tokens": 8 * 2048}
     train_rows = rows
+    # the dry run of the same step (launch.dryrun.trace_cell on meta
+    # tensors: the same config, cluster, shape, mode and dtype) beside it:
+    # its roofline terms, per rank; the card runs all 8 ranks, so the
+    # step's least compute time here is 8 ranks' compute terms
+    t_dr = time.perf_counter()
+    dr = dryrun.trace_cell(tcfg, ShapeSpec("train_2k", 2048, 8, "train"),
+                           VirtualCluster(pods=2, chips=4, device="meta"),
+                           mode="hier", compute_dtype=torch.float32)
+    r_, R_ = dr["roofline"], dr["cost"]["ranks"]
+    dr_calls = {k_: v_["calls"] for k_, v_ in dr["cost"]["kernels"].items()}
+    card_ms = r_["compute_s"] * R_ * 1e3
+    routes = {k_: float(f"{v_ / R_:.4g}")
+              for k_, v_ in dr["cost"]["flops_by_route"].items()}
+    print(f"[train] dry run of the same step (launch.dryrun.trace_cell on "
+          f"meta, {time.perf_counter() - t_dr:.1f} s; H100 constants of "
+          f"analysis.roofline): per rank {r_['hlo_flops']:.4g} FLOP (by "
+          f"route {routes}), {r_['hlo_bytes'] / 1e9:.2f} GB; terms compute "
+          f"{r_['compute_s'] * 1e3:.1f} ms, memory "
+          f"{r_['memory_s'] * 1e3:.1f} ms, collective "
+          f"{r_['collective_s'] * 1e3:.1f} ms (NVLink 4 "
+          f"{r_['fast_coll_s'] * 1e3:.1f}, NDR {r_['slow_coll_s'] * 1e3:.1f}"
+          f"), dominant {r_['dominant']}, useful FLOP "
+          f"{r_['useful_flops_ratio']:.3f}; kernel calls a step {dr_calls}; "
+          f"on one card the 8 ranks' compute term is {card_ms:.1f} ms, "
+          f"{card_ms / train_row['ms']:.3f} of the measured "
+          f"{train_row['ms']:.1f} ms step")
+    for k_, v_ in (("flash_attention", "flash_attention (forward)"),
+                   ("flash_attention_bwd", "flash_attention_bwd")):
+        if dr_calls[k_] * len(rows) != train_launches[v_]:
+            raise AssertionError(f"the dry run counts {dr_calls[k_]} {k_} "
+                                 f"calls a step; the card launched "
+                                 f"{train_launches[v_]} in {len(rows)}")
     del bundle, state, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4674,13 +4919,21 @@ def main() -> int:
         launches[k_] += v_
     print(f"[phase] frontends {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 18. hybrid training: recurrentgemma-9b through the scan kernels ---
+    t_phase = time.perf_counter()
+    hy_launches = hybrid_train_phase(dev)
+    print(f"[train] kernel launches in phase 18: {hy_launches}")
+    for k_, v_ in hy_launches.items():
+        launches[k_] = launches.get(k_, 0) + v_
+    print(f"[phase] hybrid train {time.perf_counter() - t_phase:.1f} s")
+
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
-    print(f"[nonfinite] tiles recomputed over phases 3-17: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-18: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")
@@ -4716,7 +4969,13 @@ def main() -> int:
         "plain_ms": bwd_top["plain_ms"], **least(bwd_top),
         "library_ms": bwd_top["library_ms"],
         "of_bound": bwd_top["of_bound"],
-        "library_over_kernel": bwd_top["library_over_kernel"]}]}))
+        "library_over_kernel": bwd_top["library_over_kernel"]}, {
+        "name": "lru_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/lru_scan_bwd.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:38",
+        "launches": launches["lru_scan_bwd"], "max_abs_err": lrub_top["err"],
+        "ms": lrub_top["ms"], "plain_ms": lrub_top["plain_ms"],
+        **least(lrub_top), "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from repro_torch.comm import Communicator, SharedWindow, registry
-from repro_torch.comm import primitives as p
 from repro_torch.substrate.collectives import CollectiveRecord, recording
 
 #: Per-rank link bytes of one collective of ``group`` ranks whose per-rank
@@ -144,13 +143,9 @@ def _full(family: str, out, comm: Communicator):
         blocks, counts = out
         if blocks.dim() == 2:            # flat: already rank-major
             return blocks, counts
-        order = dict(num_pods=comm.pods, chips_per_pod=comm.chips)
-        b = p.shared_to_rank_order(p.shared_read(blocks,
-                                                 fast_axis=comm.fast_axis),
-                                   **order)
-        c = p.shared_to_rank_order(p.shared_read(counts,
-                                                 fast_axis=comm.fast_axis),
-                                   **order)
+        # the node's window over each result, read in SMP rank order
+        b, c = (SharedWindow(comm, x, epoch=1).read_rank_order()
+                for x in (blocks, counts))
         return b.reshape(R, -1), c.reshape(R, -1)
     if isinstance(out, SharedWindow):
         return out.read_rank_order() if family == "allgather" \

@@ -79,7 +79,8 @@ def summa(a: torch.Tensor, b: torch.Tensor, *, scheme: str,
         for k in range(CORES):          # SUMMA rounds over the inner grid dim
             a_src = p._select(j == k, a_blk)    # row bcast of A[:, k]
             b_src = p._select(i == k, b_blk)    # column bcast of B[k, :]
-            b_panel = coll.psum(b_src, "node")  # the bridge tier, raw
+            # raw-collective: pedagogical SUMMA baseline, raw by design
+            b_panel = coll.psum(b_src, "node")  # the bridge tier
             if scheme == "pipelined":
                 win = ROW_COMM.reduce_scatter(a_src, scheme="shared")
                 cs += ROW_COMM.ag_matmul_rows(win.shard, b_panel,
@@ -87,6 +88,7 @@ def summa(a: torch.Tensor, b: torch.Tensor, *, scheme: str,
                                               use_kernel=use_kernel)
                 continue
             if scheme == "naive":
+                # raw-collective: pedagogical SUMMA baseline
                 a_panel = coll.psum(a_src, "core")
             elif scheme == "hybrid":    # one shared panel per node, read at use
                 a_panel = ROW_COMM.reduce_scatter(a_src,

@@ -231,8 +231,10 @@ def serving_cases(vc, on_skip=None, schemes=None):
                 new_cache, logits = _decode(p, cache, tok, pos)
                 # two replicated f32 checksums keep the logits AND the
                 # cache update in the step: each a psum over the whole mesh
+                # raw-collective: result-liveness checksum reduction
                 chk_l = coll.psum(logits.float().sum(
                     dim=tuple(range(1, logits.dim()))), _axes)
+                # raw-collective: result-liveness checksum reduction
                 chk_c = coll.psum(cache_checksums(new_cache), _axes)
                 return chk_l, chk_c
 

@@ -18,7 +18,7 @@ from repro_torch.substrate import collectives as coll
 def barrier(token: torch.Tensor, axis) -> torch.Tensor:
     """Heavy-weight barrier: a scalar allreduce over ``axis`` (the paper's
     ``MPI_Barrier(sharedmemComm)``)."""
-    return coll.psum(token, _axes(axis))
+    return coll.psum(token, _axes(axis))  # raw-collective: the barrier
 
 
 def flag_chain(token: torch.Tensor, axis) -> torch.Tensor:
@@ -27,6 +27,7 @@ def flag_chain(token: torch.Tensor, axis) -> torch.Tensor:
     out = token
     for a in _axes(axis):
         n = coll.axis_size(a)
+        # raw-collective: the flag primitive itself
         out = coll.ppermute(out, a, [(i, (i + 1) % n) for i in range(n)])
     return out
 
@@ -35,4 +36,5 @@ def leader_flag(token: torch.Tensor, *, fast_axis) -> torch.Tensor:
     """Children signal the leader (chip 0 of the pod) that their partitions
     are ready — the paper's first barrier, light-weight flavor."""
     contrib = _select(axis_index(fast_axis) != 0, token)
+    # raw-collective: the barrier primitive itself
     return coll.psum(contrib, _axes(fast_axis))

@@ -1,7 +1,7 @@
 """Plain PyTorch oracles for every kernel (the allclose ground truth), and
 CPU emulations of the kernels' arithmetic — 3xTF32 with the non-finite
-rule, the q4 unpack, the chunked scan — as test aids, never on a main
-path."""
+rule, the q4 unpack, the chunked scan and its reverse — as test aids,
+never on a main path."""
 
 from __future__ import annotations
 
@@ -48,6 +48,30 @@ def lru_scan_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         h = af[:, t] * h + xf[:, t]
         out[:, t] = h
     return out.to(x.dtype)
+
+
+def lru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor,
+                     gh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``lru_scan_ref`` given its output ``h`` and the
+    output's cotangent ``gh``: the reverse scan g_t = gh_t + a_{t+1}
+    g_{t+1} (g past T is 0), then (dx, da) = (g, g_t h_{t-1}) with h_{-1}
+    = 0; fp32 carry, both in a's dtype."""
+    af, gf = a.float(), gh.float()
+    g = torch.zeros_like(gf[:, 0])
+    dx = torch.empty_like(gf)
+    for t in reversed(range(gf.shape[1])):
+        if t + 1 < gf.shape[1]:
+            g = af[:, t + 1] * g + gf[:, t]
+        else:
+            g = gf[:, t]
+        dx[:, t] = g
+    da = dx * _shifted(h.float())
+    return dx.to(a.dtype), da.to(a.dtype)
+
+
+def _shifted(h: torch.Tensor) -> torch.Tensor:
+    """h_{t-1} along dim 1, h_{-1} = 0."""
+    return torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
 
 
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -135,6 +159,42 @@ def lru_scan_chunked_emulated(a: torch.Tensor, x: torch.Tensor,
         h = ap[:, :, t] * h + xp[:, :, t]
         out[:, :, t] = h
     return out.reshape(B, n * chunk, C)[:, :T].to(x.dtype)
+
+
+def lru_scan_bwd_chunked_emulated(a: torch.Tensor, h: torch.Tensor,
+                                  gh: torch.Tensor, chunk: int = 128
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/lru_scan_bwd.cu``'s arithmetic: the reverse scan's
+    coefficients a_{t+1} (0 at the last step); each T-chunk's aggregate
+    from a zero carry at its end, (prod a_{t+1}, g at its first row); the
+    carries passed backward chunk by chunk (carry_j = A_j carry_{j+1} +
+    X_j, the last chunk's = X); each chunk rescanned backwards from the
+    carry after it; da = g h_{t-1}.  fp32 throughout, both in a's
+    dtype."""
+    B, T, C = gh.shape
+    n = -(-T // chunk)
+    pad = n * chunk - T               # identity steps: coefficient 1, gh 0
+    f = dict(dtype=torch.float32, device=gh.device)
+    coef = torch.cat([a.float()[:, 1:], torch.zeros(B, 1, C, **f),
+                      torch.ones(B, pad, C, **f)], 1).reshape(B, n, chunk, C)
+    gp = torch.cat([gh.float(), torch.zeros(B, pad, C, **f)], 1).reshape(
+        B, n, chunk, C)
+    agg_a, agg_x = torch.ones(B, n, C, **f), torch.zeros(B, n, C, **f)
+    for t in reversed(range(chunk)):
+        agg_x = coef[:, :, t] * agg_x + gp[:, :, t]
+        agg_a = agg_a * coef[:, :, t]
+    carry, carries = torch.zeros(B, C, **f), [None] * n
+    for j in reversed(range(n)):
+        carries[j] = carry
+        carry = agg_a[:, j] * carry + agg_x[:, j] if j < n - 1 \
+            else agg_x[:, j]
+    g, out = torch.stack(carries, 1), torch.empty(B, n, chunk, C, **f)
+    for t in reversed(range(chunk)):
+        g = coef[:, :, t] * g + gp[:, :, t]
+        out[:, :, t] = g
+    dx = out.reshape(B, n * chunk, C)[:, :T]
+    da = dx * _shifted(h.float())
+    return dx.to(a.dtype), da.to(a.dtype)
 
 
 def attention_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor,

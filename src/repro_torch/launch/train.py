@@ -16,7 +16,8 @@ one line per step — the loss (in full), gnorm, the step's milliseconds
 (host clock around work that ends in a synchronize) and tokens/s — then the
 training state's device bytes by group (params / m / v / grads) and, on
 the card, the flash-attention kernel's forward and backward launch
-counts.
+counts (and, for a model with ``rglru`` blocks such as
+``recurrentgemma-9b``, the lru_scan kernel's and its backward's).
 A ``vit`` / ``encodec`` config (``internvl2-1b``, ``musicgen-medium``)
 trains through ``runtime.steps.make_train_step`` on the production mesh of
 the same shape (``topology_of``: ``PODSxCHIPS`` is ``{pod, data: CHIPS,
@@ -46,6 +47,8 @@ from repro_torch.core.topology import MeshTopology
 from repro_torch.data.synthetic import DataConfig, FrontendLM
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import flash_attention_bwd as kflash_bwd
+from repro_torch.kernels import lru_scan as klru
+from repro_torch.kernels import lru_scan_bwd as klru_bwd
 from repro_torch.launch.mesh import make_mesh_from_topo
 from repro_torch.runtime.steps import (make_cluster_train_step,
                                        make_train_step)
@@ -137,6 +140,7 @@ def main(argv=None) -> int:
           + (f", checkpoints in {args.ckpt} every {args.save_every} steps"
              if args.ckpt else ""))
     kflash.launches = kflash_bwd.launches = 0
+    klru.launches = klru_bwd.launches = 0
     tokens = args.batch * args.seq
 
     def log_step(i, metrics):
@@ -167,6 +171,9 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         print(f"[train] flash_attention launches: forward "
               f"{kflash.launches} backward {kflash_bwd.launches}")
+        if "rglru" in cfg.pattern:
+            print(f"[train] lru_scan launches: forward {klru.launches} "
+                  f"backward {klru_bwd.launches}")
     return 0
 
 

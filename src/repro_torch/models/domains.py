@@ -17,11 +17,20 @@ serving entry points of ``transformer.ClusterModel`` both run on these
 views; the decode cache of the latter is the node-shared inference state,
 ``NodeCache``: one cache per domain, handed to the ranks as broadcast
 views, never as R copies.
+
+A dry run (``launch.dryrun``) traces one step on meta tensors at the
+production meshes' 256 / 512 ranks; since every domain runs the same
+program on the same shapes, ``first_domain_only`` makes each domain loop
+run its first domain alone (``domain_range``) and hands the run's domain
+count to a probe, which scales what it counted.  A time loop whose steps
+are alike (the sLSTM's) does the same through ``scan``: one step traced,
+forward and backward, counted for all.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 from typing import Optional, Sequence
 
@@ -31,7 +40,7 @@ from repro_torch.comm.window import SharedWindow
 from repro_torch.core import tree as T
 from repro_torch.models.meta import store_dim
 from repro_torch.substrate.cluster import Mesh, active_mesh, bind_mesh
-from repro_torch.substrate.collectives import muted
+from repro_torch.substrate.collectives import folded, muted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,15 +159,98 @@ def node_window(ctx, w: torch.Tensor, fsdp_dim: int, unit: bool
                         lead=2 if lay.tp_dim else 1)
 
 
+_PROBE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_domain_probe", default=None)
+
+
 @contextlib.contextmanager
-def domain_run(ctx, lay: Domains, d: int, device):
-    """Domain ``d``'s run: the tp axis alone bound, and the traffic record
-    muted after the first domain."""
+def first_domain_only(probe):
+    """Inside, every loop over a cluster's memory domains
+    (``domain_range``) runs its first domain only, and each such run is
+    entered as ``with probe(count, "domains"):`` — ``count`` the loop's
+    domains — so a dry run can count one domain's work and scale it; on
+    meta tensors ``scan`` does the same for a time loop's steps
+    (``probe(n, "steps")``)."""
+    token = _PROBE.set(probe)
+    try:
+        yield
+    finally:
+        _PROBE.reset(token)
+
+
+def domain_range(count: int) -> range:
+    """The domains a loop runs: all ``count``, or the first alone inside
+    ``first_domain_only``."""
+    return range(min(count, 1)) if _PROBE.get() is not None \
+        else range(count)
+
+
+def every_domain(per_domain: list, count: int) -> list:
+    """Per-domain outputs for all ``count`` domains: inside
+    ``first_domain_only`` the first domain's stands for the rest."""
+    return per_domain + per_domain[:1] * (count - len(per_domain))
+
+
+@contextlib.contextmanager
+def domain_run(ctx, lay: Domains, d: int, device, fold: int = 1):
+    """Domain ``d``'s run: the tp axis alone bound, the traffic record
+    muted after the first domain (inside ``first_domain_only``, entered as
+    the probe's run of ``lay.count`` domains), and, when the run folds
+    ``fold`` store ranks' rows into one batch, each record a rank's share
+    (``collectives.folded``)."""
     mesh = Mesh((ctx.tp_axis,), (lay.tp,), (), device) if lay.tp_dim \
         else None
+    probe = _PROBE.get()
     with (bind_mesh(mesh) if mesh else contextlib.nullcontext()), (
-            muted() if d else contextlib.nullcontext()):
+            muted() if d else contextlib.nullcontext()), folded(fold), (
+            probe(lay.count, "domains") if probe is not None
+            else contextlib.nullcontext()):
         yield
+
+
+def scan(step, carry: tuple, xs, *args) -> list:
+    """``carry = step(carry, x, *args)`` for each ``x`` of ``xs``; returns
+    every step's carry.  Inside ``first_domain_only`` on meta tensors the
+    steps, alike in shape, are one step traced (``_TracedOnce``), whose
+    carry stands for each step's."""
+    probe = _PROBE.get()
+    if probe is None or not xs[0].is_meta:
+        out = []
+        for x in xs:
+            carry = step(carry, x, *args)
+            out.append(carry)
+        return out
+    new = _TracedOnce.apply(step, len(xs), probe, len(carry), *carry, xs[0],
+                            *args)
+    return [new] * len(xs)
+
+
+class _TracedOnce(torch.autograd.Function):
+    """One step of a loop of ``n`` alike steps on meta tensors, run inside
+    ``probe(n, "steps")`` in the forward and again (its own graph, every
+    floating input differentiated as a later step's would be) in the
+    backward, so the probe counts it ``n`` times each way."""
+
+    @staticmethod
+    def forward(ctx, step, n, probe, n_carry, *inputs):
+        leaves = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in inputs]
+        # the inner graph keeps its own saved tensors (an enclosing remat's
+        # hooks would re-run the whole block to unpack them)
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                lambda t: t, lambda t: t), probe(n, "steps"):
+            outs = step(tuple(leaves[:n_carry]), *leaves[n_carry:])
+        ctx.graph, ctx.n, ctx.probe = (leaves, outs), n, probe
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        leaves, outs = ctx.graph
+        with ctx.probe(ctx.n, "steps"):
+            got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+        return (None,) * 4 + tuple(
+            g if need else None
+            for g, need in zip(got, ctx.needs_input_grad[4:]))
 
 
 def domain_params(ctx, lay: Domains, defs, params, d: int,

@@ -61,12 +61,6 @@ def store_dim(meta: PMeta) -> Optional[int]:
     return meta.data_dim if meta.data_dim is not None else meta.fsdp_dim
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """``item``: the ROADMAP Queue 1 item that ports ``what``."""
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                               f"item {item}")
-
-
 def _resolve_fsdp(meta: PMeta, data: int, mode: str, serve: bool,
                   force: bool = False) -> PMeta:
     """Pick the FSDP dim: the largest dim divisible by the data size,

@@ -361,6 +361,7 @@ class ParallelCtx:
         if not self.tp_axis:
             return x
         with record_function("tp::ag_tokens"):
+            # raw-collective: ag_tokens tp fast path (one flat tp group)
             return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True)
 
     def rs_tokens(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -369,6 +370,7 @@ class ParallelCtx:
         if not self.tp_axis:
             return x
         with record_function("tp::rs_tokens"):
+            # raw-collective: rs_tokens tp fast path (one flat tp group)
             return coll.psum_scatter(x, self.tp_axis, scatter_dimension=dim)
 
     def gather_tp(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -378,13 +380,14 @@ class ParallelCtx:
         if not self.tp_axis:
             return x
         with record_function("tp::gather_tp"):
+            # raw-collective: gather_tp tp fast path (one flat tp group)
             return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True)
 
     def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
         if not self.tp_axis:
             return x
         with record_function("tp::psum_tp"):
-            return coll.psum(x, self.tp_axis)
+            return coll.psum(x, self.tp_axis)  # raw-collective: tp fast path
 
     def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
         """Cross-shard max as an all-gather then a max, as the reference
@@ -393,6 +396,7 @@ class ParallelCtx:
         if not self.tp_axis:
             return x
         with record_function("tp::pmax_tp"):
+            # raw-collective: pmax_tp tp fast path
             return coll.all_gather(x, self.tp_axis, axis=0,
                                    tiled=False).amax(dim=1)
 
@@ -402,6 +406,7 @@ class ParallelCtx:
         if not self.tp_axis or group == 1:
             return x
         with record_function("tp::group_all_gather"):
+            # raw-collective: grouped tp fast path
             return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True,
                                    group=group)
 
@@ -410,6 +415,7 @@ class ParallelCtx:
         if not self.tp_axis or group == 1:
             return x
         with record_function("tp::group_psum"):
+            # raw-collective: grouped tp fast path
             return coll.psum(x, self.tp_axis, group=group)
 
     def shard(self, n: int) -> int:

@@ -8,8 +8,10 @@ scans it in log space with ``lax.associative_scan``; here prefill runs it
 through
 ``kernels.ops.lru_scan`` on a = exp(log_a): the hand-written kernel
 (``csrc/lru_scan.cu``) on CUDA tensors, its plain version on CPU tensors.
-Decode (T = 1) is one step, ``exp(log_a) * h_prev + x``, and launches no
-kernel, as in the reference.
+Training differentiates it through the kernel's backward
+(``ops.LruScan``: ``csrc/lru_scan_bwd.cu``), da carried on through the
+exp by autograd.  Decode (T = 1) is one step, ``exp(log_a) * h_prev + x``,
+and launches no kernel, as in the reference.
 """
 
 from __future__ import annotations

@@ -22,9 +22,10 @@ decode with per-slot positions, and the training loss (``_loss``): the
 unit walk with a per-unit remat (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``), the bounded prefetch of the units' window
 reads (kept outside the remat region, as the reference keeps them) and the
-streamed cross-entropy.  Training through the ``rglru`` block is not
-offered on the card: the lru_scan kernel has no backward yet and refuses a
-grad-carrying call.
+streamed cross-entropy.  Training through the ``rglru`` block runs the
+lru_scan kernel forward (twice a step under the remat) and its backward
+kernel (``kernels.ops.LruScan``: ``csrc/lru_scan_bwd.cu``) on the card,
+the plain scan's autograd on the CPU.
 
 With a tp axis (``models.parallel``: the tp ranks stacked on a leading
 axis) the training loss runs the reference's sequence-parallel layout: the
@@ -72,7 +73,8 @@ from repro_torch.models import meta as M
 from repro_torch.models.attention import (_kv_head_map, attn_block,
                                           cache_write, decode_attention)
 from repro_torch.models.domains import (Domains, NodeCache, domain_params,
-                                        domain_run)
+                                        domain_range, domain_run,
+                                        every_domain)
 from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
                                        rms_norm, rope_decode, sinusoidal_pe,
                                        unembed_xent, unembed_xent_rows)
@@ -167,14 +169,15 @@ class ClusterModel(Model):
         leaves = {k: torch.as_tensor(v) for k, v in batch.items()}
         device = next(iter(leaves.values())).device
         # folded rows: the MoE block dispatches each member's apart
-        run_ctx = dataclasses.replace(self.ctx, fold=lay.store) if sharded \
+        fold = lay.store if sharded else 1
+        run_ctx = dataclasses.replace(self.ctx, fold=fold) if sharded \
             else self.ctx
         cache, logits = None, []
-        for d in range(lay.count):
+        for d in domain_range(lay.count):
             dom = domain_params(self.ctx, lay, self.defs, params, d)
             rows = {k: lay.fold(v, d) if sharded else v[d * lay.members]
                     for k, v in leaves.items()}
-            with domain_run(self.ctx, lay, d, device):
+            with domain_run(self.ctx, lay, d, device, fold):
                 c, lg = _prefill(self.cfg, run_ctx, self.defs, dom, rows,
                                  s_max)
             if cache is None:
@@ -184,6 +187,7 @@ class ClusterModel(Model):
                 dst[d].copy_(src)
             logits.append(lg)
             del c
+        logits = every_domain(logits, lay.count)
         out = lay.unfold(logits) if sharded else lay.to_ranks(logits)
         return NodeCache(cache, lay), out
 
@@ -209,16 +213,18 @@ class ClusterModel(Model):
             run_ctx = dataclasses.replace(run_ctx, fsdp_axes=())
         token, pos = torch.as_tensor(token), torch.as_tensor(pos)
         logits = []
-        for d in range(lay.count):
+        for d in domain_range(lay.count):
             dom = domain_params(self.ctx, lay, self.serve_defs, params, d,
                                 reads)
             a = d * lay.members
             tok = lay.fold(token, d) if sharded else token[a]
             ps = lay.fold(pos, d) if sharded and pos.dim() > 1 else pos[a]
-            with domain_run(self.ctx, lay, d, token.device):
+            with domain_run(self.ctx, lay, d, token.device,
+                            lay.store if sharded else 1):
                 _, lg = _decode(self.cfg, run_ctx, self.serve_defs, dom,
                                 cache.domain(d), tok, ps)
             logits.append(lg)
+        logits = every_domain(logits, lay.count)
         out = lay.unfold(logits) if sharded else lay.to_ranks(logits)
         return cache, out
 

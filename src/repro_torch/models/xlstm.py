@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from repro_torch.models.domains import scan
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.parallel import ParallelCtx
 
@@ -381,12 +382,12 @@ def slstm_block(x_sp, p, meta, ctx: ParallelCtx, cfg, *,
 
     z = gxm.new_zeros(tuple(gxm.shape[:-3]) + (d,))
     carry = (z, z, z, torch.full_like(z, NEG))
-    hs = []
     with record_function("xlstm::slstm_loop"):
-        for gt in gxm.unbind(-3):       # one backward node, not T
-            carry = slstm_cell(carry, gt, r_w, nh)
-            hs.append(carry[0])
-    hs = torch.stack(hs, -2).to(hg.dtype)                   # (bs, T, d)
+        # unbind: one backward node, not T
+        carries = scan(lambda c, x, w: slstm_cell(c, x, w, nh), carry,
+                       gxm.unbind(-3), r_w)
+    carry = carries[-1]
+    hs = torch.stack([c[0] for c in carries], -2).to(hg.dtype)  # (bs,T,d)
     y_me = ctx.mm(hs, w_out)
 
     new_state = None

@@ -84,8 +84,11 @@ def adamw_update_(params, grads, m, v, step, *, lr, weight_decay=0.1,
                                         leaves(v))):
         g = gs[i]
         gs[i] = None
-        for r in range(p.shape[0]):
-            sl = slice(r, r + 1)
+        # a rank slice at a time bounds the temporaries on a device; meta
+        # tensors (a dry run: launch.dryrun) hold nothing, so all at once
+        rows = [slice(None)] if p.is_meta else [
+            slice(r, r + 1) for r in range(p.shape[0])]
+        for sl in rows:
             p_n, m_n, v_n = _leaf_update(p[sl], g[sl], m_[sl], v_[sl],
                                          c1[sl], c2[sl], lr[sl],
                                          weight_decay, b1, b2, eps)

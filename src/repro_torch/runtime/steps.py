@@ -76,7 +76,6 @@ layout under the ``decode2d`` opt.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -88,16 +87,15 @@ from repro_torch.analysis.traffic import device_bytes
 from repro_torch.comm import Communicator
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as T
-from repro_torch.models.domains import (Domains, domain_view,
-                                        units_flags)
+from repro_torch.models.domains import (Domains, domain_range, domain_run,
+                                        domain_view, units_flags)
 from repro_torch.core.topology import MeshTopology
 from repro_torch.models.meta import store_dim
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.transformer import Model, _loss, build
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                      adamw_update_, per_rank)
-from repro_torch.substrate.cluster import Mesh, P, bind_mesh
-from repro_torch.substrate.collectives import muted
+from repro_torch.substrate.cluster import P
 
 
 def cluster_ctx(vc, *, mode: str = "hier", compute_dtype=torch.float32,
@@ -226,7 +224,6 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, batch: dict,
         else sum(g.numel() * g.element_size() for g in grads))
     loss = torch.zeros(R, dtype=torch.float32, device=device)
     cnt = torch.zeros(R, dtype=torch.float32, device=device)
-    mesh = Mesh((ctx.tp_axis,), (t,), (), device) if tp else None
     lay = Domains(R, s, t, tp)
     # the node's rows folded into one batch: the MoE block dispatches each
     # member's rows apart (the reference's per-rank capacity)
@@ -242,28 +239,28 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, batch: dict,
         else:
             dst[:t].copy_(g)
 
-    for a in range(0, R, n):
+    for d in domain_range(lay.count):
+        a = d * n
         dom = [domain_view(w[a:a + n], s, t, win, u, tp).detach()
                .requires_grad_(True)
                for w, win, u in zip(leaves, window, units)]
         # the store ranks' rows of every leaf (their tp ranks hold the
         # same rows)
-        rows = {k: lay.fold(v, a // n) for k, v in batch.items()}
+        rows = {k: lay.fold(v, d) for k, v in batch.items()}
         # every domain runs the same program: the traffic record keeps the
         # first one's collectives as each rank's
-        with torch.enable_grad(), (bind_mesh(mesh) if tp
-                                   else contextlib.nullcontext()), (
-                muted() if a else contextlib.nullcontext()):
+        with torch.enable_grad(), domain_run(ctx, lay, d, device, s):
             nll, count = _loss(cfg, run_ctx, defs, T.unflatten(params, dom),
                                rows, rows=True)
             got = torch.autograd.grad(nll.sum(), dom, allow_unused=True)
-        for g, dst, win, u in zip(got, grads, window, units):
-            if g is not None:
-                from_domain(g, win, u, dst[a:a + n])
-        # per-row partials (t, s * rows) -> per rank in (store, tp) order
-        loss[a:a + n] = nll.detach().reshape(t, s, -1).sum(dim=2).T \
-            .reshape(n)
-        cnt[a:a + n] = count.reshape(t, s, -1).sum(dim=2).T.reshape(n)
+            for g, dst, win, u in zip(got, grads, window, units):
+                if g is not None:
+                    from_domain(g, win, u, dst[a:a + n])
+            # per-row partials (t, s * rows) -> per rank in (store, tp)
+            # order
+            loss[a:a + n] = nll.detach().reshape(t, s, -1).sum(dim=2).T \
+                .reshape(n)
+            cnt[a:a + n] = count.reshape(t, s, -1).sum(dim=2).T.reshape(n)
         del got, nll, dom
     return T.unflatten(params, grads), loss, cnt
 

@@ -118,8 +118,8 @@ class KVCachePages:
         epoch bookkeeping advances host-side."""
         if (self.comm.chips or 1) != 1:
             raise NotImplementedError(
-                "multi-chip pages fence on the mesh: ROADMAP Queue 1 "
-                "item 17")
+                "multi-chip pages fence on the mesh: map SharedWindow."
+                "fence() over the windows inside the decode step")
         windows = _map(
             lambda w: dataclasses.replace(w, dirty=False, epoch=w.epoch + 1),
             self.windows)

@@ -61,6 +61,8 @@ class CollectiveRecord:
 
 _RECORD: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
     "repro_torch_traffic", default=None)
+_FOLD: contextvars.ContextVar[int] = contextvars.ContextVar(
+    "repro_torch_traffic_fold", default=1)
 
 
 @contextlib.contextmanager
@@ -84,6 +86,20 @@ def muted() -> Iterator[None]:
         yield
     finally:
         _RECORD.reset(token)
+
+
+@contextlib.contextmanager
+def folded(n: int) -> Iterator[None]:
+    """Inside, each collective runs on ``n`` ranks' batch rows folded into
+    one batch (a memory domain's run): each rank's message carries its own
+    rows, so a record's ``out_bytes`` is ``1/n`` of the folded output's.
+    Window reads (``note_window_read``) carry weights, not rows, and keep
+    their size."""
+    token = _FOLD.set(n)
+    try:
+        yield
+    finally:
+        _FOLD.reset(token)
 
 
 def note_window_read(out: torch.Tensor, n: int, lead: int = 0) -> None:
@@ -121,7 +137,8 @@ def _note(op: str, axes: Axis, out: torch.Tensor,
         op, n - 1)
     rec.append(CollectiveRecord(
         op=op, tier="slow" if mesh.crosses_pods(axes) else "fast", group=n,
-        out_bytes=out[0].numel() * out.element_size(), messages=messages))
+        out_bytes=out[0].numel() * out.element_size() // _FOLD.get(),
+        messages=messages))
 
 
 def _local(axis: int, x: torch.Tensor) -> int:

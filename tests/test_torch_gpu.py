@@ -26,8 +26,10 @@ is held to its plain version (f32 2e-4, bf16 5e-2; ragged C and T, B 1 and
 The flash backward kernel is held to the autograd of the plain version
 (f32 2e-4, bf16 2e-2 of the largest gradient), its forward with lse to the
 forward without it bit for bit, and the reduced ``qwen3-0.6b``'s hier
-train step on the card to the CPU; the kernels without a backward refuse a
-grad-carrying call.  Serving on the stacked cluster (``serve_fsdp``, 2x4
+train step on the card to the CPU; the matmul kernels, which have no
+backward, refuse a grad-carrying call.  The lru_scan backward kernel is
+held to its plain version through ``ops.lru_scan``'s autograd, and the
+reduced ``recurrentgemma-9b``'s hier train step on the card to the CPU.  Serving on the stacked cluster (``serve_fsdp``, 2x4
 and ``2x(2x2)``, the reduced qwen3-0.6b and the hybrid at tp 2): prefill
 and two decode steps on the card against the CPU within 1e-4 relative, and
 ``RecordedDecoder`` bit-identical to the sync decode on the card.  The
@@ -626,21 +628,43 @@ def test_flash_autograd_route_and_refusals(cuda):
     x = torch.ones((8, 8), device=cuda, requires_grad=True)
     for fn in (lambda: ops.matmul(x, x),
                lambda: ops.q4_matmul(x, *quantize_q4(
-                   torch.ones((8, 8), device=cuda), group=8), group=8),
-               lambda: ops.lru_scan(x[None], x[None])):
+                   torch.ones((8, 8), device=cuda), group=8), group=8)):
         with pytest.raises(NotImplementedError, match="no backward"):
             fn()
     with torch.no_grad():
         ops.matmul(x, x)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("shape", [(2, 300, 70), (4, 2048, 256),
+                                   (1, 129, 48)])
+def test_lru_scan_autograd_launches_the_backward_kernel(cuda, shape):
+    """``ops.lru_scan`` with grad: the forward kernel and, in the backward,
+    ``csrc/lru_scan_bwd.cu`` (one launch each); dx and da within 2e-4 of
+    the largest gradient of ``lru_scan_bwd_plain``."""
+    from repro_torch.kernels import lru_scan_bwd as klrub
+    g = torch.Generator(device=cuda).manual_seed(15)
+    a = (torch.rand(shape, generator=g, device=cuda) * 0.499 + 0.5) \
+        .requires_grad_(True)
+    x = torch.randn(shape, generator=g, device=cuda, requires_grad=True)
+    before = (klru.launches, klrub.launches)
+    h = ops.lru_scan(a, x)
+    gh = torch.randn(shape, generator=g, device=cuda)
+    da, dx = torch.autograd.grad(h, (a, x), gh)
+    assert (klru.launches - before[0], klrub.launches - before[1]) == (1, 1)
+    want = klrub.lru_scan_bwd_plain(a.detach(), h.detach(), gh)
+    for got, w in zip((dx, da), want):
+        assert ((got - w).abs().max() / w.abs().max()).item() <= 2e-4
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m",
+                                  "recurrentgemma-9b"])
 def test_cluster_train_step_on_the_card_matches_the_cpu(cuda, arch):
     """The reduced ``arch``'s hier step on 2x4: the card (the flash kernel
-    and its backward; the MoE block's gather dispatch and combine) against
-    the CPU (the plain version's autograd): loss rtol 2e-4, gnorm 5e-3,
-    the state under ``PERF.md`` §2's rule with at most 1e-5 of the params
-    excused."""
+    and its backward; the MoE block's gather dispatch and combine; the
+    hybrid's lru_scan kernel and its backward) against the CPU (the plain
+    version's autograd): loss rtol 2e-4, gnorm 5e-3, the state under
+    ``PERF.md`` §2's rule with at most 1e-5 of the params excused."""
+    from repro_torch.kernels import lru_scan_bwd as klrub
     from repro_torch.analysis.state_rule import state_close
     from repro_torch.core import tree as T
     from repro_torch.kernels import flash_attention_bwd as kbwd
@@ -661,14 +685,16 @@ def test_cluster_train_step_on_the_card_matches_the_cpu(cuda, arch):
         state = bundle.layout_state({"params": p_dev, "m": m, "v": v,
                                      "step": torch.zeros(
                                          (), dtype=torch.int32)})
-        before = kbwd.launches
+        before = (kbwd.launches, klrub.launches)
         state, met = bundle.step(state, bundle.layout_batch(
             {"tokens": toks}))
         res[dev.type] = (float(met["loss"][0]), float(met["gnorm"][0]),
                          T.tree_map(lambda t: t.cpu(),
                                     bundle.unlayout_state(state)))
         if dev.type == "cuda":
-            assert kbwd.launches > before
+            assert kbwd.launches > before[0]
+            if arch == "recurrentgemma-9b":
+                assert klrub.launches > before[1]
     (lg, gg, sg), (lc, gc, sc) = res["cuda"], res["cpu"]
     assert abs(lg - lc) <= 2e-4 * abs(lc) and abs(gg - gc) <= 5e-3 * gc
     # PERF.md §2's rule: m and v per leaf, the params but for elements
