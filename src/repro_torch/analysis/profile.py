@@ -12,10 +12,13 @@
         [--topology 2x4|2x(2x2)]
 
 SUMMA: for each scheme, one warm-up run, then one profiled run of the whole
-multiply (all rounds, ``use_kernel=True``).  ``--ag-matmul``: the same for
-``ag_matmul(use_kernel=True)`` at the width of ``mistral-nemo-12b``'s MLP
-down-projection (K = d_ff = 14336, N = d_model = 5120, 2048 tokens per rank,
-1x8 cluster), exact and ``precision="lossy"`` (the q4 kernel).
+multiply (all rounds, ``use_kernel=True``), with the device ms of its
+phases (the ``summa::*`` spans of ``apps.summa``: ``blocks``, ``a_panel``,
+``b_panel``, ``accumulate``, each timed on the card by ``core.spans``).
+``--ag-matmul``: the same for ``ag_matmul(use_kernel=True)`` at the width
+of ``mistral-nemo-12b``'s MLP down-projection (K = d_ff = 14336, N =
+d_model = 5120, 2048 tokens per rank, 1x8 cluster), exact and
+``precision="lossy"`` (the q4 kernel).
 ``--serve``: ``--model`` (``qwen3-0.6b`` by default, or any ported
 config: ``recurrentgemma-9b``, ``granite-moe-3b-a800m``, ``xlstm-1.3b``)
 at full width (f32, random weights): one prefill of 8 slots x 2048 tokens
@@ -25,18 +28,23 @@ kernels.  ``--train``: ``--model``'s cluster train step
 (``runtime.steps``) at full width — full depth unless ``--layers`` cuts
 it — in ``--mode`` on the stacked ``--topology``, global batch 8 x 2048
 tokens: one warm-up step, then one profiled step, with the shares of the
-flash forward and backward kernels and of the f32 matrix products, and on
-a topology with a tp axis (``2x(2x2)``) the device time of the tp
-collectives: the ``tp::*`` ranges of their forwards (``ParallelCtx``)
-and their backward nodes, each range's kernels counted once.  An MoE
+flash forward and backward kernels and of the f32 matrix products, the
+device ms of the step's phases (the ``train::*`` spans of
+``runtime.steps``: ``forward_backward`` per memory domain, ``bridge``,
+``optimizer``), and on a topology with a tp axis (``2x(2x2)``) the device
+time of the tp collectives: the ``tp::*`` spans of their forwards
+(``ParallelCtx``) and their backward nodes, each span's kernels counted
+once.  An MoE
 model adds the device time of its block's parts (``MOE_RANGES``: routing
 and tables, dispatch, the expert products, combine, and the gathers'
 backward nodes); an xLSTM model that of its blocks' parts
 (``XLSTM_RANGES``: ``xlstm::mlstm_intra``, ``xlstm::mlstm_prefix``,
 ``xlstm::mlstm_decode``, ``xlstm::slstm_loop``).  Prints each run's wall
 time, the device busy time (the union of every kernel and copy interval on
-the card, so overlapping streams count once), the busy share of
-the wall time, and the kernels that took most device time.  Needs a CUDA
+the card, so overlapping streams count once; a user-scope profiler range's
+mirror on the device timeline, a ``gpu_user_annotation``, is no device
+activity and is left out, as torch's own tables leave it), the busy share
+of the wall time, and the kernels that took most device time.  Needs a CUDA
 device.
 """
 
@@ -52,6 +60,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.apps import summa
 from repro_torch.comm import Communicator
+from repro_torch.core import spans
 from repro_torch.substrate import VirtualCluster
 
 
@@ -131,9 +140,11 @@ def _ranges_ms(events, parts: tuple) -> tuple[dict, dict]:
 def profile_run(run, top: int = 5, ranges: tuple = ()) -> dict:
     """One warm-up call of ``run``, then one profiled call; with
     ``ranges``, the device ms and the host ms under the CPU events those
-    name parts match (``_ranges_ms``: ``ranges`` and ``ranges_wall``)."""
+    name parts match (``_ranges_ms``: ``ranges`` and ``ranges_wall``);
+    ``spans``, the profiled call's ``core.spans.totals()``."""
     run()
     torch.cuda.synchronize()
+    spans.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -141,7 +152,8 @@ def profile_run(run, top: int = 5, ranges: tuple = ()) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
     if not dev:
         raise RuntimeError("the profiler recorded no device activity: "
                            "device time not measured")
@@ -155,7 +167,8 @@ def profile_run(run, top: int = 5, ranges: tuple = ()) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "top": ranked[:top],
             "all": ranked, "launches": len(dev),
-            "ranges": rng[0], "ranges_wall": rng[1]}
+            "ranges": rng[0], "ranges_wall": rng[1],
+            "spans": spans.totals()}
 
 
 def _print(label: str, r: dict) -> None:
@@ -164,6 +177,15 @@ def _print(label: str, r: dict) -> None:
           f"{r['launches']} device activities")
     for name, ms in r["top"]:
         print(f"[profile]    {ms:9.2f} ms  {name[:90]}")
+
+
+def _print_spans(r: dict, prefix: str, what: str) -> None:
+    """The device ms and calls of the profiled call's ``prefix`` spans."""
+    hit = {k: v for k, v in r["spans"].items() if k.startswith(prefix)}
+    print(f"[profile]    {what}: " + (", ".join(
+        f"{k} {v['ms']:.2f} ms ({v['calls']} calls)"
+        for k, v in sorted(hit.items(), key=lambda kv: -kv[1]["ms"]))
+        or "no span timed"))
 
 
 def profile_ag_matmul(dev: torch.device, chunks: int) -> None:
@@ -242,6 +264,7 @@ def profile_train(dev: torch.device, mode: str, topology: str,
     tp = bundle.model.ctx.tp_axis is not None
     r = profile_run(step, top, (TP_RANGES if tp else ()) + model_ranges(cfg))
     _print("train", r)
+    _print_spans(r, "train::", "step phases")
     _print_share(r)
     if tp:
         _print_ranges(r, TP_RANGES, "tp collectives")
@@ -317,7 +340,9 @@ def main(argv=None):
     print(f"{torch.cuda.get_device_name(0)}; SUMMA N={args.n} f32, 4x4 grid, "
           f"use_kernel=True, chunks={args.chunks}")
     for scheme in summa.SCHEMES:
-        _print(scheme, profile_scheme(a, b, scheme, args.chunks))
+        r = profile_scheme(a, b, scheme, args.chunks)
+        _print(scheme, r)
+        _print_spans(r, "summa::", "phases")
 
 
 if __name__ == "__main__":

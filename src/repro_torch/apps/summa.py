@@ -31,6 +31,7 @@ import torch
 from repro_torch.comm import Communicator, SharedWindow, registry, tuning
 from repro_torch.comm import primitives as p
 from repro_torch.core.plans import broadcast_traffic
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops
 from repro_torch.substrate import VirtualCluster
 from repro_torch.substrate import collectives as coll
@@ -71,34 +72,43 @@ def summa(a: torch.Tensor, b: torch.Tensor, *, scheme: str,
                          f"multiple of {NODES * CORES}, got {tuple(a.shape)} "
                          f"and {tuple(b.shape)}")
     mm = ops.matmul if use_kernel else torch.matmul
-    with grid(a.device).bind():
+    with span("summa::multiply"), grid(a.device).bind():
         i, j = p.axis_index("node"), p.axis_index("core")
-        a_blk, b_blk = to_blocks(a), to_blocks(b)
-        cs = torch.zeros((NODES * CORES, N // NODES, N // CORES),
-                         dtype=torch.float32, device=a.device)
+        with span("summa::blocks"):
+            a_blk, b_blk = to_blocks(a), to_blocks(b)
+            cs = torch.zeros((NODES * CORES, N // NODES, N // CORES),
+                             dtype=torch.float32, device=a.device)
         for k in range(CORES):          # SUMMA rounds over the inner grid dim
-            a_src = p._select(j == k, a_blk)    # row bcast of A[:, k]
-            b_src = p._select(i == k, b_blk)    # column bcast of B[k, :]
-            # raw-collective: pedagogical SUMMA baseline, raw by design
-            b_panel = coll.psum(b_src, "node")  # the bridge tier
-            if scheme == "pipelined":
-                win = ROW_COMM.reduce_scatter(a_src, scheme="shared")
-                cs += ROW_COMM.ag_matmul_rows(win.shard, b_panel,
-                                              n_chunks=chunks,
-                                              use_kernel=use_kernel)
-                continue
-            if scheme == "naive":
-                # raw-collective: pedagogical SUMMA baseline
-                a_panel = coll.psum(a_src, "core")
-            elif scheme == "hybrid":    # one shared panel per node, read at use
-                a_panel = ROW_COMM.reduce_scatter(a_src,
-                                                  scheme="shared").read()
+            with span("summa::a_panel"):
+                a_src = p._select(j == k, a_blk)    # row bcast of A[:, k]
+                if scheme == "pipelined":
+                    win = ROW_COMM.reduce_scatter(a_src, scheme="shared")
+                elif scheme == "naive":
+                    # raw-collective: pedagogical SUMMA baseline
+                    a_panel = coll.psum(a_src, "core")
+                elif scheme == "hybrid":
+                    # one shared panel per node, read at use
+                    a_panel = ROW_COMM.reduce_scatter(a_src,
+                                                      scheme="shared").read()
+                else:
+                    out = ROW_COMM.allreduce(a_src, scheme="auto")
+                    a_panel = out.read() if isinstance(out, SharedWindow) \
+                        else out
+            with span("summa::b_panel"):
+                b_src = p._select(i == k, b_blk)    # column bcast of B[k, :]
+                # raw-collective: pedagogical SUMMA baseline, raw by design
+                b_panel = coll.psum(b_src, "node")  # the bridge tier
+            if scheme == "pipelined":   # the window read overlaps the product
+                prod = ROW_COMM.ag_matmul_rows(win.shard, b_panel,
+                                               n_chunks=chunks,
+                                               use_kernel=use_kernel)
             else:
-                out = ROW_COMM.allreduce(a_src, scheme="auto")
-                a_panel = out.read() if isinstance(out, SharedWindow) \
-                    else out
-            cs += mm(a_panel, b_panel)
-    return from_blocks(cs).to(a.dtype)
+                prod = mm(a_panel, b_panel)
+            with span("summa::accumulate"):
+                cs += prod
+            del prod
+        with span("summa::blocks"):
+            return from_blocks(cs).to(a.dtype)
 
 
 def round_traffic(scheme: str, n: int, resolved: str):

@@ -34,8 +34,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch.core.spans import span
 from repro_torch.models.layers import activation, rms_norm
 from repro_torch.models.meta import store_dim
 from repro_torch.models.parallel import ParallelCtx
@@ -290,7 +290,7 @@ def moe_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
     router = ctx.gather_w(p["router"], store_dim(meta["router"]))
     w_in = _local(ctx.gather_w(p["w_in"], store_dim(meta["w_in"])), ctx)
     w_out = _local(ctx.gather_w(p["w_out"], store_dim(meta["w_out"])), ctx)
-    with record_function("moe::route"):
+    with span("moe::route"):
         idx, gate = _route_hooked(tokens, ctx.at(router, tokens.dim()), k)
         ep_idx, _ = ctx.tp_group_rank(tp_ff)               # outer=ep
         e0 = ep_idx * n_local
@@ -305,11 +305,11 @@ def moe_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
         _routes["assigned"].append(((idx >= lo) & (idx < lo + n_local))
                                    .sum())
         _routes["kept"].append((slot >= 0).sum())
-    with record_function("moe::dispatch"):
+    with span("moe::dispatch"):
         buf = dispatch(tokens, table, inv)                 # (.., m, E, C, d)
-    with record_function("moe::experts"):
+    with span("moe::experts"):
         out_buf = expert_ffn(buf, w_in, w_out, cfg.act)
-    with record_function("moe::combine"):
+    with span("moe::combine"):
         y = combine(out_buf, gate, inv, perm, back).reshape(hg.shape)
     if serve:
         return x_sp + ctx.psum_tp(y)

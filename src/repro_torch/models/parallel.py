@@ -53,12 +53,12 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.comm import Communicator
 from repro_torch.comm.handle import AsyncCollectiveHandle, side_stream
 from repro_torch.comm.window import SharedWindow, WindowEpochError
 from repro_torch.core import tree as T
+from repro_torch.core.spans import span
 from repro_torch.substrate import collectives as coll
 from repro_torch.substrate.cluster import active_mesh
 
@@ -225,7 +225,7 @@ class ParallelCtx:
             nc = _clamp_chunks(self.overlap_chunks,
                                x.shape[dim + 1] // self.tp)
             if nc > 1:
-                with record_function("tp::matmul_rs"):
+                with span("tp::matmul_rs"):
                     return Communicator(fast_axis=self.tp_axis).matmul_rs(
                         x, w, axis=dim, n_chunks=nc)
         return self.rs_tokens(self.mm(x, w), dim)
@@ -353,14 +353,14 @@ class ParallelCtx:
 
     # ---- tp collectives over stacked ranks (identities without a tp axis) ---
     # ``dim`` is a local dim, after the stacked rank axis.  Each forward
-    # runs in a ``tp::<name>`` profiler range (its backward is the
+    # runs in a ``tp::<name>`` span (``core.spans``; its backward is the
     # substrate Function's node), which ``analysis.profile`` reads.
     def ag_tokens(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """Sequence-parallel all-gather: (B, T/tp, d) -> (B, T, d) per
         rank.  Gradient: the reduce-scatter."""
         if not self.tp_axis:
             return x
-        with record_function("tp::ag_tokens"):
+        with span("tp::ag_tokens"):
             # raw-collective: ag_tokens tp fast path (one flat tp group)
             return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True)
 
@@ -369,7 +369,7 @@ class ParallelCtx:
         (B, T/tp, d) per rank.  Gradient: the all-gather."""
         if not self.tp_axis:
             return x
-        with record_function("tp::rs_tokens"):
+        with span("tp::rs_tokens"):
             # raw-collective: rs_tokens tp fast path (one flat tp group)
             return coll.psum_scatter(x, self.tp_axis, scatter_dimension=dim)
 
@@ -379,14 +379,14 @@ class ParallelCtx:
         reduce-scatter."""
         if not self.tp_axis:
             return x
-        with record_function("tp::gather_tp"):
+        with span("tp::gather_tp"):
             # raw-collective: gather_tp tp fast path (one flat tp group)
             return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True)
 
     def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
         if not self.tp_axis:
             return x
-        with record_function("tp::psum_tp"):
+        with span("tp::psum_tp"):
             return coll.psum(x, self.tp_axis)  # raw-collective: tp fast path
 
     def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
@@ -395,7 +395,7 @@ class ParallelCtx:
         loss code)."""
         if not self.tp_axis:
             return x
-        with record_function("tp::pmax_tp"):
+        with span("tp::pmax_tp"):
             # raw-collective: pmax_tp tp fast path
             return coll.all_gather(x, self.tp_axis, axis=0,
                                    tiled=False).amax(dim=1)
@@ -405,7 +405,7 @@ class ParallelCtx:
         """All-gather within contiguous subgroups of ``group`` tp ranks."""
         if not self.tp_axis or group == 1:
             return x
-        with record_function("tp::group_all_gather"):
+        with span("tp::group_all_gather"):
             # raw-collective: grouped tp fast path
             return coll.all_gather(x, self.tp_axis, axis=dim, tiled=True,
                                    group=group)
@@ -414,7 +414,7 @@ class ParallelCtx:
         """psum within contiguous subgroups of ``group`` tp ranks."""
         if not self.tp_axis or group == 1:
             return x
-        with record_function("tp::group_psum"):
+        with span("tp::group_psum"):
             # raw-collective: grouped tp fast path
             return coll.psum(x, self.tp_axis, group=group)
 

@@ -43,8 +43,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch.core.spans import span
 from repro_torch.models.domains import scan
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.parallel import ParallelCtx
@@ -124,7 +124,7 @@ def mlstm_parallel(q, k, v, ig, fg, *, chunk: int = 128,
     lic = li.reshape(N, nc, S, h).permute(0, 1, 3, 2)       # (N, nc, h, S)
     Ftot = Fc[..., -1]                                      # (N, nc, h)
 
-    with record_function("xlstm::mlstm_intra"):
+    with span("xlstm::mlstm_intra"):
         # A[t, s] = exp(F[t] - F[s] + li[s]) (q_t . k_s), s <= t
         smat = (qh @ kh.transpose(-1, -2)) / scale          # (N,c,h,t,s)
         logw = Fc[..., :, None] - Fc[..., None, :] + lic[..., None, :]
@@ -139,7 +139,7 @@ def mlstm_parallel(q, k, v, ig, fg, *, chunk: int = 128,
         D = torch.exp(Ftot)                                 # (N,c,h)
         decay = torch.exp(Fc)                               # (N,c,h,t)
 
-    with record_function("xlstm::mlstm_prefix"):
+    with span("xlstm::mlstm_prefix"):
         # the state before chunk c (C, n_: None while it is zero) and chunk
         # c's read of it; per-chunk operands by ``unbind`` (one backward
         # node each, not a full-size zero-filled gradient per chunk)
@@ -263,7 +263,7 @@ def mlstm_block(x_sp, p, meta, ctx: ParallelCtx, cfg, *, chunk: int = 128,
     ig, fg = gates[..., 0], gates[..., 1]
 
     if decode:
-        with record_function("xlstm::mlstm_decode"):
+        with span("xlstm::mlstm_decode"):
             new_state, o = mlstm_decode_step(
                 {n: state[n] for n in ("C", "n", "m")},
                 q[..., 0, :, :], k[..., 0, :, :], v[..., 0, :, :],
@@ -382,7 +382,7 @@ def slstm_block(x_sp, p, meta, ctx: ParallelCtx, cfg, *,
 
     z = gxm.new_zeros(tuple(gxm.shape[:-3]) + (d,))
     carry = (z, z, z, torch.full_like(z, NEG))
-    with record_function("xlstm::slstm_loop"):
+    with span("xlstm::slstm_loop"):
         # unbind: one backward node, not T
         carries = scan(lambda c, x, w: slstm_cell(c, x, w, nh), carry,
                        gxm.unbind(-3), r_w)

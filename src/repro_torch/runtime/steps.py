@@ -87,6 +87,7 @@ from repro_torch.analysis.traffic import device_bytes
 from repro_torch.comm import Communicator
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as T
+from repro_torch.core.spans import span
 from repro_torch.models.domains import (Domains, domain_range, domain_run,
                                         domain_view, units_flags)
 from repro_torch.core.topology import MeshTopology
@@ -168,8 +169,10 @@ class TrainStepBundle:
     def layout_batch(self, batch: dict) -> dict:
         """A global batch -> stacked per rank under ``batch_spec``: every
         leaf it names (``tokens``; ``patches``; ``frames`` / ``labels``)."""
-        return self.vc.layout({k: torch.as_tensor(batch[k])
-                               for k in self.batch_spec}, self.batch_spec)
+        with span("train::layout_batch"):
+            return self.vc.layout({k: torch.as_tensor(batch[k])
+                                   for k in self.batch_spec},
+                                  self.batch_spec)
 
     def abstract_state(self) -> dict:
         """The global state's shapes and dtypes as ``meta``-device tensors
@@ -249,7 +252,8 @@ def _domain_grads(cfg, ctx: ParallelCtx, defs, params, batch: dict,
         rows = {k: lay.fold(v, d) for k, v in batch.items()}
         # every domain runs the same program: the traffic record keeps the
         # first one's collectives as each rank's
-        with torch.enable_grad(), domain_run(ctx, lay, d, device, s):
+        with span("train::forward_backward"), torch.enable_grad(), \
+                domain_run(ctx, lay, d, device, s):
             nll, count = _loss(cfg, run_ctx, defs, T.unflatten(params, dom),
                                rows, rows=True)
             got = torch.autograd.grad(nll.sum(), dom, allow_unused=True)
@@ -284,46 +288,48 @@ def _bridge_and_clip(ctx: ParallelCtx, world, node, grads, loss_sum, cnt,
     auto = stats_scheme == "auto"
     stat_kw = dict(result="replicated") if auto else dict(
         scheme=stats_scheme)
-    if ctx.stepgraph:
-        rec = world.record()
-        rec_kw = dict(scheme="auto", result="replicated",
-                      bucketable=False) if auto else dict(
-            scheme=stats_scheme)
-        rl = rec.allreduce(loss_sum, axes=world.axes, key="loss", **rec_kw)
-        rc = rec.allreduce(cnt, axes=world.axes, key="cnt", **rec_kw)
-        grads = ctx.reduce_grads(grads, meta_leaves, recorder=rec,
-                                 compress=compress, precision=precision)
-        res = rec.run()
-        if schedule_sink is not None:
-            schedule_sink.append(res.report())
-        loss_g, cnt_g = res[rl], res[rc]
-        grads = res.resolve(grads)
-    else:
-        loss_g = world.allreduce(loss_sum, **stat_kw)
-        cnt_g = world.allreduce(cnt, **stat_kw)
-        grads = ctx.reduce_grads(grads, meta_leaves, compress=compress,
-                                 precision=precision)
-    gl = T.leaves(grads)     # the step's own buffers: in place
-    del grads
-    for g in gl:
-        g.div_(per_rank(cnt_g, g))
-    # global grad norm: each leaf weighted by 1/replication over the node
-    # tier (tp ranks and store ranks), so every element counts once;
-    # node-local, since the pods hold identical gradients after the bridge
-    gsq = torch.zeros_like(loss_g)
-    for g, meta in zip(gl, meta_leaves):
-        repl = 1.0
-        if meta.tp_dim is None and ctx.tp_axis:
-            repl *= ctx.tp
-        if meta.fsdp_dim is None or ctx.mode != "hier":
-            repl *= data
-        gsq = gsq + torch.sum(torch.square(g.float()),
-                              dim=tuple(range(1, g.dim()))) / repl
-    gsq = node.allreduce(gsq, **stat_kw)
-    gnorm = torch.sqrt(gsq)
-    scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    for g in gl:
-        g.mul_(per_rank(scale, g))
+    with span("train::bridge"):
+        if ctx.stepgraph:
+            rec = world.record()
+            rec_kw = dict(scheme="auto", result="replicated",
+                          bucketable=False) if auto else dict(
+                scheme=stats_scheme)
+            rl = rec.allreduce(loss_sum, axes=world.axes, key="loss", **rec_kw)
+            rc = rec.allreduce(cnt, axes=world.axes, key="cnt", **rec_kw)
+            grads = ctx.reduce_grads(grads, meta_leaves, recorder=rec,
+                                     compress=compress, precision=precision)
+            res = rec.run()
+            if schedule_sink is not None:
+                schedule_sink.append(res.report())
+            loss_g, cnt_g = res[rl], res[rc]
+            grads = res.resolve(grads)
+        else:
+            loss_g = world.allreduce(loss_sum, **stat_kw)
+            cnt_g = world.allreduce(cnt, **stat_kw)
+            grads = ctx.reduce_grads(grads, meta_leaves, compress=compress,
+                                     precision=precision)
+    with span("train::optimizer"):
+        gl = T.leaves(grads)     # the step's own buffers: in place
+        del grads
+        for g in gl:
+            g.div_(per_rank(cnt_g, g))
+        # global grad norm: each leaf weighted by 1/replication over the node
+        # tier (tp ranks and store ranks), so every element counts once;
+        # node-local, since the pods hold identical gradients after the bridge
+        gsq = torch.zeros_like(loss_g)
+        for g, meta in zip(gl, meta_leaves):
+            repl = 1.0
+            if meta.tp_dim is None and ctx.tp_axis:
+                repl *= ctx.tp
+            if meta.fsdp_dim is None or ctx.mode != "hier":
+                repl *= data
+            gsq = gsq + torch.sum(torch.square(g.float()),
+                                  dim=tuple(range(1, g.dim()))) / repl
+        gsq = node.allreduce(gsq, **stat_kw)
+        gnorm = torch.sqrt(gsq)
+        scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+        for g in gl:
+            g.mul_(per_rank(scale, g))
     return gl, loss_g, cnt_g, gnorm
 
 
@@ -358,8 +364,9 @@ def _train_bundle(cfg, vc, ctx: ParallelCtx, data: int, bspec, *,
             step = state["step"] + 1
             metrics = {"loss": loss_g / cnt_g, "gnorm": gnorm,
                        "tokens": cnt_g}
-            adamw_update_(params, gl, state["m"], state["v"], step, lr=lr,
-                          weight_decay=weight_decay)
+            with span("train::optimizer"):
+                adamw_update_(params, gl, state["m"], state["v"], step,
+                              lr=lr, weight_decay=weight_decay)
             state["step"] = step
         return state, metrics
 
@@ -368,7 +375,7 @@ def _train_bundle(cfg, vc, ctx: ParallelCtx, data: int, bspec, *,
                       out_specs=out_specs)
 
     def step(state, batch):
-        with vc.bind():
+        with vc.bind(), span("train::step"):
             return body(state, batch)
 
     return TrainStepBundle(fn=smapped, step=step, state_specs=state_specs,

@@ -36,7 +36,8 @@ and two decode steps on the card against the CPU within 1e-4 relative, and
 xLSTM family (no hand-written kernel): ``xlstm-1.3b``'s full-width mLSTM
 and sLSTM blocks (forward, gradients, decode) and the reduced model's
 hier train step and cluster serving on 2x4 and ``2x(2x2)``, card against
-CPU.
+CPU.  The port's spans (``core.spans``) stay off the device timeline and
+time their work with CUDA event pairs.
 """
 
 import dataclasses
@@ -949,3 +950,39 @@ def test_xlstm_cluster_decode_on_the_card(cuda, label):
     assert all(torch.equal(a, b) for a, b in zip(card, rec))
     assert all(torch.equal(a, b) for a, b in zip(T.leaves(c_card),
                                                  T.leaves(c_rec)))
+
+
+def test_spans_time_on_the_card_and_stay_off_its_timeline(cuda):
+    """``core.spans`` on the card: a span is a host event only, where a
+    ``record_function`` range gets a device-timeline annotation too; while
+    a profiler records, its CUDA event pair times the work inside it, and
+    with none recording it records nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import spans
+    x = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    spans.reset()
+    with spans.span("test::off"):
+        x @ x
+    assert spans.totals() == {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("test::user"):
+            x @ x
+        with spans.span("test::span"):
+            for _ in range(4):
+                x @ x
+        torch.cuda.synchronize()
+    device = {e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA}
+    assert "test::user" in device and "test::span" not in device
+    (host,) = [e for e in prof.events() if e.name == "test::span"]
+    assert host.device_type == DeviceType.CPU
+    assert not host.is_user_annotation
+    got = spans.totals()["test::span"]
+    assert got["calls"] == 1 and got["ms"] > 0
+    # the event pair spans the four products' device time
+    assert got["ms"] * 1e3 >= 0.9 * host.device_time_total
+    spans.reset()
