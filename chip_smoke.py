@@ -16,7 +16,12 @@ Phases (any failed check raises, and the script exits nonzero):
    round's batched shape (16 ranks x 4096^3, f32), timed beside the plain
    version and ``torch.matmul``, with both products' errors against a
    float64 product on 2 of the 16 panels (the kernel's may be at most 2x
-   ``torch.matmul``'s); ``ops.q4_matmul`` — (4, 64, 16), the ragged
+   ``torch.matmul``'s); its NT and TN layouts (a product's gradients)
+   against the plain version at the qwen3-0.6b training step's shapes,
+   timed beside ``torch.matmul`` with both products' errors against a
+   float64 product, and ``ops.matmul``'s backward against
+   autograd's f32 product with one launch a layout; ``ops.q4_matmul`` —
+   (4, 64, 16), the ragged
    (5, 96, 20), bf16 ``a`` at (96, 256, 224), all group 32, and the lossy
    ``ag_matmul`` chunk's batched shape (8 ranks x 2048 x 7168 x 5120),
    timed beside the plain version with its share of the bound; every
@@ -130,8 +135,10 @@ orientation, ``torch.cumsum`` of the flipped cotangent.
 
 11. training (after phase 9): ``qwen3-0.6b`` at full width, f32, seeded
    random weights, on the 2x4 cluster, 8 x 2048 tokens a step — (a) hier
-   at full depth, 3 steps: step ms, tokens/s, the training state's bytes
-   and the flash forward / backward launches; (b) hier against naive at 2
+   at full depth, 3 steps: step ms, tokens/s, the training state's bytes,
+   the flash forward / backward launches and the panel matmul's, exactly
+   NN 576 / NT 288 / TN 288 a step (every product, forward and backward);
+   (b) hier against naive at 2
    layers, 2 steps: losses, gnorms, m, v and the params agree, and the
    state's C1 naive/hier per node equals ``chips``; (c) one hier step at 2
    layers, 8 x 128, card against CPU.
@@ -141,9 +148,9 @@ orientation, ``torch.cumsum`` of the flipped cotangent.
    2048, phase 11 (a)'s seed, lr, clip and batches, 3 steps: step ms,
    tokens/s, the state's bytes, losses and gnorms equal to phase 11 (a)'s
    (the same model split over 2 tp ranks) and the loss falling from step 1
-   to step 3, and the flash launches
+   to step 3, the flash launches
    equal to phase 11 (a)'s (336 / 168: the tp ranks fold into the
-   kernel's batch); (b) hier against naive at 2 layers, 2 steps, phase
+   kernel's batch), and every layout of the panel matmul launched; (b) hier against naive at 2 layers, 2 steps, phase
    11 (b)'s tolerances, and C1 naive/hier = 2.0 exactly for params, m, v
    and grads (the store size: the tp ranks hold different shards); (c)
    one hier step at 2 layers, 8 x 128, card against CPU; (d) one step of
@@ -1606,10 +1613,12 @@ def xlstm_phase(dev, cfg=None) -> dict:
     """Phase 16: the xLSTM family at ``xlstm-1.3b``'s full width (d 2048,
     4 heads of 1024, d_inner 4096, conv 4, vocab 50304; 6 units of 7 mLSTM
     + 1 sLSTM), f32, seeded weights.  The blocks reach no Pallas kernel in
-    the reference and launch no hand-written kernel here: returns the
-    kernel launches of its main-path runs (zeroed just before each, read
-    just after), which must all be 0.  ``cfg`` stands in for the full-width
-    config (a reduced one rehearses the phase on the CPU)."""
+    the reference; here their products that fill the card take the panel
+    matmul (``ParallelCtx.mm``) and nothing else is hand-written: returns
+    the kernel launches of its main-path runs (zeroed just before each,
+    read just after), which must be 0 for every kernel but ``matmul``.
+    ``cfg`` stands in for the full-width config (a reduced one rehearses
+    the phase on the CPU)."""
     import math
     import numpy as np
     import torch
@@ -1652,9 +1661,10 @@ def xlstm_phase(dev, cfg=None) -> dict:
         got = {n: k_.launches for n, k_ in kernels.items()}
         for n, v in got.items():
             launches[n] += v
-        if any(got.values()):
+        if any(v for n, v in got.items() if n != "matmul"):
             raise AssertionError(f"xlstm {what} launched {got}: the xLSTM "
-                                 f"path has no hand-written kernel")
+                                 f"path has no hand-written kernel but the "
+                                 f"panel matmul")
 
     lengths, S, steps = (SERVE_CLUSTER_LENGTHS, SERVE_CLUSTER_SMAX,
                          SERVE_CLUSTER_STEPS)
@@ -3188,6 +3198,44 @@ def main() -> int:
           f"{plain_ms:.3f} ms  torch.matmul {lib_ms:.3f} ms  "
           + bounds_text(mm_bounds))
     del a, b
+    # the layouts at the qwen3-0.6b training step's shapes (a 2x4 node's 4
+    # ranks of 2048 rows folded): w_in's forward (NN), dX (NT) and dW
+    # (TN), w_out's dW (TN: 192 tiles, 1.45 waves), the unembedding
+    # chunk's dX (NT) and dW (TN); torch.matmul on the same operands as
+    # they lie (its transposed views)
+    for layout, site, (M, N, K) in (
+            ("nn", "w_in", (8192, 6144, 1024)),
+            ("nt", "w_in dX", (8192, 1024, 6144)),
+            ("tn", "w_in dW", (1024, 6144, 8192)),
+            ("tn", "w_out dW", (3072, 1024, 8192)),
+            ("nt", "unembedding dX", (2048, 1024, 151936)),
+            ("tn", "unembedding dW", (1024, 151936, 2048))):
+        a = torch.randn((K, M) if layout == "tn" else (M, K), generator=g,
+                        device=dev)
+        b = torch.randn((N, K) if layout == "nt" else (K, N), generator=g,
+                        device=dev)
+        ta, tb = (a.mT if layout == "tn" else a), (b.mT if layout == "nt"
+                                                   else b)
+        got = kmatmul.matmul_cuda(a, b, layout)
+        lay_err = check_close(got, kmatmul.matmul_plain(a, b, layout),
+                              torch.float32, K, f"matmul {layout} {site}")
+        f64 = ta.double() @ tb.double()
+        top = f64.abs().max()
+        rel64 = [((c.double() - f64).abs().max() / top).item()
+                 for c in (got, torch.matmul(ta, tb))]
+        del got, f64
+        lay_ms = cuda_ms(lambda: kmatmul.matmul_cuda(a, b, layout), 3)
+        lay_lib = cuda_ms(lambda: torch.matmul(ta, tb), 3)
+        flops = 2.0 * M * N * K
+        print(f"[kernel] f32 {layout} {M}x{N}x{K} (qwen3-0.6b training, "
+              f"{site}): max|err| {lay_err:.3g}, against float64 kernel "
+              f"{rel64[0]:.3g} torch.matmul {rel64[1]:.3g} of the largest "
+              f"|C|  kernel {lay_ms:.3f} ms "
+              f"({flops / lay_ms / 1e9:.1f} TFLOP/s)  torch.matmul "
+              f"{lay_lib:.3f} ms ({flops / lay_lib / 1e9:.1f} TFLOP/s)  "
+              + bounds_text(f32_bounds(flops, 4.0 * (M * K + K * N
+                                                     + M * N))))
+        del a, b, ta, tb
 
     # q4_matmul against its plain version (group 32), then at the lossy
     # ag_matmul chunk's shape: 8 ranks x 2048 tokens x K 7168 x N 5120
@@ -3734,22 +3782,36 @@ def main() -> int:
           + recomputed(kbwd, "flash_attention_bwd overflow", 12))
     del q, k, v, do, o, lse, got, want
     kflash.recomputes.reset()
-    # no silent detach: the kernels without a backward refuse a
-    # grad-carrying call on the card
-    x_ = torch.ones((8, 8), device=dev, requires_grad=True)
-    for name, fn in (("matmul", lambda: ops.matmul(x_, x_)),
-                     ("q4_matmul", lambda: ops.q4_matmul(
-                         x_, *quantize_q4(torch.ones((8, 8), device=dev),
-                                          group=8), group=8))):
-        try:
-            fn()
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"ops.{name} returned a result without a "
+    # ops.matmul's gradients come from the panel kernel's NT and TN
+    # layouts, against autograd's f32 product; the q4 kernel has no
+    # backward and refuses a grad-carrying call (no silent detach)
+    x_ = torch.randn((2, 300, 200), generator=g, device=dev,
+                     requires_grad=True)
+    w_ = torch.randn((2, 200, 260), generator=g, device=dev,
+                     requires_grad=True)
+    gc_ = torch.randn((2, 300, 260), generator=g, device=dev)
+    before = dict(kmatmul.launches_by_layout)
+    got = torch.autograd.grad(ops.matmul(x_, w_), (x_, w_), gc_)
+    by_layout = {k_: kmatmul.launches_by_layout[k_] - before[k_]
+                 for k_ in kmatmul.LAYOUTS}
+    want = torch.autograd.grad(torch.matmul(x_, w_), (x_, w_), gc_)
+    rel = [((u - v).abs().max() / v.abs().max()).item()
+           for u, v in zip(got, want)]
+    if max(rel) > 1e-5 or by_layout != {"nn": 1, "nt": 1, "tn": 1}:
+        raise AssertionError(f"ops.matmul backward: rel err {rel}, "
+                             f"launches {by_layout}")
+    try:
+        ops.q4_matmul(x_[0], *quantize_q4(torch.ones((200, 8), device=dev),
+                                          group=8), group=8)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("ops.q4_matmul returned a result without a "
                              "gradient for an input that requires grad")
-    print("[kernel] ops.matmul and ops.q4_matmul refuse a grad-carrying "
-          "call on the card (no backward kernel)")
-    del x_
+    print(f"[kernel] ops.matmul backward against autograd's f32 product: "
+          f"rel err dA {rel[0]:.3g} dB {rel[1]:.3g}, launches {by_layout}; "
+          f"ops.q4_matmul refuses a grad-carrying call (no backward kernel)")
+    del x_, w_, gc_, got, want
 
     # lru_scan against its plain version: tests/test_kernels.py's shapes,
     # decays in U(0.5, 0.999) (the RG-LRU regime)
@@ -4335,18 +4397,33 @@ def main() -> int:
     bundle, state, nbytes = train_setup(tcfg, vc, "hier", params)
     del params
     batches = train_batches(tcfg, 2048, 3)
-    kflash.launches = kbwd.launches = 0
+    kflash.launches = kbwd.launches = kmatmul.launches = 0
+    kmatmul.launches_by_layout.update(dict.fromkeys(kmatmul.LAYOUTS, 0))
     state, rows = run_steps(bundle, state, batches,
                             "qwen3-0.6b full depth hier 2x4 8x2048")
     train_launches = {"flash_attention (forward)": kflash.launches,
-                      "flash_attention_bwd": kbwd.launches}
+                      "flash_attention_bwd": kbwd.launches,
+                      **{f"matmul {k_}": v_ for k_, v_ in
+                         kmatmul.launches_by_layout.items()}}
+    # every f32 product of the step on the panel kernel: per node run, 28
+    # layers x 5 products x (forward, remat forward, dX, dW), and 4 per
+    # cross-entropy chunk (512 tokens a rank, the 4 ranks folded: 4 chunks
+    # of 2048 rows), two node runs a step
+    want_mm = {f"matmul {k_}": v_ * len(rows)
+               for k_, v_ in (("nn", 576), ("nt", 288), ("tn", 288))}
+    got_mm = {k_: train_launches[k_] for k_ in want_mm}
+    if got_mm != want_mm or kmatmul.launches != sum(want_mm.values()):
+        raise AssertionError(f"panel matmul launches in the training run "
+                             f"{got_mm} (all {kmatmul.launches}), want "
+                             f"{want_mm}")
     nbytes["grads"] = bundle.stats["grad_bytes"]
     print(f"[train] training state on the card (2 node copies): "
           + ", ".join(f"{k_} {v_ / 1e9:.3f} GB" for k_, v_ in nbytes.items())
           + f", total {sum(nbytes.values()) / 1e9:.3f} GB; peak allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
-    print(f"[train] launches in the training run: "
-          + ", ".join(f"{k_} {v_}" for k_, v_ in train_launches.items()))
+    print(f"[train] launches in the training run ({len(rows)} steps): "
+          + ", ".join(f"{k_} {v_}" for k_, v_ in train_launches.items())
+          + " (matmul: NN 576, NT 288, TN 288 a step)")
     for k_, v_ in train_launches.items():
         if v_ <= 0:
             raise AssertionError(f"the training run never launched {k_}")
@@ -4475,6 +4552,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[phase] train {time.perf_counter() - t_phase:.1f} s")
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    launches["matmul"] += sum(want_mm.values())
 
     # -- 12. training with tensor parallelism: the factored cluster -----------
     t_phase = time.perf_counter()
@@ -4495,10 +4573,12 @@ def main() -> int:
         raise AssertionError("qwen3-0.6b at tp 2 is not head_tp")
     batches = train_batches(tcfg, 2048, 3)
     kflash.launches = kbwd.launches = 0
+    kmatmul.launches_by_layout.update(dict.fromkeys(kmatmul.LAYOUTS, 0))
     state, rows = run_steps(bundle, state, batches,
                             "qwen3-0.6b full depth hier 2x(2x2) 8x2048")
     tp_launches = {"flash_attention (forward)": kflash.launches,
                    "flash_attention_bwd": kbwd.launches}
+    tp_mm = dict(kmatmul.launches_by_layout)
     nbytes["grads"] = bundle.stats["grad_bytes"]
     print(f"[train] tp training state on the card (2 node copies, each tp "
           f"shard once per node): "
@@ -4509,8 +4589,12 @@ def main() -> int:
     print(f"[train] launches in the tp training run: "
           + ", ".join(f"{k_} {v_}" for k_, v_ in tp_launches.items())
           + " (one a layer a node run, the tp ranks folded into the batch; "
-          "the forward twice: the remat)")
-    if tp_launches != train_launches:
+          "the forward twice: the remat); panel matmul "
+          + ", ".join(f"{k_} {v_}" for k_, v_ in tp_mm.items()))
+    if not all(tp_mm.values()):
+        raise AssertionError(f"the tp training run left a layout of the "
+                             f"panel matmul unused: {tp_mm}")
+    if tp_launches != {k_: train_launches[k_] for k_ in tp_launches}:
         raise AssertionError(f"tp launches {tp_launches} != phase 11 (a)'s "
                              f"{train_launches}")
     # the same params and batches as phase 11 (a): the same model split
@@ -4899,10 +4983,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     xl_launches = xlstm_phase(dev)
     print(f"[xlstm] kernel launches in phase 16's runs: {xl_launches} (the "
-          f"reference's mLSTM / sLSTM reach no Pallas kernel; none is "
-          f"ported for them)")
-    for k_, v_ in xl_launches.items():
-        launches[k_] = launches.get(k_, 0) + v_
+          f"reference's mLSTM / sLSTM reach no Pallas kernel; the products "
+          f"take the panel matmul)")
+    for k_, v_ in xl_launches.items():     # its matmuls: the line above
+        if k_ != "matmul":
+            launches[k_] = launches.get(k_, 0) + v_
     print(f"[phase] xlstm {time.perf_counter() - t_phase:.1f} s")
 
     # -- 17. the frontends and the production-mesh entry points ------------

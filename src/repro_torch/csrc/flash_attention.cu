@@ -5,8 +5,10 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_pallas, the online-softmax attention of every attention
 // block's prefill (repro_torch/models/attention.py::flash_attention).  Same
-// function: scores scale * q.k in fp32 (q pre-scaled, as the reference
-// does), masked to -1e30 (the reference's NEG, so a fully masked block adds
+// function: scores scale * q.k in fp32 (f32: q pre-scaled, as the
+// reference does; bf16: the fp32 product of the unscaled q, scaled after,
+// since a scaled bf16 q rounded to TF32 would carry 2^-11 of every score),
+// masked to -1e30 (the reference's NEG, so a fully masked block adds
 // exp(-1e30 - m) = 0 once a row has seen a visible key) where kpos >= Tkv,
 // kpos > qpos (causal) or qpos - kpos >= window, with qpos = q_offset + row;
 // running fp32 row max m, row sum l and output accumulator o across kv
@@ -17,7 +19,7 @@
 // as its carry.  Here one CTA owns one (b, h, 64-row q tile) for its whole
 // life and walks the kv tiles in a loop; each warp owns 16 q rows (at hd
 // 256 a pair of warps does, each taking half of hd: 8 warps, half the
-// registers).  The q tile (pre-scaled) stays in shared memory; K and V
+// registers).  The q tile (pre-scaled for f32) stays in shared memory; K and V
 // tiles stream through a 2-stage cp.async ring, the copy of tile i + 1
 // overlapping the math of tile i, with one barrier per tile.  S = Q K^T
 // and O += P V run as 3xTF32 m16n8k8 tensor-core products (tf32x3.cuh),
@@ -269,14 +271,17 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
   if (lo < hi) load_kv(lo, 0);
   cp_async_commit();
   cp_async_wait<0>();
-  // pre-scale this thread's own q chunks (its copies have landed); the
-  // loop's first barrier publishes them
-  for (int i = tid; i < BQ * HD / 4; i += THREADS) {
-    float4* x = reinterpret_cast<float4*>(Qs + (i / (HD / 4)) * SQK
-                                          + (i % (HD / 4)) * 4);
-    float4 y = *x;
-    y.x *= p.scale; y.y *= p.scale; y.z *= p.scale; y.w *= p.scale;
-    *x = y;
+  // f32: pre-scale this thread's own q chunks (its copies have landed);
+  // the loop's first barrier publishes them.  bf16 keeps q as loaded
+  // (exact in TF32) and scales the fp32 scores instead
+  if constexpr (X3) {
+    for (int i = tid; i < BQ * HD / 4; i += THREADS) {
+      float4* x = reinterpret_cast<float4*>(Qs + (i / (HD / 4)) * SQK
+                                            + (i % (HD / 4)) * 4);
+      float4 y = *x;
+      y.x *= p.scale; y.y *= p.scale; y.z *= p.scale; y.w *= p.scale;
+      *x = y;
+    }
   }
 
   // this thread's rows: g and g + 8 of the warp's 16
@@ -297,8 +302,8 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
     const float* Vs = Ks + BKV * SQK;
     const int k0 = it * BKV;
 
-    // S = (scaled Q) K^T over the warp's hd columns: 16 rows x BKV keys,
-    // from zero each tile
+    // S = (scaled Q) K^T over the warp's hd columns (bf16: Q K^T, scaled
+    // below): 16 rows x BKV keys, from zero each tile
     float sc[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j)
@@ -311,17 +316,17 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
       const float2 lo2 = *reinterpret_cast<const float2*>(qp);
       const float2 hi2 = *reinterpret_cast<const float2*>(qp + 8 * SQK);
       uint32_t ab[4], as[4];
-      split<X3>(lo2.x, ab[0], as[0]);
-      split<X3>(hi2.x, ab[1], as[1]);
-      split<X3>(lo2.y, ab[2], as[2]);
-      split<X3>(hi2.y, ab[3], as[3]);
+      split_exact<X3>(lo2.x, ab[0], as[0]);
+      split_exact<X3>(hi2.x, ab[1], as[1]);
+      split_exact<X3>(lo2.y, ab[2], as[2]);
+      split_exact<X3>(hi2.y, ab[3], as[3]);
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         const float2 kv2 = *reinterpret_cast<const float2*>(
             Ks + (8 * j + g) * SQK + kk + 2 * t);
         uint32_t bb[2], bs[2];
-        split<X3>(kv2.x, bb[0], bs[0]);
-        split<X3>(kv2.y, bb[1], bs[1]);
+        split_exact<X3>(kv2.x, bb[0], bs[0]);
+        split_exact<X3>(kv2.y, bb[1], bs[1]);
         mma3<X3>(sc[j], ab, as, bb, bs);
       }
     }
@@ -340,6 +345,12 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
       for (int j = 0; j < NS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] += other[(4 * j + e) * 32];
+    }
+    if constexpr (!X3) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= p.scale;
     }
 
     // masks, only on tiles that cross Tkv, the causal limit or the window

@@ -11,7 +11,9 @@
 // is 2*4096^3 FLOP against 3*64 MiB of traffic, ~700 FLOP per byte, so
 // arithmetic bounds it.  f32 runs as 3xTF32 (tf32x3.cuh): three TF32
 // tensor-core products per fragment, big.big + big.small + small.big, with
-// fp32 accumulators, as accurate as the fp32 FMA loop.  Its least time is
+// fp32 accumulators, about as accurate as the fp32 FMA loop (its in-order
+// sum of K / 32 tile sums walks as sqrt(K): at K 151,936 2.2-2.4x
+// torch.matmul's f32 error, kernels/matmul.py).  Its least time is
 // 3 x FLOP at the card's 495 TFLOP/s TF32 rate (13.3 ms for a SUMMA round
 // of 16 panels), against FLOP at 67 TFLOP/s for the fp32 FMA loop on the
 // CUDA cores (32.8 ms).  bf16 operands are exact in TF32 and take the one
@@ -49,9 +51,24 @@
 // specialisation), a persistent tile schedule with the epilogue overlapped,
 // thread block clusters sharing tiles, and split-K.
 //
-// Operands are row-major and contiguous per batch entry; blockIdx.z walks an
-// optional leading batch, so one launch covers every rank's panel product of
-// a SUMMA round.  Plain C entry points (no PyTorch headers) keep the build to
+// Layouts.  C is row-major (M, N); the operands are given row-major as
+//   NN: A (M, K), B (K, N)   C = A B      (a forward product; SUMMA's panels)
+//   NT: A (M, K), B (N, K)   C = A B^T    (dX = dY W^T of a product X W)
+//   TN: A (K, M), B (K, N)   C = A^T B    (dW = X^T dY)
+// so a product's gradients read its operands where they lie: no transposed
+// copy of either is made.  Each transposition is folded into a step that
+// rewrites a tile already.  TN's raw A tile arrives k-rows of 128 m
+// (32 x 128) and the per-tile split writes it out K-major into the
+// swizzled big / small tiles, each lane taking one m row (its four column
+// reads and its swizzled store are free of bank conflicts).  NT's raw B
+// tile arrives n-rows of 32 k (128 x 36, the pad keeping the reads
+// conflict-free) and the B^T register fragments are read from it along its
+// rows.  NN is the layout described above; NT's ring stage holds 256 floats
+// more (201 KB in all).  The non-finite rule holds in every layout.
+//
+// Operands are contiguous per batch entry; blockIdx.z walks an optional
+// leading batch, so one launch covers every rank's panel product of a
+// SUMMA round.  Plain C entry points (no PyTorch headers) keep the build to
 // one nvcc call; each returns the launch's CUDA error code.
 
 #include "tf32x3.cuh"
@@ -60,6 +77,8 @@ namespace {
 
 using namespace tf32x3;
 
+enum Layout : int { NN = 0, NT = 1, TN = 2 };
+
 constexpr int BM = 128;      // C rows per block (the wgmma's N)
 constexpr int BN = 128;      // C columns: 2 warpgroups x 64 (the wgmma's M)
 constexpr int BK = 32;       // one 128-byte swizzle row of f32
@@ -67,21 +86,31 @@ constexpr int STAGES = 4;
 constexpr int THREADS = 256;
 constexpr int SB = BN + 8;                   // raw B row stride (floats):
                                              // fragment reads conflict-free
+constexpr int SBT = BK + 4;                  // NT's raw (n, k) B row stride
 constexpr int RAW_A = BM * BK;               // raw A tile, rows of 128 bytes
-constexpr int RAW_FLOATS = RAW_A + BK * SB;  // one ring stage (bf16
-                                             // fills half)
+                                             // (TN: 32 rows of 128 floats)
 constexpr int SPLIT_FLOATS = BM * BK;        // one swizzled 16 KB tile
-// [big 0][small 0][big 1][small 1] (1024-byte aligned) then the ring
-constexpr int SMEM_BYTES =
-    sizeof(float) * (4 * SPLIT_FLOATS + STAGES * RAW_FLOATS) + 1024;
 
-template <typename T>
+// one ring stage (bf16 fills half): the raw A tile, then the raw B tile
+template <int L>
+__host__ __device__ constexpr int raw_floats() {
+  return RAW_A + (L == NT ? BN * SBT : BK * SB);
+}
+// [big 0][small 0][big 1][small 1] (1024-byte aligned) then the ring
+template <int L>
+__host__ __device__ constexpr int smem_bytes() {
+  return sizeof(float) * (4 * SPLIT_FLOATS + STAGES * raw_floats<L>()) +
+         1024;
+}
+
+template <typename T, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     panel_matmul(const T* __restrict__ A, const T* __restrict__ B,
                  T* __restrict__ C, int M, int N, int K, long long sa,
                  long long sb, long long sc, int vec_a, int vec_b,
                  int* __restrict__ recomputes) {
   constexpr bool X3 = std::is_same<T, float>::value;
+  constexpr int RAW_FLOATS = raw_floats<L>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* split_buf = reinterpret_cast<float*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -98,14 +127,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int col0 = blockIdx.x * BN;
   const int n_k = (K + BK - 1) / BK;
 
-  // quarter i of tile kt into ring slot s: chunk tid + 256 i of A (128 rows
-  // x 8 chunks of 4) and of B (32 rows x 32 chunks), rows read coalesced
+  // quarter i of tile kt into ring slot s: chunk tid + 256 i of A and of B,
+  // rows read coalesced.  A: 128 rows x 8 chunks of 4 (TN: 32 k-rows x 32
+  // chunks); B: 32 rows x 32 chunks (NT: 128 n-rows x 8 chunks)
   auto load_part = [&](int kt, int s, int i) {
     T* As = reinterpret_cast<T*>(ring + s * RAW_FLOATS);
     T* Bs = As + RAW_A;
     const int k0 = kt * BK;
     const int q = tid + i * THREADS;
-    {
+    if constexpr (L == TN) {
+      const int r = q >> 5, mc = row0 + (q & 31) * 4;
+      const int gk = k0 + r;
+      T* dst = As + r * BM + (q & 31) * 4;
+      if (vec_a) {
+        const bool ok = gk < K && mc < M;
+        copy4(dst, ok ? A + (long long)gk * M + mc : A, ok);
+      } else {
+        load4_guarded(dst, A + (long long)gk * M, mc, gk < K ? M : 0);
+      }
+    } else {
       const int r = q >> 3, kc = k0 + (q & 7) * 4;
       const int gr = row0 + r;
       T* dst = As + r * BK + (q & 7) * 4;
@@ -116,7 +156,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         load4_guarded(dst, A + (long long)gr * K, kc, gr < M ? K : 0);
       }
     }
-    {
+    if constexpr (L == NT) {
+      const int r = q >> 3, kc = k0 + (q & 7) * 4;
+      const int gn = col0 + r;
+      T* dst = Bs + r * SBT + (q & 7) * 4;
+      if (vec_b) {
+        const bool ok = gn < N && kc < K;
+        copy4(dst, ok ? B + (long long)gn * K + kc : B, ok);
+      } else {
+        load4_guarded(dst, B + (long long)gn * K, kc, gn < N ? K : 0);
+      }
+    } else {
       const int r = q >> 5, nc = col0 + (q & 31) * 4;
       const int gk = k0 + r;
       T* dst = Bs + r * SB + (q & 31) * 4;
@@ -131,13 +181,25 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // quarter i of the raw A tile in slot s -> big / small tiles of split
   // buffer `buf`, 16-byte chunk c of row r at chunk c ^ (r % 8) (the
-  // 128-byte swizzle)
+  // 128-byte swizzle).  TN transposes here: row r's chunk c is column r of
+  // the raw tile's k-rows 4 c .. 4 c + 3
   auto split_part = [&](int s, int buf, int i) {
     const T* raw = reinterpret_cast<const T*>(ring + s * RAW_FLOATS);
     float* big = split_buf + buf * 2 * SPLIT_FLOATS;
     const int q = tid + i * THREADS;
-    const int r = q >> 3, c = q & 7;
-    const float4 x = read4(raw + r * BK + c * 4);
+    int r, c;
+    float4 x;
+    if constexpr (L == TN) {
+      r = q & (BM - 1);
+      c = q >> 7;
+      const T* p = raw + 4 * c * BM + r;
+      x = make_float4(widen(p[0]), widen(p[BM]), widen(p[2 * BM]),
+                      widen(p[3 * BM]));
+    } else {
+      r = q >> 3;
+      c = q & 7;
+      x = read4(raw + r * BK + c * 4);
+    }
     uint4 hb, hs;
     split_exact<X3>(x.x, hb.x, hs.x);
     split_exact<X3>(x.y, hb.y, hs.y);
@@ -170,17 +232,26 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   for (int kt = 0; kt < n_k; ++kt) {
     // B^T fragments of the tile's 4 k-steps (the m16n8k8 A layout:
-    // B[k0 + 8 s + t (+4)][nw + g (+8)])
+    // B[k0 + 8 s + t (+4)][nw + g (+8)]; NT reads B^T[n][k] along its rows)
     uint32_t fb[4][4], fs[4][4];
-    const T* Bs =
-        reinterpret_cast<const T*>(ring + (kt % STAGES) * RAW_FLOATS) + RAW_A;
+    const T* Bs = reinterpret_cast<const T*>(ring + (kt % STAGES) *
+                                                        RAW_FLOATS) +
+                  RAW_A;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const T* p = Bs + (8 * s + t) * SB + nw + g;
-      split_exact<X3>(widen(p[0]), fb[s][0], fs[s][0]);
-      split_exact<X3>(widen(p[8]), fb[s][1], fs[s][1]);
-      split_exact<X3>(widen(p[4 * SB]), fb[s][2], fs[s][2]);
-      split_exact<X3>(widen(p[4 * SB + 8]), fb[s][3], fs[s][3]);
+      if constexpr (L == NT) {
+        const T* p = Bs + (nw + g) * SBT + 8 * s + t;
+        split_exact<X3>(widen(p[0]), fb[s][0], fs[s][0]);
+        split_exact<X3>(widen(p[8 * SBT]), fb[s][1], fs[s][1]);
+        split_exact<X3>(widen(p[4]), fb[s][2], fs[s][2]);
+        split_exact<X3>(widen(p[8 * SBT + 4]), fb[s][3], fs[s][3]);
+      } else {
+        const T* p = Bs + (8 * s + t) * SB + nw + g;
+        split_exact<X3>(widen(p[0]), fb[s][0], fs[s][0]);
+        split_exact<X3>(widen(p[8]), fb[s][1], fs[s][1]);
+        split_exact<X3>(widen(p[4 * SB]), fb[s][2], fs[s][2]);
+        split_exact<X3>(widen(p[4 * SB + 8]), fb[s][3], fs[s][3]);
+      }
     }
     const uint32_t base = static_cast<uint32_t>(
         __cvta_generic_to_shared(split_buf + (kt & 1) * 2 * SPLIT_FLOATS));
@@ -233,12 +304,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     fma_tile(
         ring, K, t, nw + g, nw + g + 8,
         [=](int r, int k) {
-          return row0 + r < M && k < K
-                     ? widen(A[(long long)(row0 + r) * K + k]) : 0.f;
+          if (row0 + r >= M || k >= K) return 0.f;
+          return widen(L == TN ? A[(long long)k * M + row0 + r]
+                               : A[(long long)(row0 + r) * K + k]);
         },
         [=](int k, int c) {
-          return k < K && col0 + c < N
-                     ? widen(B[(long long)k * N + col0 + c]) : 0.f;
+          if (k >= K || col0 + c >= N) return 0.f;
+          return widen(L == NT ? B[(long long)(col0 + c) * K + k]
+                               : B[(long long)k * N + col0 + c]);
         },
         [=](int r, int c, float v) {
           if (row0 + r < M && col0 + c < N)
@@ -256,43 +329,67 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 }
 
-template <typename T>
+template <typename T, int L>
 int launch(const void* a, const void* b, void* c, int batch, int M, int N,
            int K, long long sa, long long sb, long long sc, void* recomputes,
            void* stream) {
+  constexpr int SMEM_BYTES = smem_bytes<L>();
   cudaError_t err = cudaFuncSetAttribute(
-      panel_matmul<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      panel_matmul<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   // a row's 4 elements are one 16-byte (f32) / 8-byte (bf16) cp.async when
-  // every row start is aligned to it
+  // every row start is aligned to it; A's rows run along K (TN: M), B's
+  // along N (NT: K)
   constexpr unsigned UNIT = 4 * sizeof(T);
-  const int vec_a = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % UNIT == 0;
-  const int vec_b = N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % UNIT == 0;
+  const int a_row = L == TN ? M : K, b_row = L == NT ? K : N;
+  const int vec_a =
+      a_row % 4 == 0 && reinterpret_cast<uintptr_t>(a) % UNIT == 0;
+  const int vec_b =
+      b_row % 4 == 0 && reinterpret_cast<uintptr_t>(b) % UNIT == 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  panel_matmul<T><<<grid, THREADS, SMEM_BYTES,
-                    static_cast<cudaStream_t>(stream)>>>(
+  panel_matmul<T, L><<<grid, THREADS, SMEM_BYTES,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
       M, N, K, sa, sb, sc, vec_a, vec_b, static_cast<int*>(recomputes));
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// recomputes: one device int, incremented once per tile recomputed under
-// the non-finite rule
-extern "C" int repro_matmul_f32(const void* a, const void* b, void* c,
-                                int batch, int M, int N, int K, long long sa,
-                                long long sb, long long sc, void* recomputes,
-                                void* stream) {
-  return launch<float>(a, b, c, batch, M, N, K, sa, sb, sc, recomputes,
-                       stream);
+template <typename T>
+int launch_layout(int layout, const void* a, const void* b, void* c,
+                  int batch, int M, int N, int K, long long sa, long long sb,
+                  long long sc, void* recomputes, void* stream) {
+  switch (layout) {
+    case NN:
+      return launch<T, NN>(a, b, c, batch, M, N, K, sa, sb, sc, recomputes,
+                           stream);
+    case NT:
+      return launch<T, NT>(a, b, c, batch, M, N, K, sa, sb, sc, recomputes,
+                           stream);
+    case TN:
+      return launch<T, TN>(a, b, c, batch, M, N, K, sa, sb, sc, recomputes,
+                           stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int repro_matmul_bf16(const void* a, const void* b, void* c,
-                                 int batch, int M, int N, int K, long long sa,
-                                 long long sb, long long sc, void* recomputes,
-                                 void* stream) {
-  return launch<__nv_bfloat16>(a, b, c, batch, M, N, K, sa, sb, sc,
-                               recomputes, stream);
+}  // namespace
+
+// C = op(A) op(B) in `layout` (0 NN, 1 NT, 2 TN; C is (M, N), the product
+// K deep); recomputes: one device int, incremented once per tile
+// recomputed under the non-finite rule
+extern "C" int repro_matmul_f32(int layout, const void* a, const void* b,
+                                void* c, int batch, int M, int N, int K,
+                                long long sa, long long sb, long long sc,
+                                void* recomputes, void* stream) {
+  return launch_layout<float>(layout, a, b, c, batch, M, N, K, sa, sb, sc,
+                              recomputes, stream);
+}
+
+extern "C" int repro_matmul_bf16(int layout, const void* a, const void* b,
+                                 void* c, int batch, int M, int N, int K,
+                                 long long sa, long long sb, long long sc,
+                                 void* recomputes, void* stream) {
+  return launch_layout<__nv_bfloat16>(layout, a, b, c, batch, M, N, K, sa,
+                                      sb, sc, recomputes, stream);
 }

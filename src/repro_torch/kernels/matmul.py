@@ -4,17 +4,30 @@ The kernel (``csrc/matmul.cu``) replaces the TPU kernel
 ``src/repro/kernels/matmul.py::matmul_pallas``, the SUMMA per-panel product.
 It is CUDA C++ for ``sm_90a`` with a plain C interface, built at first use by
 ``kernels._cuda`` and loaded with ``ctypes``: warpgroup tensor-core products
-(``wgmma``) in 3xTF32 for f32, as accurate as an fp32 FMA loop.  The
-source's header note says what bounds it and what the design gives up.
+(``wgmma``) in 3xTF32 for f32, about as accurate as an fp32 FMA loop.  It
+adds its K / 32 tile sums in order, an fp32 sum whose error walks as
+sqrt(K), where cuBLAS may split a deep K: on an H100, against a float64
+product, the training step's products at K <= 8192 are off by 4.3-9.3e-7
+of the largest |C| (``torch.matmul`` f32: 1.5-3.4e-6), the unembedding's
+dX at K 151,936 by 3.2-3.4e-6 (``torch.matmul``: 1.4e-6, so 2.2-2.4x;
+the tests hold it to 2x ``torch.matmul``'s error or 2e-6 grown as
+sqrt(K / 1024)).  The source's header note says what bounds it and what
+the design gives up.
+
+Three operand layouts (``LAYOUTS``), each operand row-major as given: ``nn``
+``a (M, K) @ b (K, N)``; ``nt`` ``a (M, K) @ b.T`` for ``b (N, K)``; ``tn``
+``a.T @ b`` for ``a (K, M)``, ``b (K, N)`` — a product's forward and its two
+gradients (``ops.Matmul``), each reading its operands where they lie.
 
 ``matmul_cuda`` is the wrapper: it checks device, dtype, shape and
 contiguity, raises on anything else, launches on the current stream and
-counts the launch in ``launches``.  ``recomputes`` counts, on the card, the
-output tiles that the non-finite rule recomputed with the fp32 FMA loop
+counts the launch in ``launches`` and, by layout, in
+``launches_by_layout``.  ``recomputes`` counts, on the card, the output
+tiles that the non-finite rule recomputed with the fp32 FMA loop
 (``csrc/tf32x3.cuh``): 0 wherever operands and product are finite.
 ``matmul_plain`` is the same function in plain PyTorch (fp32 product, cast
-to ``a.dtype`` — ``ref.matmul_ref``); it serves CPU tensors and is what the
-card's result is held against.
+to ``a.dtype`` — ``ref.matmul_ref``; float64 operands stay float64); it
+serves CPU tensors and is what the card's result is held against.
 """
 
 from __future__ import annotations
@@ -28,8 +41,12 @@ from repro_torch.kernels import _cuda
 
 SOURCE = _cuda.CSRC / "matmul.cu"
 
+#: The operand layouts, in the order of the kernel's layout codes.
+LAYOUTS = ("nn", "nt", "tn")
 #: Kernel launches made through ``matmul_cuda`` (reset it to 0 to count a run).
 launches = 0
+#: The same launches by layout.
+launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 #: Output tiles recomputed under the non-finite rule (``recomputes.read()``,
 #: ``recomputes.reset()``).
 recomputes = _cuda.DeviceCounter()
@@ -45,51 +62,70 @@ def library() -> _cuda.Library:
     lib = _cuda.library(SOURCE.name)
     for name in _ENTRY.values():
         fn = getattr(lib.cdll, name)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+def _check(a: torch.Tensor, b: torch.Tensor, layout: str,
+           dtypes=tuple(_ENTRY)) -> tuple[int, int, int, int]:
     """Shape/dtype contract shared by the kernel and its plain version:
-    (M, K) @ (K, N), or (B, M, K) @ (B, K, N), both f32 or both bf16."""
-    if a.dtype != b.dtype or a.dtype not in _ENTRY:
-        raise TypeError(f"matmul takes two float32 or two bfloat16 "
-                        f"operands, got {a.dtype} and {b.dtype}")
+    ``nn`` (M, K) @ (K, N), ``nt`` (M, K) @ (N, K)^T, ``tn`` (K, M)^T @
+    (K, N), or a leading batch on both; both f32 or both bf16 (the plain
+    version also float64).  Returns (batch, M, N, K)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"matmul layout must be one of {LAYOUTS}, got "
+                         f"{layout!r}")
+    if a.dtype != b.dtype or a.dtype not in dtypes:
+        raise TypeError(f"matmul takes two operands of one dtype of "
+                        f"{dtypes}, got {a.dtype} and {b.dtype}")
     if a.dim() not in (2, 3) or b.dim() != a.dim():
-        raise ValueError(f"matmul takes (M, K) @ (K, N) or (B, M, K) @ "
-                         f"(B, K, N), got {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    if a.shape[-1] != b.shape[-2] or a.shape[:-2] != b.shape[:-2]:
-        raise ValueError(f"matmul shapes do not match: {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
+        raise ValueError(f"matmul takes 2-d operands or 3-d ones with a "
+                         f"leading batch, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} ({layout})")
+    ra, ca = a.shape[-2:]
+    rb, cb = b.shape[-2:]
+    M, Ka = (ca, ra) if layout == "tn" else (ra, ca)
+    Kb, N = (cb, rb) if layout == "nt" else (rb, cb)
+    if Ka != Kb or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"matmul shapes do not match: {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} ({layout})")
+    return (a.shape[0] if a.dim() == 3 else 1), M, N, Ka
 
 
-def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: fp32 product, output in
+def _op(x: torch.Tensor, transposed: bool) -> torch.Tensor:
+    return x.transpose(-1, -2) if transposed else x
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                 layout: str = "nn") -> torch.Tensor:
+    """The kernel's function in plain PyTorch: fp32 product (float64 for
+    float64 operands) of the layout's ``op(a) @ op(b)``, output in
     ``a.dtype``.  (On the card, a caller disables TF32 to make this the
     IEEE fp32 product.)"""
-    _check(a, b)
-    return (a.float() @ b.float()).to(a.dtype)
+    _check(a, b, layout, dtypes=tuple(_ENTRY) + (torch.float64,))
+    wide = torch.promote_types(a.dtype, torch.float32)
+    return (_op(a, layout == "tn").to(wide)
+            @ _op(b, layout == "nt").to(wide)).to(a.dtype)
 
 
-def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel on ``a @ b`` (contiguous CUDA operands)."""
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor,
+                layout: str = "nn") -> torch.Tensor:
+    """Launch the Hopper kernel on the layout's ``op(a) @ op(b)``
+    (contiguous CUDA operands, each row-major as given)."""
     global launches
-    _check(a, b)
+    batch, M, N, K = _check(a, b, layout)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"matmul_cuda needs both operands on one CUDA "
                          f"device, got {a.device} and {b.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul_cuda needs contiguous operands")
-    batch = a.shape[0] if a.dim() == 3 else 1
-    M, K = a.shape[-2:]
-    N = b.shape[-1]
     if batch > 65535 or (M + 127) // 128 > 65535 or max(M, N, K) >= 2**31:
         raise ValueError(f"matmul_cuda grid limit exceeded by "
-                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    out = torch.empty(tuple(a.shape[:-1]) + (N,), dtype=a.dtype,
+                         f"{tuple(a.shape)} and {tuple(b.shape)} ({layout})")
+    out = torch.empty(tuple(a.shape[:-2]) + (M, N), dtype=a.dtype,
                       device=a.device)
     if out.numel() == 0:
         return out
@@ -98,11 +134,13 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     fn = getattr(library().cdll, _ENTRY[a.dtype])
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, N, K,
-                 M * K, K * N, M * N,
+        err = fn(LAYOUTS.index(layout), a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), batch, M, N, K, M * K, K * N, M * N,
                  recomputes.buffer(a.device).data_ptr(), stream)
     if err:
         raise RuntimeError(f"matmul kernel launch failed with CUDA error "
-                           f"{err} for {tuple(a.shape)} @ {tuple(b.shape)}")
+                           f"{err} for {tuple(a.shape)} and "
+                           f"{tuple(b.shape)} ({layout})")
     launches += 1
+    launches_by_layout[layout] += 1
     return out

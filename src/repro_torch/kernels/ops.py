@@ -1,7 +1,8 @@
 """Public wrappers: layout glue around the Hopper kernels.
 
 ``matmul`` takes any (M, K) @ (K, N) — or a leading batch on both operands
-— and returns (M, N) in ``a.dtype`` with fp32 accumulation.  ``q4_matmul``
+— and returns (M, N) in ``a.dtype`` with fp32 accumulation; a ``b`` that is
+the transpose of a contiguous (N, K) is read as it lies.  ``q4_matmul``
 takes ``a`` (M, K) with the packed-int4 weight (K/2, N) and its group
 scales (K/group, N) — or a leading batch on all three — and returns
 ``a @ dequantize_q4(...)`` the same way.  ``flash_attention`` takes q
@@ -18,11 +19,15 @@ enabled and an input that requires grad run through an autograd Function
 whose forward is the kernel and whose backward is the backward kernel:
 ``FlashAttention`` (the forward with its row log-sum-exp; backward
 ``kernels.flash_attention_bwd``) and ``LruScan`` (the forward's output
-kept; backward ``kernels.lru_scan_bwd``).  There is no fallback: a backward
-kernel that fails to build or launch raises.  ``matmul`` and ``q4_matmul``
-have no backward kernel: on CUDA they refuse such a call instead of
-returning a tensor without a gradient (the ROADMAP item named in the error).
-On the CPU the plain versions' own autograd serves.
+kept; backward ``kernels.lru_scan_bwd``).  ``matmul`` runs through
+``Matmul``: the forward keeps ``a`` and ``b``, the backward takes both
+gradients from the same kernel in its other layouts (NT and TN), each only
+where it is needed, so no transposed operand is copied.  There is no
+fallback: a backward kernel that fails to build or launch raises.
+``q4_matmul`` has no backward kernel: on CUDA it refuses such a call instead
+of returning a tensor without a gradient (the ROADMAP item named in the
+error).  On the CPU the plain versions' own autograd serves every op (the
+``Matmul`` Function, called directly, runs the layouts' plain versions).
 
 Meta tensors (a dry run: ``launch.dryrun``).  ``flash_attention`` and
 ``lru_scan``, the kernels a dry-run cell reaches, have a meta branch that
@@ -144,11 +149,58 @@ _MM_ITEM = ("ROADMAP, measured gaps: backward kernels for the panel and q4 "
             "matmuls")
 
 
+def _product(a: torch.Tensor, b: torch.Tensor, layout: str) -> torch.Tensor:
+    """The panel kernel in ``layout`` (its plain version on the CPU)."""
+    if _on_cpu(a, b):
+        return matmul_plain(a, b, layout)
+    return matmul_cuda(a.contiguous(), b.contiguous(), layout)
+
+
+def _transposed(b: torch.Tensor) -> Optional[torch.Tensor]:
+    """``b``'s transpose where ``b`` is the transpose of a contiguous
+    tensor (a tied unembedding, ``emb.T``), else None."""
+    if b.dim() < 2 or b.is_contiguous() or not b.mT.is_contiguous():
+        return None
+    return b.mT
+
+
+def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    bt = _transposed(b)
+    return _product(a, b, "nn") if bt is None else _product(a, bt, "nt")
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _on_cpu(a, b):
         return matmul_plain(a, b)
-    _no_backward("matmul", _MM_ITEM, a, b)
-    return matmul_cuda(a.contiguous(), b.contiguous())
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return Matmul.apply(a, b)
+    return _forward(a, b)
+
+
+class Matmul(torch.autograd.Function):
+    """The panel kernel with its gradients on the same kernel.  The forward
+    keeps ``a`` and ``b`` (what autograd's product keeps) and runs NN (NT
+    for a ``b`` given as ``bt.T``); the backward runs dA = dC B^T as NT
+    (NN) and dB = A^T dC as TN (dB^T = dC^T A as TN), each operand read
+    where it lies and each gradient only where it is needed."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _forward(a, b)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        bt = _transposed(b)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _product(dc, b, "nt") if bt is None else \
+                _product(dc, bt, "nn")
+        if ctx.needs_input_grad[1]:
+            db = _product(a, dc, "tn") if bt is None else \
+                _product(dc, a, "tn").mT
+        return da, db
 
 
 def q4_matmul(a: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,

@@ -205,7 +205,7 @@ def _ffn_body(x: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx, *,
     h = rms_norm(x, ctx.at(w_ln, x.dim()), eps)
     if gather:
         h = ctx.ag_tokens(h)                               # (B, T, d)
-    u = torch.einsum("...btd,...dgf->...btgf", h, w_in)
+    u = ctx.mm(h, w_in.flatten(-2)).unflatten(-1, w_in.shape[-2:])
     if act == "gelu":
         a = activation(act, u[..., 0, :], None)
     else:

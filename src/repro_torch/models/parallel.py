@@ -50,6 +50,7 @@ read over the store ranks only.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -59,6 +60,7 @@ from repro_torch.comm.handle import AsyncCollectiveHandle, side_stream
 from repro_torch.comm.window import SharedWindow, WindowEpochError
 from repro_torch.core import tree as T
 from repro_torch.core.spans import span
+from repro_torch.kernels import ops
 from repro_torch.substrate import collectives as coll
 from repro_torch.substrate.cluster import active_mesh
 
@@ -144,12 +146,12 @@ class ParallelCtx:
     def mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``x @ w`` per stacked rank: x (R, ..., K) by w (R, K, N) as one
         batched product over the ranks with each rank's rows folded (no
-        broadcast copy of w); plain ``x @ w`` without a tp axis."""
+        broadcast copy of w); ``x @ w`` without a tp axis.  Both through
+        ``dense``, which picks the panel kernel or ``torch.matmul``."""
         if not self.tp_axis:
-            return x @ w
+            return dense(x, w)
         rows = x.reshape(x.shape[0], -1, x.shape[-1])
-        return torch.bmm(rows, w).reshape(tuple(x.shape[:-1])
-                                          + (w.shape[-1],))
+        return dense(rows, w).reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
 
     def at(self, w: torch.Tensor, nd: int) -> torch.Tensor:
         """A stacked per-rank tensor (leading rank axis) broadcast against
@@ -220,7 +222,7 @@ class ParallelCtx:
         matmul then scatter.  ``dim`` is a local dim (after the rank
         axis)."""
         if not self.tp_axis:
-            return x @ w
+            return self.mm(x, w)
         if self.has("overlap"):
             nc = _clamp_chunks(self.overlap_chunks,
                                x.shape[dim + 1] // self.tp)
@@ -424,6 +426,38 @@ class ParallelCtx:
         return n // self.tp
 
 
+#: The panel kernel's output tile (``csrc/matmul.cu``): 128 x 128.
+KERNEL_TILE = 128
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: x (..., K) by w (K, N), or x (R, M, K) by w (R, K, N) one
+    product per rank.  The one rule for the panel kernel: a float32
+    product on the card with a full 128-row output tile (a rank's rows)
+    and at least one output tile for every SM runs on it, forward and
+    backward (``ops.matmul``, 3xTF32).  Everything else keeps
+    ``torch.matmul``: bf16 (cuBLAS's bf16 tensor cores run at twice TF32's
+    rate, which the kernel would take bf16 through), a decode's few rows
+    (most of each 128-row tile wasted), a grid that leaves SMs idle (a
+    short prefill at a narrow N), and CPU and meta tensors."""
+    batched = w.dim() == 3
+    rows = x.shape[-2] if batched else x.numel() // max(x.shape[-1], 1)
+    tiles = ((x.shape[0] if batched else 1) * -(-rows // KERNEL_TILE)
+             * -(-w.shape[-1] // KERNEL_TILE))
+    if not (x.is_cuda and x.dtype == w.dtype == torch.float32
+            and rows >= KERNEL_TILE and tiles >= _sms(x.device.index)):
+        return torch.bmm(x, w) if batched else x @ w
+    if batched:
+        return ops.matmul(x, w)
+    return ops.matmul(x.reshape(rows, x.shape[-1]), w).reshape(
+        tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
 def _node_ag_matmul(x: torch.Tensor, shards: torch.Tensor, n_chunks: int
                     ) -> torch.Tensor:
     """``x @ read_node(shards)`` streamed panel by panel: one node's members
@@ -440,7 +474,7 @@ def _node_ag_matmul(x: torch.Tensor, shards: torch.Tensor, n_chunks: int
         panel = SharedWindow(None, shards[:, j * piece:(j + 1) * piece],
                              axis=0).read_node()
         xj = xr[..., :, j, :].reshape(lead + (c * piece,))
-        acc = acc + (xj @ panel).float()
+        acc = acc + dense(xj, panel).float()
     return acc.to(x.dtype)
 
 

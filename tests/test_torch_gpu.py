@@ -26,8 +26,13 @@ is held to its plain version (f32 2e-4, bf16 5e-2; ragged C and T, B 1 and
 The flash backward kernel is held to the autograd of the plain version
 (f32 2e-4, bf16 2e-2 of the largest gradient), its forward with lse to the
 forward without it bit for bit, and the reduced ``qwen3-0.6b``'s hier
-train step on the card to the CPU; the matmul kernels, which have no
-backward, refuse a grad-carrying call.  The lru_scan backward kernel is
+train step on the card to the CPU.  The panel kernel's three layouts (NN,
+and the gradients' NT and TN) are held to the plain version and to a
+float64 product at the training step's shapes, ``ops.matmul``'s gradients
+to autograd's f32 product, and ``ParallelCtx.mm`` takes the kernel only
+for float32 products with a full 128-row tile and one 128 x 128 output
+tile a SM; ``q4_matmul``, which has no backward, refuses a grad-carrying
+call.  The lru_scan backward kernel is
 held to its plain version through ``ops.lru_scan``'s autograd, and the
 reduced ``recurrentgemma-9b``'s hier train step on the card to the CPU.  Serving on the stacked cluster (``serve_fsdp``, 2x4
 and ``2x(2x2)``, the reduced qwen3-0.6b and the hybrid at tp 2): prefill
@@ -83,19 +88,66 @@ def _tol(dtype, K):
                                    (64, 20, 4), (33, 4100, 20),
                                    (3, 70, 33, 21), (200, 17, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version(cuda, shape, dtype):
+@pytest.mark.parametrize("layout", kmatmul.LAYOUTS)
+def test_kernel_matches_plain_version(cuda, shape, dtype, layout):
+    """Every layout, each operand row-major as given: nn through
+    ``ops.matmul``, nt and tn through the wrapper."""
     *batch, M, K, N = shape
     g = torch.Generator(device=cuda).manual_seed(5)
-    a = torch.randn((*batch, M, K), generator=g, device=cuda).to(dtype)
-    b = torch.randn((*batch, K, N), generator=g, device=cuda).to(dtype)
-    before = kmatmul.launches
-    got = ops.matmul(a, b)
+    a, b = _layout_operands(g, cuda, layout, batch, M, N, K, dtype)
+    before = kmatmul.launches, kmatmul.launches_by_layout[layout]
+    got = ops.matmul(a, b) if layout == "nn" else \
+        kmatmul.matmul_cuda(a, b, layout)
     torch.cuda.synchronize()
-    assert kmatmul.launches == before + 1
+    assert (kmatmul.launches, kmatmul.launches_by_layout[layout]) == (
+        before[0] + 1, before[1] + 1)
     assert got.shape == (*batch, M, N) and got.dtype == dtype
     torch.testing.assert_close(got.float(),
-                               kmatmul.matmul_plain(a, b).float(),
+                               kmatmul.matmul_plain(a, b, layout).float(),
                                **_tol(dtype, K))
+
+
+def _layout_operands(g, device, layout, batch, M, N, K, dtype):
+    """Random operands of ``op(a) @ op(b)`` (M, K) @ (K, N) as the layout
+    gives them: a (K, M) for tn, b (N, K) for nt."""
+    sa = (K, M) if layout == "tn" else (M, K)
+    sb = (N, K) if layout == "nt" else (K, N)
+    return (torch.randn((*batch, *sa), generator=g, device=device).to(dtype),
+            torch.randn((*batch, *sb), generator=g, device=device).to(dtype))
+
+
+def _f64(a, b, layout):
+    return (a.double().transpose(-1, -2) if layout == "tn" else a.double()) \
+        @ (b.double().transpose(-1, -2) if layout == "nt" else b.double())
+
+
+@pytest.mark.parametrize("layout,shape", [
+    # the qwen3-0.6b step's products and gradients (4 ranks' rows folded:
+    # wq's forward and dX, w_out's dW; the unembedding chunk's dX and dW)
+    ("nn", (8192, 1024, 2048)), ("nt", (8192, 2048, 1024)),
+    ("tn", (3072, 8192, 1024)), ("nt", (2048, 151936, 1024)),
+    ("tn", (1024, 2048, 151936)),
+    # ragged and unaligned edges
+    ("nt", (129, 4100, 130)), ("tn", (129, 4100, 130)),
+    ("nt", (3, 70, 33, 21)), ("tn", (3, 70, 33, 21)),
+    ("nt", (33, 131, 21)), ("tn", (33, 131, 21))])
+def test_kernel_layouts_against_float64(cuda, layout, shape):
+    """(M, K, N): the kernel's largest error over the float64 product's
+    largest |C| is at most twice ``torch.matmul``'s f32 one, or 2e-6 at K
+    1024 grown as sqrt(K): the kernel adds its K / 32 tile sums in order,
+    an fp32 sum whose error walks as sqrt(K), where cuBLAS may split a
+    deep K (the unembedding's dX, K 151,936)."""
+    *batch, M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a, b = _layout_operands(g, cuda, layout, batch, M, N, K, torch.float32)
+    want = _f64(a, b, layout)
+    top = want.abs().max()
+    err = ((kmatmul.matmul_cuda(a, b, layout).double() - want).abs().max()
+           / top).item()
+    lib = torch.matmul(a.transpose(-1, -2) if layout == "tn" else a,
+                       b.transpose(-1, -2) if layout == "nt" else b)
+    lib_err = ((lib.double() - want).abs().max() / top).item()
+    assert err <= max(2 * lib_err, 2e-6 * (K / 1024) ** 0.5), (err, lib_err)
 
 
 F32_MAX = torch.finfo(torch.float32).max         # 3.4028235e38
@@ -114,24 +166,30 @@ def _same_classes(got, want, bound, tol):
 
 @pytest.mark.parametrize("value", NONFINITE, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_follows_ieee_on_nonfinite_operands(cuda, value, dtype):
+@pytest.mark.parametrize("layout", kmatmul.LAYOUTS)
+def test_kernel_follows_ieee_on_nonfinite_operands(cuda, value, dtype,
+                                                   layout):
     """One special entry in ``a`` (batch 0) and one in ``b`` (batch 1), and
-    a column of exact 1.0 in ``b``: the kernel equals ``matmul_plain`` by
-    class and, where finite, within 2e-4 (bf16 2e-2) of |a| @ |b|; the
-    tiles it touched were recomputed.  Finite operands recompute none."""
+    a column of exact 1.0 in op(``b``), in every layout: the kernel equals
+    ``matmul_plain`` by class and, where finite, within 2e-4 (bf16 2e-2) of
+    |a| @ |b|; the tiles it touched were recomputed.  Finite operands
+    recompute none."""
     g = torch.Generator(device=cuda).manual_seed(12)
-    a = torch.randn((2, 200, 96), generator=g, device=cuda)
-    b = torch.randn((2, 96, 300), generator=g, device=cuda)
-    b[..., 0] = 1.0
+    a, b = _layout_operands(g, cuda, layout, (2,), 200, 300, 96,
+                            torch.float32)
+    if layout == "nt":
+        b[..., 0, :] = 1.0
+    else:
+        b[..., 0] = 1.0
     kmatmul.recomputes.reset()
-    ops.matmul(a.to(dtype), b.to(dtype))
+    kmatmul.matmul_cuda(a.to(dtype), b.to(dtype), layout)
     assert kmatmul.recomputes.read() == 0
     a[0, 3, 5], b[1, 7, 2] = value, value
     a, b = a.to(dtype), b.to(dtype)
-    got = ops.matmul(a, b)
+    got = kmatmul.matmul_cuda(a, b, layout)
     assert kmatmul.recomputes.read() > 0
-    _same_classes(got, kmatmul.matmul_plain(a, b),
-                  a.double().abs() @ b.double().abs(),
+    _same_classes(got, kmatmul.matmul_plain(a, b, layout),
+                  _f64(a.abs(), b.abs(), layout),
                   2e-4 if dtype == torch.float32 else 2e-2)
 
 
@@ -627,13 +685,79 @@ def test_flash_autograd_route_and_refusals(cuda):
     for x, w in zip((q, k, v), want):
         assert ((x.grad - w).abs().max() / w.abs().max()).item() <= 2e-4
     x = torch.ones((8, 8), device=cuda, requires_grad=True)
-    for fn in (lambda: ops.matmul(x, x),
-               lambda: ops.q4_matmul(x, *quantize_q4(
-                   torch.ones((8, 8), device=cuda), group=8), group=8)):
-        with pytest.raises(NotImplementedError, match="no backward"):
-            fn()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.q4_matmul(x, *quantize_q4(torch.ones((8, 8), device=cuda),
+                                      group=8), group=8)
     with torch.no_grad():
-        ops.matmul(x, x)
+        ops.q4_matmul(x, *quantize_q4(torch.ones((8, 8), device=cuda),
+                                      group=8), group=8)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("needs", ["both", "a", "b"])
+def test_matmul_gradients_on_the_card_equal_autograd(cuda, transposed,
+                                                     needs):
+    """``ops.matmul`` with grad (a batched product, and a ``b`` given as the
+    transpose of a contiguous tensor, as a tied unembedding is): the
+    gradients equal autograd's f32 product within 1e-5 of the largest, one
+    NN launch forward and one NT / TN launch for each gradient asked for
+    (NN / TN for the transposed ``b``)."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    a = torch.randn((3, 300, 200), generator=g, device=cuda)
+    b = torch.randn((3, 260, 200) if transposed else (3, 200, 260),
+                    generator=g, device=cuda)
+    a.requires_grad_(needs in ("both", "a"))
+    b.requires_grad_(needs in ("both", "b"))
+    gc = torch.randn((3, 300, 260), generator=g, device=cuda)
+
+    def run(mm):
+        out = mm(a, b.mT if transposed else b)
+        return torch.autograd.grad(out, [x for x in (a, b)
+                                         if x.requires_grad], gc)
+
+    before = dict(kmatmul.launches_by_layout)
+    got = run(ops.matmul)
+    counts = {k: kmatmul.launches_by_layout[k] - before[k]
+              for k in kmatmul.LAYOUTS}
+    want = run(torch.matmul)
+    for x, w in zip(got, want):
+        assert x.shape == w.shape
+        assert ((x - w).abs().max() / w.abs().max()).item() <= 1e-5
+    grad_a, grad_b = needs in ("both", "a"), needs in ("both", "b")
+    if transposed:
+        assert counts == {"nn": int(grad_a), "nt": 1, "tn": int(grad_b)}
+    else:
+        assert counts == {"nn": 1, "nt": int(grad_a), "tn": int(grad_b)}
+
+
+def test_parallel_mm_takes_the_kernel_for_float32_tiles(cuda):
+    """``ParallelCtx.mm``'s rule: a float32 product with a full 128-row
+    output tile (the folded rows; a tp rank's in the batched product) and
+    at least one 128 x 128 output tile for every SM launches the panel
+    kernel; one tile short of that, bf16, and a decode's few rows take
+    ``torch.matmul``."""
+    from repro_torch.models.parallel import dense
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(22)
+    w = torch.randn((64, 128 * sms), generator=g, device=cuda)
+    wr = torch.randn((2, 64, 64 * sms), generator=g, device=cuda)
+    cases = [((2, 64, 64), w, torch.float32, 1),      # 128 folded rows
+             ((2, 63, 64), w, torch.float32, 0),      # 126 rows
+             ((2, 64, 64), w[:, :-128], torch.float32, 0),   # sms - 1 tiles
+             ((1, 128 * sms, 64), w[:, :128], torch.float32, 1),  # by rows
+             ((8, 1, 64), w, torch.float32, 0),       # decode
+             ((2, 256, 64), w, torch.bfloat16, 0),    # bf16
+             ((2, 128, 64), wr, torch.float32, 1),    # tp: 128 a rank
+             ((2, 100, 64), wr, torch.float32, 0)]
+    for shape, ww, dtype, launched in cases:
+        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        ww = ww.to(dtype)
+        before = kmatmul.launches_by_layout["nn"]
+        got = dense(x, ww)
+        assert kmatmul.launches_by_layout["nn"] - before == launched, \
+            (shape, tuple(ww.shape))
+        torch.testing.assert_close(got.float(), (x @ ww).float(),
+                                   **_tol(dtype, 64))
 
 
 @pytest.mark.parametrize("shape", [(2, 300, 70), (4, 2048, 256),
@@ -860,8 +984,9 @@ def test_xlstm_blocks_on_the_card_match_the_cpu(cuda):
     """``xlstm-1.3b``'s full-width blocks (d 2048, 4 heads of 1024, d_inner
     4096) on 2 x 250 tokens (the mLSTM's ragged last chunk): forward and
     the gradients of x and every weight, then 2 decode steps from the
-    prefill state, card against CPU within 1e-4 relative; no hand-written
-    kernel launches (the reference's blocks reach no Pallas kernel)."""
+    prefill state, card against CPU within 1e-4 relative; no flash or
+    lru_scan launch (the reference's blocks reach no Pallas kernel), the
+    prefill's and the gradients' products through the panel kernel."""
     from repro_torch.models import meta, xlstm
     cfg = get_config("xlstm-1.3b")
     ctx = ParallelCtx.single()
@@ -890,7 +1015,8 @@ def test_xlstm_blocks_on_the_card_match_the_cpu(cuda):
 
         before = (kflash.launches, klru.launches, kmatmul.launches)
         card = run(cuda)
-        assert (kflash.launches, klru.launches, kmatmul.launches) == before
+        assert (kflash.launches, klru.launches) == before[:2]
+        assert kmatmul.launches > before[2]
         for a, b in zip(card, run(torch.device("cpu"))):
             assert torch.isfinite(a).all(), kind
             assert (a - b).abs().max() <= 1e-4 * b.abs().max(), kind

@@ -151,6 +151,53 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert kmatmul.launches == before
 
 
+@pytest.mark.parametrize("batch", [(), (3,)])
+@pytest.mark.parametrize("layout", kmatmul.LAYOUTS)
+def test_matmul_plain_layouts_are_the_transposed_products(layout, batch):
+    """Each layout's plain version is ``op(a) @ op(b)`` with its operands
+    given row-major: nt's ``b`` as (N, K), tn's ``a`` as (K, M)."""
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.normal(size=batch + (5, 7)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=batch + (7, 4)).astype(np.float32))
+    given_a = a.mT.contiguous() if layout == "tn" else a
+    given_b = b.mT.contiguous() if layout == "nt" else b
+    got = kmatmul.matmul_plain(given_a, given_b, layout)
+    assert got.shape == batch + (5, 4)
+    torch.testing.assert_close(got, a @ b)
+    with pytest.raises(ValueError, match="do not match"):
+        kmatmul.matmul_plain(given_a.mT, given_b, layout)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_matmul_function_gives_autograds_gradients(transposed):
+    """``ops.Matmul``'s CPU path (the layouts' plain versions) passes
+    float64 ``gradcheck``, for a ``b`` given as the transpose of a
+    contiguous tensor (a tied unembedding) too."""
+    g = torch.Generator().manual_seed(7)
+    a = torch.randn((2, 5, 3), dtype=torch.float64, generator=g,
+                    requires_grad=True)
+    b = torch.randn((2, 4, 3) if transposed else (2, 3, 4),
+                    dtype=torch.float64, generator=g, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a, b: ops.Matmul.apply(a, b.mT if transposed else b), (a, b))
+
+
+def test_dense_keeps_torch_matmul_off_the_card():
+    """``models.parallel.dense`` (``ParallelCtx.mm``'s product) gives CPU
+    and meta tensors ``x @ w`` itself, batched or not, and launches
+    nothing."""
+    from repro_torch.models.parallel import dense
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 128, 8), generator=g)
+    w, wr = torch.randn((8, 6), generator=g), torch.randn((2, 8, 6),
+                                                          generator=g)
+    before = kmatmul.launches
+    assert torch.equal(dense(x, w), x @ w)
+    assert torch.equal(dense(x, wr), torch.bmm(x, wr))
+    assert dense(x.to("meta"), w.to("meta")).shape == (2, 128, 6)
+    assert kmatmul.launches == before
+
+
 # ---------------------------------------------------------------------------
 # ops.flash_attention (the prefill attention) vs the reference's Pallas
 # kernel in interpret mode — tests/test_kernels.py's cases
