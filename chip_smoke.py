@@ -289,6 +289,18 @@ orientation, ``torch.cumsum`` of the flipped cotangent.
    tokens/s from step 2, the peak memory, the state per node against
    naive's reckoned 4 copies (C1), and the lru_scan forward / backward
    and flash forward / backward launches a step.
+19. dropless MoE training (after phase 18): ``granite-moe-3b-a800m`` as
+   the benchmark's granite cell runs it (8 of 32 layers, the four
+   published multipliers, the tied embedding at 12, the softmax over the
+   published vocabulary, dropless top 8 of 40), ``make_cluster_train_step``
+   hier on 2x4, 8 x 2048 tokens, 3 steps: step 1's routing keeps every
+   assignment, finite losses, step ms and tokens/s from step 2, and the
+   grouped entry of ``csrc/matmul.cu`` launched 64 / 32 / 32 times a step
+   (NN / NT / TN); then that entry at the run's shapes (65,536 routed rows
+   in the segments of layer 0's routing, and with two segments emptied;
+   w_in K 1536 N 1024, w_out K 512 N 1536; NN, NT and TN) within 1e-5 of
+   its plain version's largest |C| (a TF32 product, shown, misses that),
+   against float64 too, timed beside the plain version with its bound.
 
 Phase 11 (a) also prints the dry run of its own step
 (``launch.dryrun.trace_cell`` on meta tensors: the same config, cluster,
@@ -309,11 +321,11 @@ Kernel launch counts are zeroed just before each main path (phases 3-7,
 phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
 12 (a), each of phase 13's runs, phase 14's prefills, phase 15's
 prefills and training runs, phase 16's runs, which launch none,
-phase 17's training runs and prefills, and phase 18's training run) and
-read just after; the JSON's flash and scan rows sum the main paths that
-launch them.  The recompute counters (the non-finite rule's, and the
-flash backward's) are zeroed before phase 3 and must read 0 after phase
-18.
+phase 17's training runs and prefills, phase 18's training run, and
+phase 19's steps 2-3 for the grouped entry) and read just after; the
+JSON's flash, scan and grouped rows sum the main paths that launch them.
+The recompute counters (the non-finite rule's, and the flash backward's)
+are zeroed before phase 3 and must read 0 after phase 19.
 The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2886,6 +2898,186 @@ def hybrid_train_phase(dev) -> dict:
     return launches
 
 
+# phase 19 trains the granite benchmark cell's configuration: 8 of the 32
+# layers as published (multipliers, tied embedding at 12, dropless top 8 of
+# 40), hier on 2x4, 8 x 2048 tokens
+DROPLESS_LAYERS, DROPLESS_STEPS = 8, 3
+#: the grouped entry's largest error against its plain version (cuBLAS f32,
+#: TF32 off), as a share of the plain product's largest |entry|: 3xTF32
+#: keeps near f32's ~1e-7; a TF32 product misses it (checked below)
+GROUPED_REL = 1e-5
+
+
+def dropless_moe_phase(dev) -> dict:
+    """Phase 19: ``granite-moe-3b-a800m`` as the benchmark's granite cell
+    runs it (``DROPLESS_LAYERS`` layers, the four published multipliers,
+    the tied embedding at 12, the softmax over the published vocabulary,
+    dropless top 8 of 40 on the grouped entry of ``csrc/matmul.cu``),
+    through ``make_cluster_train_step`` in hier on 2x4, 8 x 2048 tokens,
+    ``DROPLESS_STEPS`` steps: the first step's routing keeps every
+    assignment, and each later step launches the grouped entry 64 / 32 / 32
+    times (NN / NT / TN: 8 layers x 2 node runs x 2 products, the forward
+    and its recompute, then dX and dW).  Then the grouped entry at that
+    run's shapes against its plain version and float64: the segments of
+    the first layer's routing of one node run (4 x 2048 tokens x 8 = 65,536
+    rows), and the same with two experts' rows moved to their neighbours
+    (two empty segments); NN, NT and TN for w_in (K 1536, N 1024) and
+    w_out (K 512, N 1536), timed beside the plain version with the bound.
+    Returns the grouped entry's kernels record, its launches the run's."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoESpec
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.kernels import matmul as kmatmul
+    from repro_torch.models import moe
+    from repro_torch.runtime.steps import make_cluster_train_step
+    from repro_torch.substrate import VirtualCluster
+
+    base = get_config("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(
+        base, n_layers=DROPLESS_LAYERS, tie_embeddings=True,
+        embed_scale=12.0, residual_scale=0.22, attn_scale=1 / 64,
+        logit_scale=6.0, mask_vocab_pad=True,
+        moe=MoESpec(num_experts=40, top_k=8, d_ff_expert=512,
+                    capacity_factor=None))
+    E, k, d, dff = (cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model,
+                    cfg.moe.d_ff_expert)
+    vc = VirtualCluster(pods=2, chips=4, device=dev)
+    bundle = make_cluster_train_step(cfg, vc, mode="hier", global_batch=8)
+    state = bundle.init_layout_state(19)
+    stream = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=2048,
+                                    global_batch=8, seed=19))
+    batches = [bundle.layout_batch(stream.next_batch())
+               for _ in range(DROPLESS_STEPS)]
+    per_step = {"nn": 64, "nt": 32, "tn": 32}
+    ms, losses = [], []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            kmatmul.grouped_launches_by_layout.update(
+                dict.fromkeys(kmatmul.LAYOUTS, 0))
+        with (moe.routes() if i == 0 else contextlib.nullcontext()) as rec:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, mt = bundle.step(state, batch)
+            loss = float(mt["loss"][0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            assigned, kept = moe.drops(rec)
+            idx = rec["idx"][0]
+            if kept != assigned or assigned != len(rec["idx"]) * idx.numel():
+                raise AssertionError(f"dropless step kept {kept} of "
+                                     f"{assigned} assignments")
+        if not math.isfinite(loss):
+            raise AssertionError(f"dropless granite step {i + 1}: loss {loss}")
+        losses.append(loss)
+    n_later = DROPLESS_STEPS - 1
+    got = dict(kmatmul.grouped_launches_by_layout)
+    want = {k_: v_ * n_later for k_, v_ in per_step.items()}
+    step_ms = sum(ms[1:]) / n_later
+    print(f"[train] {cfg.name} as published, {cfg.n_layers} layers hier 2x4 "
+          f"8x2048, dropless: steps 2-{DROPLESS_STEPS} {step_ms:.1f} ms a "
+          f"step, {8 * 2048 / step_ms * 1e3:.1f} tokens/s; losses {losses}; "
+          f"step 1 kept {kept} of {assigned} assignments; grouped launches "
+          f"in steps 2-{DROPLESS_STEPS} {got} (want {want}); peak allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+    if got != want:
+        raise AssertionError(f"grouped launches {got}, want {want}")
+    launches = sum(got.values())
+    del bundle, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    order, counts, offsets = moe.segment_tables(idx, E)
+    del order
+    R = int(offsets[-1])
+    moved = counts.clone()
+    for e in (0, E // 2):
+        moved[e + 1] += moved[e]
+        moved[e] = 0
+    variants = {"routed": offsets, "two empty": torch.cat(
+        [moved.new_zeros(1), moved.cumsum(0)]).to(torch.int32)}
+    g = torch.Generator(device=dev).manual_seed(19)
+    print(f"[kernel] grouped_matmul segments of layer 0's routing (one node "
+          f"run, {R} rows = 4 x 2048 x {k}): {E} experts, rows a segment "
+          f"{int(counts.min())}..{int(counts.max())} (mean {R / E:.0f})")
+    record = None
+    for label, off in variants.items():
+        for layout, site, (K, N) in (("nn", "w_in", (d, 2 * dff)),
+                                     ("nn", "w_out", (dff, d)),
+                                     ("nt", "w_in dX", (2 * dff, d)),
+                                     ("nt", "w_out dX", (d, dff)),
+                                     ("tn", "w_in dW", (d, 2 * dff)),
+                                     ("tn", "w_out dW", (dff, d))):
+            a = torch.randn((R, K), generator=g, device=dev)
+            b = torch.randn((R, N) if layout == "tn" else
+                            (E, N, K) if layout == "nt" else (E, K, N),
+                            generator=g, device=dev)
+            out = kmatmul.grouped_matmul_cuda(a, b, off, layout)
+            plain = kmatmul.grouped_matmul_plain(a, b, off, layout)
+            f64 = kmatmul.grouped_matmul_plain(a.double(), b.double(), off,
+                                               layout)
+            top = f64.abs().max()
+            rel = ((out - plain).abs().max() / plain.abs().max()).item()
+            rel64 = [((c.double() - f64).abs().max() / top).item()
+                     for c in (out, plain)]
+            abs_err = (out - plain).abs().max().item()
+            if layout == "tn":
+                empty = (off[1:] == off[:-1]).nonzero().flatten().tolist()
+                if any(out[e].any() for e in empty):
+                    raise AssertionError(f"grouped tn {site} {label}: an "
+                                         f"empty segment's dW is not 0")
+            del plain, f64
+            if not rel <= GROUPED_REL or not torch.isfinite(out).all():
+                raise AssertionError(
+                    f"grouped {layout} {site} {label}: max|err| {rel:.3g} "
+                    f"of the plain product's largest |C| > {GROUPED_REL}")
+            k_ms = cuda_ms(lambda: kmatmul.grouped_matmul_cuda(
+                a, b, off, layout), 3)
+            p_ms = cuda_ms(lambda: kmatmul.grouped_matmul_plain(
+                a, b, off, layout), 1)
+            flops = 2.0 * R * K * N
+            outs = E * K * N if layout == "tn" else R * N
+            ins = R * K + (R * N if layout == "tn" else E * K * N)
+            bnd = f32_bounds(flops, 4.0 * (ins + outs))
+            print(f"[kernel] grouped_matmul f32 {layout} {site}, {label} "
+                  f"segments: R {R} K {K} N {N}: against the plain version "
+                  f"{rel:.3g}, against float64 kernel {rel64[0]:.3g} plain "
+                  f"{rel64[1]:.3g} of the largest |C|  kernel {k_ms:.3f} ms "
+                  f"({flops / k_ms / 1e9:.1f} TFLOP/s)  plain {p_ms:.3f} ms "
+                  f"({flops / p_ms / 1e9:.1f} TFLOP/s)  " + bounds_text(bnd))
+            if record is None:
+                record = {"max_abs_err": abs_err, "ms": k_ms,
+                          "plain_ms": p_ms, **least(bnd)}
+            del a, b, out
+    # the rule is one a TF32 product misses: cuBLAS on TF32 operands at
+    # the largest segment of w_in's forward
+    e = int(counts.argmax())
+    a = torch.randn((int(counts[e]), d), generator=g, device=dev)
+    b = torch.randn((d, 2 * dff), generator=g, device=dev)
+    f32 = torch.matmul(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rel_tf32 = ((tf32 - f32).abs().max() / f32.abs().max()).item()
+    print(f"[kernel] grouped_matmul rule: a TF32 product of the largest "
+          f"segment ({a.shape[0]} x {d} x {2 * dff}) is off by {rel_tf32:.3g} "
+          f"of the largest |C|, over the rule's {GROUPED_REL}")
+    if not rel_tf32 > GROUPED_REL:
+        raise AssertionError(f"a TF32 product meets the grouped rule "
+                             f"({rel_tf32:.3g})")
+    del a, b, f32, tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "grouped_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/matmul.cu",
+            "replaces": "src/repro/models/moe.py:72", "launches": launches,
+            **record, "library_ms": None}
+
+
 def collectives_bench(dev, g, *, sweep_elems, elems: int, big: int,
                       mm: int, tree: dict, table_path: str) -> None:
     """Phase 10: (a) the quick bench sweep, validated, folded into a table
@@ -5012,13 +5204,19 @@ def main() -> int:
         launches[k_] = launches.get(k_, 0) + v_
     print(f"[phase] hybrid train {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 19. dropless MoE training: the grouped entry on the main path -----
+    t_phase = time.perf_counter()
+    grouped = dropless_moe_phase(dev)
+    launches["grouped_matmul"] = grouped["launches"]
+    print(f"[phase] dropless moe {time.perf_counter() - t_phase:.1f} s")
+
     for name, n in list(launches.items()) + list(flash_launches.items()):
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     recomputes = {name: m_.recomputes.read() for name, m_ in (
         ("matmul", kmatmul), ("q4_matmul", kquant),
         ("flash_attention", kflash), ("flash_attention_bwd", kbwd))}
-    print(f"[nonfinite] tiles recomputed over phases 3-18: {recomputes}")
+    print(f"[nonfinite] tiles recomputed over phases 3-19: {recomputes}")
     if any(recomputes.values()):
         raise AssertionError("the non-finite rule recomputed tiles of "
                              "finite main-path products")
@@ -5060,7 +5258,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/lru_scan.py:38",
         "launches": launches["lru_scan_bwd"], "max_abs_err": lrub_top["err"],
         "ms": lrub_top["ms"], "plain_ms": lrub_top["plain_ms"],
-        **least(lrub_top), "library_ms": None}]}))
+        **least(lrub_top), "library_ms": None}, grouped]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,7 +37,7 @@ time of the tp collectives: the ``tp::*`` spans of their forwards
 once.  An MoE
 model adds the device time of its block's parts (``MOE_RANGES``: routing
 and tables, dispatch, the expert products, combine, and the gathers'
-backward nodes); an xLSTM model that of its blocks' parts
+and the grouped expert products' backward nodes); an xLSTM model that of its blocks' parts
 (``XLSTM_RANGES``: ``xlstm::mlstm_intra``, ``xlstm::mlstm_prefix``,
 ``xlstm::mlstm_decode``, ``xlstm::slstm_loop``).  Prints each run's wall
 time, the device busy time (the union of every kernel and copy interval on
@@ -93,7 +93,8 @@ TP_RANGES = ("tp::", "_AllGatherFnBackward", "_PsumScatterFnBackward",
              "_PsumFnBackward")
 #: The MoE block's parts (``models.moe``): its ``moe::*`` ranges and the
 #: dispatch / combine gathers' backward nodes.
-MOE_RANGES = ("moe::", "_DispatchBackward", "_RowGatherBackward")
+MOE_RANGES = ("moe::", "_DispatchBackward", "_RowGatherBackward",
+              "GroupedMatmulBackward")
 #: The xLSTM blocks' parts (``models.xlstm``): the mLSTM's intra-chunk
 #: products and chunk summaries, its cross-chunk prefix loop, its decode
 #: step, and the sLSTM's time loop (forwards; a remat's recompute runs

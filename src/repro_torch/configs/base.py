@@ -22,7 +22,9 @@ class MoESpec:
     num_experts: int
     top_k: int
     d_ff_expert: int
-    capacity_factor: float = 1.25
+    # tokens an expert takes per member, over the even share (drops beyond
+    # it); None: dropless, every token reaches all top_k of its experts
+    capacity_factor: Optional[float] = 1.25
 
     def ep_tp(self, tp: int) -> tuple[int, int]:
         """Factor the model axis into (expert-parallel, ffn-tensor-parallel)
@@ -58,6 +60,20 @@ class ModelConfig:
     n_prefix: int = 0              # frontend tokens prepended (vlm)
     tie_embeddings: bool = False
     logit_softcap: Optional[float] = None
+    # the input embedding's multiplier (None: sqrt(d_model) when tied,
+    # Gemma's rule, else 1), the multiplier of the attention and channel-
+    # mixing (ffn / moe) residual branches, the attention softmax scale
+    # (None: 1 / sqrt(head_dim)) and the divisor of the logits; Granite
+    # sets all four
+    embed_scale: Optional[float] = None
+    residual_scale: float = 1.0
+    attn_scale: Optional[float] = None
+    logit_scale: float = 1.0
+    # the softmax over the published vocabulary alone: the padded rows'
+    # logits (``vocab`` to ``vocab_padded``) -inf in the loss and at
+    # decode, as a model trained at its own vocabulary has them; off, they
+    # take part, as in the reference package's loss
+    mask_vocab_pad: bool = False
     # xLSTM specifics
     proj_factor: float = 2.0       # mLSTM inner-dim multiplier
     conv_kernel: int = 4
@@ -65,8 +81,23 @@ class ModelConfig:
 
     # ---- derived ------------------------------------------------------------
     @property
+    def input_scale(self) -> float:
+        """The multiplier of the input embedding."""
+        if self.embed_scale is not None:
+            return self.embed_scale
+        return self.d_model ** 0.5 if self.tie_embeddings else 1.0
+
+    @property
     def vocab_padded(self) -> int:
         return pad_to(self.vocab, 128)
+
+    @property
+    def softmax_vocab(self) -> Optional[int]:
+        """The rows the logits' softmax runs over where fewer than the
+        padded vocabulary (``mask_vocab_pad``), else None."""
+        if self.mask_vocab_pad and self.vocab < self.vocab_padded:
+            return self.vocab
+        return None
 
     @property
     def block_kinds(self) -> tuple[str, ...]:

@@ -1,4 +1,4 @@
-"""Granite-3.0 MoE 3B-A800M [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]."""
+"""Granite-3.0 MoE 3B-A800M [hf:ibm-granite/granite-3.0-3b-a800m-base; hf]."""
 from repro_torch.configs.base import ModelConfig, MoESpec, register
 
 CONFIG = register(ModelConfig(

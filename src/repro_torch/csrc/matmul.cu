@@ -68,7 +68,18 @@
 //
 // Operands are contiguous per batch entry; blockIdx.z walks an optional
 // leading batch, so one launch covers every rank's panel product of a
-// SUMMA round.  Plain C entry points (no PyTorch headers) keep the build to
+// SUMMA round.
+//
+// The grouped entry (grouped_matmul) runs the same tile loop over the
+// experts of a dropless MoE block: the routed rows sorted by expert into
+// segments whose offsets stay on the device, each segment times its own
+// expert's matrix (NN forward, NT dX), or each expert's dW from its own
+// segment's rows (TN, the rows its depth).  A block finds its segment from
+// the offsets, so no host read and no padding to a capacity is needed.  It
+// gives up a schedule that balances uneven segments: a segment's last row
+// tile may be mostly empty, and a long segment in TN is one deep loop.
+//
+// Plain C entry points (no PyTorch headers) keep the build to
 // one nvcc call; each returns the launch's CUDA error code.
 
 #include "tf32x3.cuh"
@@ -103,12 +114,13 @@ __host__ __device__ constexpr int smem_bytes() {
          1024;
 }
 
+// The tile loop every entry runs: the 128 x 128 tile of C = op(A) op(B)
+// (C row-major (M, N), the product K deep) whose corner is (row0, col0)
 template <typename T, int L>
-__global__ void __launch_bounds__(THREADS, 1)
-    panel_matmul(const T* __restrict__ A, const T* __restrict__ B,
-                 T* __restrict__ C, int M, int N, int K, long long sa,
-                 long long sb, long long sc, int vec_a, int vec_b,
-                 int* __restrict__ recomputes) {
+__device__ __forceinline__ void tile_product(
+    const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
+    int M, int N, int K, int row0, int col0, int vec_a, int vec_b,
+    int* __restrict__ recomputes) {
   constexpr bool X3 = std::is_same<T, float>::value;
   constexpr int RAW_FLOATS = raw_floats<L>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -120,11 +132,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int nw = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's columns
-  A += blockIdx.z * sa;
-  B += blockIdx.z * sb;
-  C += blockIdx.z * sc;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
   const int n_k = (K + BK - 1) / BK;
 
   // quarter i of tile kt into ring slot s: chunk tid + 256 i of A and of B,
@@ -330,6 +337,89 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 template <typename T, int L>
+__global__ void __launch_bounds__(THREADS, 1)
+    panel_matmul(const T* __restrict__ A, const T* __restrict__ B,
+                 T* __restrict__ C, int M, int N, int K, long long sa,
+                 long long sb, long long sc, int vec_a, int vec_b,
+                 int* __restrict__ recomputes) {
+  tile_product<T, L>(A + blockIdx.z * sa, B + blockIdx.z * sb,
+                     C + blockIdx.z * sc, M, N, K, blockIdx.y * BM,
+                     blockIdx.x * BN, vec_a, vec_b, recomputes);
+}
+
+// The grouped entry: G products over the segments of a row-sorted operand,
+// segment g its rows [off[g], off[g + 1]) (off: G + 1 ints on the device,
+// from 0 up to the rows in all, R; a segment may be empty)
+//   NN: A (R, K), B (G, K, N), C (R, N)     C_g = A_g B[g]
+//   NT: A (R, K), B (G, N, K), C (R, N)     C_g = A_g B[g]^T
+//   TN: A (R, M), B (R, N), C (G, M, N)     C[g] = A_g^T B_g (K_g: its rows)
+// NN / NT: blockIdx.y walks the segments' row tiles in order; the grid has
+// ceil(R / BM) + G of them, the most that G segments of R rows can need,
+// and a block past the last exits.  TN: blockIdx.z is the segment, whose
+// rows are the product's depth; an empty one writes zeros.
+template <typename T, int L>
+__global__ void __launch_bounds__(THREADS, 1)
+    grouped_matmul(const T* __restrict__ A, const T* __restrict__ B,
+                   T* __restrict__ C, const int* __restrict__ off, int G,
+                   int M, int N, int K, int vec_a, int vec_b,
+                   int* __restrict__ recomputes) {
+  if constexpr (L == TN) {
+    const int g = blockIdx.z;
+    const int lo = off[g];
+    tile_product<T, L>(A + (long long)lo * M, B + (long long)lo * N,
+                       C + (long long)g * M * N, M, N, off[g + 1] - lo,
+                       blockIdx.y * BM, blockIdx.x * BN, vec_a, vec_b,
+                       recomputes);
+  } else {
+    int tile = blockIdx.y, g = 0, lo = 0, rows = 0;
+    for (; g < G; ++g) {
+      lo = off[g];
+      rows = off[g + 1] - lo;
+      const int tiles = (rows + BM - 1) / BM;
+      if (tile < tiles) break;
+      tile -= tiles;
+    }
+    if (g == G) return;
+    tile_product<T, L>(A + (long long)lo * K, B + (long long)g * K * N,
+                       C + (long long)lo * N, rows, N, K, tile * BM,
+                       blockIdx.x * BN, vec_a, vec_b, recomputes);
+  }
+}
+
+// a row's 4 elements are one 16-byte (f32) / 8-byte (bf16) cp.async when
+// every row start is aligned to it; A's rows run along K (TN: M), B's along
+// N (NT: K).  A grouped operand's segments start on such rows
+template <typename T, int L>
+void row_vectors(const void* a, const void* b, int M, int N, int K,
+                 int* vec_a, int* vec_b) {
+  constexpr unsigned UNIT = 4 * sizeof(T);
+  const int a_row = L == TN ? M : K, b_row = L == NT ? K : N;
+  *vec_a = a_row % 4 == 0 && reinterpret_cast<uintptr_t>(a) % UNIT == 0;
+  *vec_b = b_row % 4 == 0 && reinterpret_cast<uintptr_t>(b) % UNIT == 0;
+}
+
+template <typename T, int L>
+int launch_grouped(const void* a, const void* b, void* c, const void* off,
+                   int G, int M, int N, int K, void* recomputes,
+                   void* stream) {
+  constexpr int SMEM_BYTES = smem_bytes<L>();
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_matmul<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int vec_a, vec_b;
+  row_vectors<T, L>(a, b, M, N, K, &vec_a, &vec_b);
+  const dim3 grid = L == TN ? dim3((N + BN - 1) / BN, (M + BM - 1) / BM, G)
+                            : dim3((N + BN - 1) / BN, (M + BM - 1) / BM + G);
+  grouped_matmul<T, L><<<grid, THREADS, SMEM_BYTES,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
+      static_cast<const int*>(off), G, M, N, K, vec_a, vec_b,
+      static_cast<int*>(recomputes));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int L>
 int launch(const void* a, const void* b, void* c, int batch, int M, int N,
            int K, long long sa, long long sb, long long sc, void* recomputes,
            void* stream) {
@@ -338,15 +428,8 @@ int launch(const void* a, const void* b, void* c, int batch, int M, int N,
       panel_matmul<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // a row's 4 elements are one 16-byte (f32) / 8-byte (bf16) cp.async when
-  // every row start is aligned to it; A's rows run along K (TN: M), B's
-  // along N (NT: K)
-  constexpr unsigned UNIT = 4 * sizeof(T);
-  const int a_row = L == TN ? M : K, b_row = L == NT ? K : N;
-  const int vec_a =
-      a_row % 4 == 0 && reinterpret_cast<uintptr_t>(a) % UNIT == 0;
-  const int vec_b =
-      b_row % 4 == 0 && reinterpret_cast<uintptr_t>(b) % UNIT == 0;
+  int vec_a, vec_b;
+  row_vectors<T, L>(a, b, M, N, K, &vec_a, &vec_b);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
   panel_matmul<T, L><<<grid, THREADS, SMEM_BYTES,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -373,6 +456,24 @@ int launch_layout(int layout, const void* a, const void* b, void* c,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T>
+int grouped_layout(int layout, const void* a, const void* b, void* c,
+                   const void* off, int G, int M, int N, int K,
+                   void* recomputes, void* stream) {
+  switch (layout) {
+    case NN:
+      return launch_grouped<T, NN>(a, b, c, off, G, M, N, K, recomputes,
+                                   stream);
+    case NT:
+      return launch_grouped<T, NT>(a, b, c, off, G, M, N, K, recomputes,
+                                   stream);
+    case TN:
+      return launch_grouped<T, TN>(a, b, c, off, G, M, N, K, recomputes,
+                                   stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // C = op(A) op(B) in `layout` (0 NN, 1 NT, 2 TN; C is (M, N), the product
@@ -392,4 +493,25 @@ extern "C" int repro_matmul_bf16(int layout, const void* a, const void* b,
                                  void* recomputes, void* stream) {
   return launch_layout<__nv_bfloat16>(layout, a, b, c, batch, M, N, K, sa,
                                       sb, sc, recomputes, stream);
+}
+
+// The grouped entry (grouped_matmul above) in `layout`; NN / NT: M is the
+// rows of A and C in all; TN: K is the rows of A and B in all.  off: G + 1
+// device ints
+extern "C" int repro_grouped_matmul_f32(int layout, const void* a,
+                                        const void* b, void* c,
+                                        const void* off, int G, int M, int N,
+                                        int K, void* recomputes,
+                                        void* stream) {
+  return grouped_layout<float>(layout, a, b, c, off, G, M, N, K, recomputes,
+                               stream);
+}
+
+extern "C" int repro_grouped_matmul_bf16(int layout, const void* a,
+                                         const void* b, void* c,
+                                         const void* off, int G, int M,
+                                         int N, int K, void* recomputes,
+                                         void* stream) {
+  return grouped_layout<__nv_bfloat16>(layout, a, b, c, off, G, M, N, K,
+                                       recomputes, stream);
 }

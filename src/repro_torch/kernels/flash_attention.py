@@ -14,7 +14,9 @@ Layouts: ``layout="bhtd"`` takes q (B, H, Tq, hd) and k, v (B, KV, Tkv, hd)
 — the TPU kernel's layout — and returns (B, H, Tq, hd); ``layout="bthd"``
 takes the model's (B, Tq, H, hd) / (B, Tkv, KV, hd) and returns
 (B, Tq, H, hd).  The kernel reads either through element strides (no
-transpose copy); hd is one of ``HEAD_DIMS``; f32 or bf16.
+transpose copy); hd is one of ``HEAD_DIMS``; f32 or bf16.  The scores'
+scale is ``scale``, 1 / sqrt(hd) where it is not given (Granite's
+``attention_multiplier`` is 1/64 at hd 64).
 
 ``flash_attention_cuda`` checks device, dtype, shape and strides, raises on
 anything else, launches on the current stream and counts the launch in
@@ -102,10 +104,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def softmax_scale(hd: int, scale: Optional[float]) -> float:
+    """The scores' scale: ``scale``, or 1 / sqrt(hd)."""
+    return 1.0 / math.sqrt(hd) if scale is None else float(scale)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None, q_offset: int = 0,
-                          layout: str = "bhtd") -> torch.Tensor:
+                          layout: str = "bhtd",
+                          scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: exact fp32 softmax over the
     whole key axis with the kernel's mask (-1e30 where kpos >= Tkv, beyond
     the causal limit or outside the window), GQA through a head reshape,
@@ -114,7 +122,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q4, k4, v4 = (_bhtd(x, layout) for x in (q, k, v))
     B, H, Tq, hd = q4.shape
     KV, Tkv = k4.shape[1], k4.shape[2]
-    qf = q4.float().reshape(B, KV, H // KV, Tq, hd) * (1.0 / math.sqrt(hd))
+    qf = q4.float().reshape(B, KV, H // KV, Tq, hd) * softmax_scale(hd, scale)
     s = torch.einsum("bkgqd,bktd->bkgqt", qf, k4.float())
     qpos = q_offset + torch.arange(Tq, device=q.device)
     kpos = torch.arange(Tkv, device=q.device)
@@ -141,7 +149,8 @@ def kernel_ready(x: torch.Tensor) -> bool:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None, q_offset: int = 0,
-                         layout: str = "bhtd", return_lse: bool = False):
+                         layout: str = "bhtd", return_lse: bool = False,
+                         scale: Optional[float] = None):
     """Launch the Hopper kernel (CUDA operands on one device that
     ``kernel_ready`` accepts); ``return_lse`` gives ``(out, lse)``."""
     global launches
@@ -178,7 +187,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flag = torch.empty(1, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-                 dims, 1.0 / math.sqrt(hd), flag.data_ptr(),
+                 dims, softmax_scale(hd, scale), flag.data_ptr(),
                  recomputes.buffer(q.device).data_ptr(),
                  lse.data_ptr() if return_lse else None, stream)
     if err:

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional
 
 import torch
@@ -45,7 +44,7 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, _bhtd, _check,
                                                  flash_attention_plain,
-                                                 kernel_ready)
+                                                 kernel_ready, softmax_scale)
 
 SOURCE = _cuda.CSRC / "flash_attention_bwd.cu"
 
@@ -98,13 +97,15 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, do: torch.Tensor, *,
                               causal: bool = True,
                               window: Optional[int] = None,
-                              q_offset: int = 0, layout: str = "bhtd"
+                              q_offset: int = 0, layout: str = "bhtd",
+                              scale: Optional[float] = None
                               ) -> tuple[torch.Tensor, ...]:
     """(dq, dk, dv): the autograd of ``flash_attention_plain`` at ``do``."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         out = flash_attention_plain(*leaves, causal=causal, window=window,
-                                    q_offset=q_offset, layout=layout)
+                                    q_offset=q_offset, layout=layout,
+                                    scale=scale)
         return torch.autograd.grad(out, leaves, do)
 
 
@@ -113,7 +114,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True,
                              window: Optional[int] = None, q_offset: int = 0,
-                             layout: str = "bhtd"
+                             layout: str = "bhtd",
+                             scale: Optional[float] = None
                              ) -> tuple[torch.Tensor, ...]:
     """Launch the backward kernel: (dq, dk, dv) in the operands' shapes and
     dtype (CUDA operands on one device that ``kernel_ready`` accepts)."""
@@ -170,7 +172,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         err = getattr(lib, _ENTRY[q.dtype])(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
             do4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), dk4.data_ptr(),
-            dv4.data_ptr(), dims, 1.0 / math.sqrt(hd), D.data_ptr(),
+            dv4.data_ptr(), dims, softmax_scale(hd, scale), D.data_ptr(),
             stats.data_ptr(), flag.data_ptr(), part.data_ptr(),
             recomputes.buffer(q.device).data_ptr(), stream)
     if err:

@@ -28,6 +28,16 @@ tiles that the non-finite rule recomputed with the fp32 FMA loop
 ``matmul_plain`` is the same function in plain PyTorch (fp32 product, cast
 to ``a.dtype`` — ``ref.matmul_ref``; float64 operands stay float64); it
 serves CPU tensors and is what the card's result is held against.
+
+The grouped entry (``grouped_matmul_cuda``) runs the same tile loop over
+segments of rows sorted by group, the offsets (``G + 1`` int32) on the
+device: ``nn`` ``a (R, K)`` with ``b (G, K, N)`` -> ``(R, N)``, segment g's
+rows times ``b[g]``; ``nt`` the same with ``b (G, N, K)`` read as ``b[g].T``;
+``tn`` ``a (R, M)``, ``b (R, N)`` -> ``(G, M, N)``, ``a_g.T @ b_g`` over
+segment g's rows (zeros for an empty one).  The dropless MoE block's
+expert products and their gradients.  It counts its launches in
+``grouped_launches_by_layout``; ``grouped_matmul_plain`` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -51,8 +61,13 @@ launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 #: ``recomputes.reset()``).
 recomputes = _cuda.DeviceCounter()
 
+#: Grouped-entry launches by layout (``grouped_matmul_cuda``).
+grouped_launches_by_layout = dict.fromkeys(LAYOUTS, 0)
+
 _ENTRY = {torch.float32: "repro_matmul_f32",
           torch.bfloat16: "repro_matmul_bf16"}
+_GROUPED_ENTRY = {torch.float32: "repro_grouped_matmul_f32",
+                  torch.bfloat16: "repro_grouped_matmul_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,6 +82,17 @@ def library() -> _cuda.Library:
                        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_entry(dtype: torch.dtype):
+    """The grouped entry point for ``dtype`` in ``library()``, bound at its
+    first launch."""
+    fn = getattr(library().cdll, _GROUPED_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, layout: str,
@@ -143,4 +169,91 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                            f"{tuple(b.shape)} ({layout})")
     launches += 1
     launches_by_layout[layout] += 1
+    return out
+
+
+def _check_grouped(a: torch.Tensor, b: torch.Tensor, offsets: torch.Tensor,
+                   layout: str, dtypes=tuple(_ENTRY)
+                   ) -> tuple[int, int, int, int]:
+    """Shape/dtype contract of the grouped entry and its plain version:
+    ``nn`` a (R, K), b (G, K, N); ``nt`` a (R, K), b (G, N, K); ``tn`` a
+    (R, M), b (R, N); offsets (G + 1,) int32 on a's device.  Returns (G, M,
+    N, K), R being M (``nn`` / ``nt``) or K (``tn``).  The offsets' values
+    (rising from 0 to R) are the caller's to keep: the kernel reads them on
+    the device, the plain version checks them."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"grouped matmul layout must be one of {LAYOUTS}, "
+                         f"got {layout!r}")
+    if a.dtype != b.dtype or a.dtype not in dtypes:
+        raise TypeError(f"grouped matmul takes two operands of one dtype of "
+                        f"{dtypes}, got {a.dtype} and {b.dtype}")
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 \
+            or offsets.numel() < 2 or offsets.device != a.device:
+        raise ValueError(f"grouped matmul takes (G + 1,) int32 offsets on "
+                         f"{a.device}, got {tuple(offsets.shape)} "
+                         f"{offsets.dtype} on {offsets.device}")
+    G = offsets.numel() - 1
+    if layout == "tn":
+        ok = a.dim() == 2 and b.dim() == 2 and a.shape[0] == b.shape[0]
+    else:
+        ok = a.dim() == 2 and b.dim() == 3 and b.shape[0] == G and \
+            a.shape[1] == b.shape[2 if layout == "nt" else 1]
+    if not ok:
+        raise ValueError(f"grouped matmul shapes do not match: "
+                         f"{tuple(a.shape)} and {tuple(b.shape)} with {G} "
+                         f"groups ({layout})")
+    if layout == "tn":
+        return G, a.shape[1], b.shape[1], a.shape[0]
+    return G, a.shape[0], b.shape[1 if layout == "nt" else 2], a.shape[1]
+
+
+def grouped_matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                         offsets: torch.Tensor, layout: str = "nn"
+                         ) -> torch.Tensor:
+    """The grouped entry's function in plain PyTorch, segment by segment
+    (``matmul_plain``'s precision; the offsets read on the host)."""
+    G = _check_grouped(a, b, offsets, layout,
+                       dtypes=tuple(_ENTRY) + (torch.float64,))[0]
+    off = offsets.tolist()
+    if off[0] != 0 or off[-1] != a.shape[0] or any(
+            x > y for x, y in zip(off, off[1:])):
+        raise ValueError(f"grouped matmul offsets must rise from 0 to "
+                         f"{a.shape[0]}, got {off}")
+    seg = [slice(off[g], off[g + 1]) for g in range(G)]
+    if layout == "tn":
+        return torch.stack([matmul_plain(a[s], b[s], "tn") for s in seg])
+    return torch.cat([matmul_plain(a[s], b[g], layout)
+                      for g, s in enumerate(seg)])
+
+
+def grouped_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
+                        offsets: torch.Tensor, layout: str = "nn"
+                        ) -> torch.Tensor:
+    """Launch the grouped entry in ``layout`` (contiguous CUDA operands, the
+    offsets on the same device)."""
+    G, M, N, K = _check_grouped(a, b, offsets, layout)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"grouped_matmul_cuda needs both operands on one "
+                         f"CUDA device, got {a.device} and {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()
+            and offsets.is_contiguous()):
+        raise ValueError("grouped_matmul_cuda needs contiguous operands")
+    if (M + 127) // 128 + G > 65535 or max(M, N, K) >= 2**31:
+        raise ValueError(f"grouped_matmul_cuda grid limit exceeded by "
+                         f"{tuple(a.shape)} and {tuple(b.shape)} ({layout})")
+    shape = (G, M, N) if layout == "tn" else (M, N)
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    fn = _grouped_entry(a.dtype)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = fn(LAYOUTS.index(layout), a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), offsets.data_ptr(), G, M, N, K,
+                 recomputes.buffer(a.device).data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"grouped matmul kernel launch failed with CUDA "
+                           f"error {err} for {tuple(a.shape)} and "
+                           f"{tuple(b.shape)} ({layout})")
+    grouped_launches_by_layout[layout] += 1
     return out

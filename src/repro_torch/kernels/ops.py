@@ -22,8 +22,10 @@ whose forward is the kernel and whose backward is the backward kernel:
 kept; backward ``kernels.lru_scan_bwd``).  ``matmul`` runs through
 ``Matmul``: the forward keeps ``a`` and ``b``, the backward takes both
 gradients from the same kernel in its other layouts (NT and TN), each only
-where it is needed, so no transposed operand is copied.  There is no
-fallback: a backward kernel that fails to build or launch raises.
+where it is needed, so no transposed operand is copied; ``grouped_matmul``
+(the dropless MoE block's experts: rows sorted into segments, segment g
+times ``w[g]``) runs through ``GroupedMatmul`` the same way, on the
+kernel's grouped entry.  There is no fallback: a backward kernel that fails to build or launch raises.
 ``q4_matmul`` has no backward kernel: on CUDA it refuses such a call instead
 of returning a tensor without a gradient (the ROADMAP item named in the
 error).  On the CPU the plain versions' own autograd serves every op (the
@@ -56,7 +58,9 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.lru_scan import lru_scan_cuda, lru_scan_plain
 from repro_torch.kernels.lru_scan_bwd import lru_scan_bwd_cuda
-from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
+from repro_torch.kernels.matmul import (grouped_matmul_cuda,
+                                        grouped_matmul_plain, matmul_cuda,
+                                        matmul_plain)
 from repro_torch.kernels.quant import q4_matmul_cuda, q4_matmul_plain
 
 
@@ -203,6 +207,50 @@ class Matmul(torch.autograd.Function):
         return da, db
 
 
+def _grouped(a: torch.Tensor, b: torch.Tensor, offsets: torch.Tensor,
+             layout: str) -> torch.Tensor:
+    """The grouped entry in ``layout`` (its plain version on the CPU)."""
+    if _on_cpu(a, b):
+        return grouped_matmul_plain(a, b, offsets, layout)
+    return grouped_matmul_cuda(a.contiguous(), b.contiguous(), offsets,
+                               layout)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """Rows sorted into segments times each segment's matrix: x (R, K), w
+    (G, K, N), offsets (G + 1,) int32 -> (R, N), rows ``offsets[g]`` to
+    ``offsets[g + 1]`` times ``w[g]``.  On the card through
+    ``GroupedMatmul`` (the offsets stay on the device)."""
+    if _on_cpu(x, w):
+        return grouped_matmul_plain(x, w, offsets)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmul.apply(x, w, offsets)
+    return _grouped(x, w, offsets, "nn")
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """The grouped entry with its gradients on the same kernel: the forward
+    keeps x, w and the offsets and runs NN; the backward runs dX = dY w[g]^T
+    as NT and dW[g] = x_g^T dY_g as TN (an empty segment's dW is zero),
+    each only where it is needed."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets):
+        ctx.save_for_backward(x, w, offsets)
+        return _grouped(x, w, offsets, "nn")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offsets = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _grouped(dy, w, offsets, "nt")
+        if ctx.needs_input_grad[1]:
+            dw = _grouped(x, dy, offsets, "tn")
+        return dx, dw, None
+
+
 def q4_matmul(a: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
               group: int = 32) -> torch.Tensor:
     if _on_cpu(a, packed, scales):
@@ -214,33 +262,37 @@ def q4_matmul(a: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, layout: str = "bhtd") -> torch.Tensor:
+                    q_offset: int = 0, layout: str = "bhtd",
+                    scale: Optional[float] = None) -> torch.Tensor:
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, layout=layout)
+                                     q_offset=q_offset, layout=layout,
+                                     scale=scale)
     if _on_meta(q, k, v):
         return _meta_flash(q, k, v, causal, window, layout)
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window, q_offset,
-                                    layout)
+                                    layout, scale)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset, layout=layout)
+                                q_offset=q_offset, layout=layout,
+                                scale=scale)
 
 
 class FlashAttention(torch.autograd.Function):
     """The flash kernel with its backward kernel: the forward keeps q, k, v,
     the output and the row log-sum-exp; the backward launches
-    ``flash_attention_bwd_cuda`` on them."""
+    ``flash_attention_bwd_cuda`` on them at the forward's scale."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, layout):
+    def forward(ctx, q, k, v, causal, window, q_offset, layout, scale=None):
         out, lse = flash_attention_cuda(q, k, v, causal=causal,
                                         window=window, q_offset=q_offset,
-                                        layout=layout, return_lse=True)
+                                        layout=layout, return_lse=True,
+                                        scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
-                        layout=layout)
+                        layout=layout, scale=scale)
         return out
 
     @staticmethod
@@ -249,7 +301,7 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out,
                                               _kernel_operand(do), lse,
                                               **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _meta_flash(q, k, v, causal, window, layout) -> torch.Tensor:

@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rms_norm, rope
+from repro_torch.models.layers import residual, rms_norm, rope
 from repro_torch.models.parallel import ParallelCtx
 
 NEG = -1e30
@@ -75,7 +75,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset=0, q_head_offset=0, kv_head_offset=0,
                     H: Optional[int] = None,
-                    kv_total: Optional[int] = None) -> torch.Tensor:
+                    kv_total: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Tq, nq, hd); k, v: (B, Tkv, kv, hd) (full KV).
 
     ``q_offset``: global position of q[.., 0, ..] (a sequence-parallel
@@ -83,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     index of q head 0 (a head-parallel shard), ``kv_head_offset`` that of
     kv head 0; ``H`` / ``kv_total`` the global head counts.  Where the
     shard's kv map is not the kernel's own, k and v are expanded per q head
-    before the call."""
+    before the call.  ``scale``: the scores' scale (None: 1 / sqrt(hd))."""
     nq, kv = q.shape[2], k.shape[2]
     heads = _kv_heads(nq, kv, q_head_offset, H or nq, kv_total or kv,
                       kv_head_offset)
@@ -91,11 +92,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         idx = torch.tensor(heads, device=k.device)
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=int(q_offset), layout="bthd")
+                               q_offset=int(q_offset), layout="bthd",
+                               scale=scale)
 
 
 def _attend_tp(q, k, v, ctx: ParallelCtx, *, mode: str, window, t_offset,
-               T_loc: int, H: int, kv: int) -> torch.Tensor:
+               T_loc: int, H: int, kv: int, scale=None) -> torch.Tensor:
     """Attention of the stacked tp ranks: q (R, B, Tq, nq, hd), k / v
     (R, B, Tkv, kv_loc, hd) -> (R, B, Tq, nq, hd).  ``head_tp``: one launch
     with the ranks folded into the batch; ``cp``: one launch per rank at
@@ -106,7 +108,7 @@ def _attend_tp(q, k, v, ctx: ParallelCtx, *, mode: str, window, t_offset,
     if mode == "cp":
         return torch.stack([flash_attention(
             q[i], k[i], v[i], causal=True, window=window,
-            q_offset=t_offset + r * T_loc, H=H, kv_total=kv)
+            q_offset=t_offset + r * T_loc, H=H, kv_total=kv, scale=scale)
             for i, r in enumerate(ranks)])
     maps = [_kv_heads(nq, kv_loc, r * nq, H, kv,
                       r * kv_loc if kv_loc != kv else 0) for r in ranks]
@@ -121,7 +123,7 @@ def _attend_tp(q, k, v, ctx: ParallelCtx, *, mode: str, window, t_offset,
     o = ops.flash_attention(
         q.reshape(R * B, Tq, nq, hd), k.reshape(R * B, -1, kv_loc, hd),
         v.reshape(R * B, -1, kv_loc, hd), causal=True, window=window,
-        q_offset=t_offset, layout="bthd")
+        q_offset=t_offset, layout="bthd", scale=scale)
     return o.reshape(R, B, Tq, nq, hd)
 
 
@@ -184,17 +186,19 @@ def attn_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
 
     if not ctx.tp_axis:
         o = flash_attention(q, k, v, causal=True, window=window,
-                            q_offset=t_offset, H=H, kv_total=kv)
+                            q_offset=t_offset, H=H, kv_total=kv,
+                            scale=cfg.attn_scale)
     else:
         if mode == "cp":
             k, v = ctx.ag_tokens(k), ctx.ag_tokens(v)      # (B, T, kv, hd)
         o = _attend_tp(q, k, v, ctx, mode=mode, window=window,
-                       t_offset=t_offset, T_loc=T_loc, H=H, kv=kv)
+                       t_offset=t_offset, T_loc=T_loc, H=H, kv=kv,
+                       scale=cfg.attn_scale)
     o = o.reshape(o.shape[:-2] + (n_q * hd,))
     if mode == "head_tp":
-        out = x_sp + ctx.matmul_rs(o, wo)
+        out = residual(x_sp, ctx.matmul_rs(o, wo), cfg.residual_scale)
     else:
-        out = x_sp + ctx.mm(o, wo)
+        out = residual(x_sp, ctx.mm(o, wo), cfg.residual_scale)
     if return_kv:
         if mode == "head_tp" and kv_loc != kv:     # tp-sharded kv heads
             k, v = ctx.gather_tp(k, 2), ctx.gather_tp(v, 2)
@@ -209,7 +213,8 @@ def attn_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, ctx: ParallelCtx, *, pos, H: int,
                      window: Optional[int] = None,
-                     ring: bool = False) -> torch.Tensor:
+                     ring: bool = False,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (..., B, 1, H, hd) (every head on every tp rank); k/v_cache:
     (..., B, S/tp, kv, hd), each rank's chunk of the T-sharded cache (the
     leading dims are the stacked tp ranks; none without a tp axis).
@@ -220,10 +225,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     mod window).  GQA groups the q heads of each kv head (no repeat of the
     cache).  Split-K: each rank scores its chunk, the row max is
     ``pmax_tp``'d and the exponent sums and p·v are ``psum_tp``'d (no-ops
-    without a tp axis)."""
+    without a tp axis).  ``scale``: the scores' scale (None: 1 /
+    sqrt(hd))."""
     *lead, B, _, nH, hd = q.shape
     S_loc, kv = k_cache.shape[-3], k_cache.shape[-2]
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     base = torch.as_tensor(ctx.tp_rank, device=q.device) * S_loc
     slot = base.reshape(*lead, 1, 1) \
         + torch.arange(S_loc, device=q.device)             # (..., 1, S_loc)

@@ -30,6 +30,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return ((x32 * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
 
 
+def residual(x: torch.Tensor, branch: torch.Tensor, scale: float = 1.0
+             ) -> torch.Tensor:
+    """The residual stream after a block's branch: ``x + scale * branch``
+    (Granite's residual multiplier; 1 adds the branch as it is)."""
+    return x + branch if scale == 1.0 else x + scale * branch
+
+
 def activation(kind: str, gate: torch.Tensor, up: Optional[torch.Tensor]
                ) -> torch.Tensor:
     if kind == "gelu":
@@ -115,14 +122,33 @@ def embed(ids: torch.Tensor, emb: torch.Tensor, ctx: ParallelCtx, *,
     return ctx.rs_tokens(out) if sp else ctx.psum_tp(out)
 
 
-def _chunk_nll(xc, lc, mc, unemb, softcap, ldt, ctx):
+def _scaled_logits(logits: torch.Tensor, logit_scale: float,
+                   softcap: Optional[float], vocab: Optional[int],
+                   ctx: ParallelCtx) -> torch.Tensor:
+    """Logits over the rank's vocab shard divided by ``logit_scale``
+    (Granite's ``logits_scaling``), then soft-capped; with ``vocab`` the
+    padded rows' columns (``vocab`` and up) are -inf, out of the
+    softmax."""
+    if logit_scale != 1.0:
+        logits = logits / logit_scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    if vocab is not None:
+        v_loc = logits.shape[-1]
+        col = ctx.at(ctx.tp_rank * v_loc, logits.dim()) + torch.arange(
+            v_loc, device=logits.device)
+        logits = logits.masked_fill(col >= vocab, float("-inf"))
+    return logits
+
+
+def _chunk_nll(xc, lc, mc, unemb, softcap, ldt, ctx, logit_scale=1.0,
+               vocab=None):
     """One chunk's per-row (nll sum, count): (B, chunk) rows of logits over
     the rank's vocab shard in ``ldt``; the vocab max (``pmax_tp``) a
     stabilizer only (the gradient flows through the sum of exponentials),
     the sums over the shards ``psum_tp``, fp32 reductions."""
-    logits = ctx.mm(xc.to(ldt), unemb.to(ldt))
-    if softcap:
-        logits = softcap * torch.tanh(logits / softcap)
+    logits = _scaled_logits(ctx.mm(xc.to(ldt), unemb.to(ldt)), logit_scale,
+                            softcap, vocab, ctx)
     mx = ctx.pmax_tp(logits.amax(dim=-1).float()).detach()
     p = torch.exp(logits - mx[..., None].to(ldt))
     se = ctx.psum_tp(torch.sum(p, dim=-1, dtype=torch.float32))
@@ -140,7 +166,8 @@ def _chunk_nll(xc, lc, mc, unemb, softcap, ldt, ctx):
 def unembed_xent_rows(x: torch.Tensor, labels: torch.Tensor,
                       mask: torch.Tensor, unemb: torch.Tensor,
                       ctx: ParallelCtx, *, chunk: int = 512,
-                      softcap: Optional[float] = None
+                      softcap: Optional[float] = None,
+                      logit_scale: float = 1.0, vocab: Optional[int] = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """``unembed_xent`` per batch row: ((..., B) nll sums, (..., B) token
     counts), each row summed over its chunks in order.  A cluster step that
@@ -156,7 +183,8 @@ def unembed_xent_rows(x: torch.Tensor, labels: torch.Tensor,
     fn = keep_mesh(_chunk_nll)
     for t0 in range(0, T, chunk):
         args = (xg[..., t0:t0 + chunk, :], labels[..., t0:t0 + chunk],
-                mask[..., t0:t0 + chunk], unemb, softcap, ldt, ctx)
+                mask[..., t0:t0 + chunk], unemb, softcap, ldt, ctx,
+                logit_scale, vocab)
         if torch.is_grad_enabled() and (x.requires_grad
                                         or unemb.requires_grad):
             s, c = checkpoint(fn, *args, use_reentrant=False)
@@ -168,7 +196,8 @@ def unembed_xent_rows(x: torch.Tensor, labels: torch.Tensor,
 
 def unembed_xent(x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                  unemb: torch.Tensor, ctx: ParallelCtx, *, chunk: int = 512,
-                 softcap: Optional[float] = None
+                 softcap: Optional[float] = None, logit_scale: float = 1.0,
+                 vocab: Optional[int] = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Streamed vocab-parallel cross-entropy: x (B, T/tp, d) sequence-
     parallel, labels / mask the FULL (B, T), unemb the vocab shard
@@ -177,20 +206,24 @@ def unembed_xent(x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
     sums are divided by tp, so the caller's flat reduction over (tp, dp)
     is exact.  Returns the (nll sum, token count) partials — per stacked
     rank with a tp axis.  Logits never exceed (B, chunk, V/tp).
-    ``bf16_xent`` keeps the logits in the compute dtype."""
+    ``bf16_xent`` keeps the logits in the compute dtype.  With ``vocab``
+    the softmax runs over the padded vocabulary's first ``vocab`` rows
+    alone."""
     total, count = unembed_xent_rows(x, labels, mask, unemb, ctx,
-                                     chunk=chunk, softcap=softcap)
+                                     chunk=chunk, softcap=softcap,
+                                     logit_scale=logit_scale, vocab=vocab)
     return total.sum(dim=-1), count.sum(dim=-1)
 
 
 def decode_logits(x: torch.Tensor, unemb: torch.Tensor, ctx: ParallelCtx, *,
-                  softcap: Optional[float] = None) -> torch.Tensor:
+                  softcap: Optional[float] = None,
+                  logit_scale: float = 1.0,
+                  vocab: Optional[int] = None) -> torch.Tensor:
     """x: (B, 1, d) -> full-vocab f32 logits (B, 1, V); with a tp axis the
     vocab shards' logits are all-gathered, so every tp rank holds the full
-    row."""
-    logits = ctx.mm(x.float(), unemb.float())
-    if softcap:
-        logits = softcap * torch.tanh(logits / softcap)
+    row.  With ``vocab`` the padded rows' logits are -inf."""
+    logits = _scaled_logits(ctx.mm(x.float(), unemb.float()), logit_scale,
+                            softcap, vocab, ctx)
     return ctx.gather_tp(logits, logits.dim() - 2)
 
 
@@ -214,15 +247,17 @@ def _ffn_body(x: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx, *,
 
 
 def ffn(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx, *,
-        act: str, eps: float) -> torch.Tensor:
-    return x_sp + ctx.rs_tokens(_ffn_body(x_sp, p, meta, ctx, act=act,
-                                          eps=eps, gather=True))
+        act: str, eps: float, residual_scale: float = 1.0) -> torch.Tensor:
+    return residual(x_sp, ctx.rs_tokens(_ffn_body(
+        x_sp, p, meta, ctx, act=act, eps=eps, gather=True)), residual_scale)
 
 
 def ffn_decode(x: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx, *,
-               act: str, eps: float) -> torch.Tensor:
+               act: str, eps: float, residual_scale: float = 1.0
+               ) -> torch.Tensor:
     """Decode-shape FFN: one token per sequence, no token gather (the
     token is replicated over tp); column / row parallel with one
     ``psum_tp``."""
-    return x + ctx.psum_tp(_ffn_body(x, p, meta, ctx, act=act, eps=eps,
-                                     gather=False))
+    return residual(x, ctx.psum_tp(_ffn_body(x, p, meta, ctx, act=act,
+                                             eps=eps, gather=False)),
+                    residual_scale)

@@ -24,6 +24,19 @@ ascending expert order — the order the reference's scatter adds them in.
 The card's results are fixed run to run.  The expert products are batched
 einsums, as in the reference (which computes them outside any Pallas
 kernel).
+
+Dropless (``MoESpec.capacity_factor`` None, Granite's routing as
+published), in training and serving without a tp axis: a domain routes its
+tokens as one set, and every token reaches all k of its experts.  The
+domain's tokens x k assignments are sorted by expert (``segment_tables``: a
+stable argsort, so token order within an expert) into exact segments whose
+offsets stay on the device; the same gather tables as above, with one
+buffer of every assignment, carry the dispatch and the combine (each
+token's k rows still added in ascending expert order), and the expert
+products run on the panel kernel's grouped entry (``ops.grouped_matmul``:
+NN forward, NT and TN backward).  No capacity, no host read.  With a tp
+axis (experts split over ranks) dropless routing raises.  ``tally`` keeps,
+on the device, each dropless forward's largest segment over the mean.
 """
 
 from __future__ import annotations
@@ -36,7 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spans import span
-from repro_torch.models.layers import activation, rms_norm
+from repro_torch.kernels import ops
+from repro_torch.models.layers import activation, residual, rms_norm
 from repro_torch.models.meta import store_dim
 from repro_torch.models.parallel import ParallelCtx
 
@@ -68,6 +82,33 @@ def drops(rec: dict) -> tuple[int, int]:
     """(routing assignments, kept) summed over a ``routes()`` record."""
     return (sum(int(a) for a in rec["assigned"]),
             sum(int(k) for k in rec["kept"]))
+
+
+class Tally:
+    """The dropless forwards' routing skew, summed on the device with no
+    sync: per forward, the largest expert segment over the mean segment.
+    ``forwards`` counts those forwards (a rematerialised one again);
+    ``read()`` copies the sum to the host."""
+
+    def __init__(self):
+        self._sums: dict = {}
+        self.forwards = 0
+
+    def add(self, load_ratio: torch.Tensor) -> None:
+        dev = load_ratio.device
+        if dev not in self._sums:
+            self._sums[dev] = torch.zeros((), dtype=torch.float64, device=dev)
+        self._sums[dev] += load_ratio.double()
+        self.forwards += 1
+
+    def read(self) -> dict:
+        return {"load_max_ratio_sum": sum(float(b) for b in
+                                          self._sums.values()),
+                "forwards": self.forwards}
+
+
+#: The process's dropless routing skew.
+tally = Tally()
 
 
 def _route_hooked(h: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -134,6 +175,20 @@ def dispatch_tables(idx: torch.Tensor, *, e0, n_local: int, capacity: int):
     cut = lead + (n_local + 1, capacity)
     return (table.reshape(cut)[..., :n_local, :],
             slot.reshape(cut)[..., :n_local, :])
+
+
+def segment_tables(idx: torch.Tensor, E: int):
+    """The dropless dispatch of idx (M, k) over E experts: ``order`` (M k,)
+    the routing slots ``t * k + j`` sorted by expert (stable: token order
+    within an expert), ``counts`` (E,) each expert's assignments and
+    ``offsets`` (E + 1,) int32 where each expert's segment of the sorted
+    order starts — all on idx's device."""
+    flat = idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(E, dtype=torch.long, device=idx.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return order, counts, offsets.to(torch.int32)
 
 
 def combine_tables(slot: torch.Tensor, N: int, k: int):
@@ -258,6 +313,18 @@ def expert_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
     return torch.einsum(f"{lhs[:-1]}f,...efd->{lhs}", a, w_out)
 
 
+def grouped_ffn(rows: torch.Tensor, offsets: torch.Tensor,
+                w_in: torch.Tensor, w_out: torch.Tensor, act: str
+                ) -> torch.Tensor:
+    """rows (R, d) sorted by expert, expert e's segment from
+    ``offsets[e]`` to ``offsets[e + 1]``; w_in (E, d, 2, dff), w_out (E,
+    dff, d) -> (R, d): each segment through its own expert's gated FFN."""
+    u = ops.grouped_matmul(rows, w_in.flatten(-2), offsets)
+    u = u.unflatten(-1, tuple(w_in.shape[-2:]))
+    a = activation(act, u[..., 0, :], u[..., 1, :])
+    return ops.grouped_matmul(a, w_out, offsets)
+
+
 def _local(w: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
     """A stored ``(tp, E_loc, ...)`` expert leaf's rank slice: the
     tp-sharded dim 0 has one entry per rank (after the stacked tp
@@ -290,6 +357,14 @@ def moe_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
     router = ctx.gather_w(p["router"], store_dim(meta["router"]))
     w_in = _local(ctx.gather_w(p["w_in"], store_dim(meta["w_in"])), ctx)
     w_out = _local(ctx.gather_w(p["w_out"], store_dim(meta["w_out"])), ctx)
+    if spec.capacity_factor is None:
+        if ctx.tp_axis or ctx.tp > 1:
+            raise ValueError(
+                f"dropless MoE routing (capacity_factor None) runs without "
+                f"a tp axis; this block has tp {ctx.tp}: give the experts a "
+                f"capacity_factor or drop the tp axis")
+        y = _dropless(tokens, router, w_in, w_out, cfg).reshape(hg.shape)
+        return residual(x_sp, y, cfg.residual_scale)
     with span("moe::route"):
         idx, gate = _route_hooked(tokens, ctx.at(router, tokens.dim()), k)
         ep_idx, _ = ctx.tp_group_rank(tp_ff)               # outer=ep
@@ -312,8 +387,40 @@ def moe_block(x_sp: torch.Tensor, p: dict, meta: dict, ctx: ParallelCtx,
     with span("moe::combine"):
         y = combine(out_buf, gate, inv, perm, back).reshape(hg.shape)
     if serve:
-        return x_sp + ctx.psum_tp(y)
-    return x_sp + ctx.rs_tokens(y)   # combines EP + ffn-TP partials + SP
+        return residual(x_sp, ctx.psum_tp(y), cfg.residual_scale)
+    # combines EP + ffn-TP partials + SP
+    return residual(x_sp, ctx.rs_tokens(y), cfg.residual_scale)
+
+
+def _dropless(tokens: torch.Tensor, router: torch.Tensor,
+              w_in: torch.Tensor, w_out: torch.Tensor, cfg) -> torch.Tensor:
+    """The dropless block's mixing of tokens (m, N, d), the folded members'
+    rows routed as one set: every assignment to its expert's
+    segment, the segments through the grouped products, each token's k
+    rows added back in ascending expert order -> (m, N, d)."""
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    d = tokens.shape[-1]
+    flat = tokens.reshape(1, -1, d)                        # (1, M, d)
+    M = flat.shape[1]
+    with span("moe::route"):
+        idx, gate = _route_hooked(tokens, router, k)       # (m, N, k)
+        order, counts, offsets = segment_tables(idx, E)
+        # one buffer of all M k assignments in expert order (E = 1, C = M k
+        # in the slot tables' terms)
+        slot = order.reshape(1, 1, M * k)
+        inv, perm, back = combine_tables(slot, M, k)
+    tally.add(counts.max() * E / (M * k))
+    if _routes is not None:
+        _routes["assigned"].append(torch.tensor(M * k, device=idx.device))
+        _routes["kept"].append(offsets[-1])
+    with span("moe::dispatch"):
+        buf = dispatch(flat, slot // k, inv).reshape(M * k, d)
+    with span("moe::experts"):
+        out = grouped_ffn(buf, offsets, w_in, w_out, cfg.act)
+    with span("moe::combine"):
+        y = combine(out.reshape(1, 1, M * k, d), gate.reshape(1, M, k), inv,
+                    perm, back)
+    return y.reshape(tokens.shape)
 
 
 def aux_load_balance_loss(idx: torch.Tensor, gate: torch.Tensor, E: int

@@ -76,8 +76,9 @@ from repro_torch.models.domains import (Domains, NodeCache, domain_params,
                                         domain_range, domain_run,
                                         every_domain)
 from repro_torch.models.layers import (decode_logits, embed, ffn, ffn_decode,
-                                       rms_norm, rope_decode, sinusoidal_pe,
-                                       unembed_xent, unembed_xent_rows)
+                                       residual, rms_norm, rope_decode,
+                                       sinusoidal_pe, unembed_xent,
+                                       unembed_xent_rows)
 from repro_torch.models.moe import moe_block
 from repro_torch.models.parallel import (ParallelCtx, ParamGroup,
                                          prefetch_walk)
@@ -268,7 +269,8 @@ def _mix(kind: str, x, p, mt, ctx, cfg, *, serve=False):
     if not cfg.d_ff:
         return x
     f = ffn_decode if serve else ffn
-    return f(x, p["ffn"], mt["ffn"], ctx, act=cfg.act, eps=cfg.norm_eps)
+    return f(x, p["ffn"], mt["ffn"], ctx, act=cfg.act, eps=cfg.norm_eps,
+             residual_scale=cfg.residual_scale)
 
 
 def _mlstm_chunk(ctx) -> int:
@@ -380,7 +382,9 @@ def _decode_attn_2d(x, p, mt, state, ctx, cfg, *, pos, window):
     kvmap = _kv_head_map(Hg, 0, Hg, kvg, device=dev)
     kq = kc.index_select(-2, kvmap).float()     # (tp, B, S/g_s, Hg, hd)
     vq = vc.index_select(-2, kvmap).float()
-    sc = torch.einsum("rbqhd,rbkhd->rbhqk", q.float() / math.sqrt(hd), kq)
+    qs = q.float() / math.sqrt(hd) if cfg.attn_scale is None \
+        else q.float() * cfg.attn_scale
+    sc = torch.einsum("rbqhd,rbkhd->rbhqk", qs, kq)
     sc = torch.where(valid[:, None, None, None, :], sc,
                      torch.full((), -1e30, device=dev))
     m_loc = sc.amax(dim=-1)                     # (tp, B, Hg, 1)
@@ -395,7 +399,8 @@ def _decode_attn_2d(x, p, mt, state, ctx, cfg, *, pos, window):
     # every head group's seq index 0 contributes its heads' projection
     y = torch.where((s_idx == 0)[:, None, None, None], y,
                     torch.zeros((), dtype=y.dtype, device=dev))
-    return x + ctx.psum_tp(y), {"k": kc, "v": vc}
+    return residual(x, ctx.psum_tp(y), cfg.residual_scale), \
+        {"k": kc, "v": vc}
 
 
 def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
@@ -437,10 +442,11 @@ def _block_decode(kind: str, x, p, mt, state, ctx, cfg, *, pos):
     kc = cache_write(state["k"], k_new, ctx, pos=pos, window=window)
     vc = cache_write(state["v"], v_new, ctx, pos=pos, window=window)
     o = decode_attention(q, kc, vc, ctx, pos=pos, H=H, window=window,
-                         ring=window is not None)
+                         ring=window is not None, scale=cfg.attn_scale)
     # q / kv / o are replicated over tp (split-K merged them), so the
     # output projection is the same on every tp rank: no collective
-    x = x + ctx.mm(o.reshape(lead + (1, H * hd)), wo)
+    x = residual(x, ctx.mm(o.reshape(lead + (1, H * hd)), wo),
+                 cfg.residual_scale)
     x = _mix(kind, x, p, mt, ctx, cfg, serve=True)
     return x, {"k": kc, "v": vc}
 
@@ -511,8 +517,8 @@ def _embed_sp(cfg, ctx, defs, params, batch, *, T: int):
             is_patch = (pos < P_)[..., None, :, None]
             x = torch.where(is_patch, pex, x)
             mask = mask * ((torch.arange(T, device=dev) + 1) >= P_)
-    if cfg.tie_embeddings:  # gemma-style input scaling
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.input_scale != 1.0:  # gemma's sqrt(d) when tied; granite's 12
+        x = x * torch.tensor(cfg.input_scale, dtype=x.dtype)
     if cfg.pos == "sinusoidal":
         T_loc = x.shape[-2]
         pos = torch.arange(T_loc, device=dev)
@@ -599,7 +605,8 @@ def _loss(cfg, ctx, defs, params, batch, *, rows: bool = False):
     w_un = _unembed_weight(cfg, ctx, defs, params)
     xent = unembed_xent_rows if rows else unembed_xent
     return xent(x, labels, mask, w_un, ctx, chunk=XENT_CHUNK,
-                softcap=cfg.logit_softcap)
+                softcap=cfg.logit_softcap, logit_scale=cfg.logit_scale,
+                vocab=cfg.softmax_vocab)
 
 
 # ---------------------------------------------------------------------------
@@ -718,7 +725,9 @@ def _prefill(cfg, ctx, defs, params, batch, s_max: int):
     # the last token lives on the last tp rank's chunk: gather it first
     last = ctx.ag_tokens(x)[..., -1:, :] if ctx.tp_axis else x[:, -1:]
     w_un = _unembed_weight(cfg, ctx, defs, params)
-    logits = decode_logits(last, w_un, ctx, softcap=cfg.logit_softcap)
+    logits = decode_logits(last, w_un, ctx, softcap=cfg.logit_softcap,
+                           logit_scale=cfg.logit_scale,
+                           vocab=cfg.softmax_vocab)
 
     tdim = 3 if ctx.tp_axis else 2          # (U, [tp,] B, T, ...)
     cache = {"units": {}}
@@ -760,8 +769,8 @@ def _decode(cfg, ctx, defs, params, cache, token, pos):
         token = _stack_tp(torch.as_tensor(token, device=dev), ctx, 2)
         x = embed(token, emb, ctx)
     pos = torch.as_tensor(pos, device=dev)
-    if cfg.tie_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.input_scale != 1.0:
+        x = x * torch.tensor(cfg.input_scale, dtype=x.dtype)
     if cfg.pos == "sinusoidal":
         if pos.dim() == 1:               # per-slot positions: (B, 1, d)
             x = x + sinusoidal_pe(pos, cfg.d_model)[:, None].to(x.dtype)
@@ -786,4 +795,6 @@ def _decode(cfg, ctx, defs, params, cache, token, pos):
                                         defs["final_ln"].fsdp_dim), x.dim()),
                  cfg.norm_eps)
     w_un = _unembed_weight(cfg, ctx, defs, params)
-    return cache, decode_logits(x, w_un, ctx, softcap=cfg.logit_softcap)
+    return cache, decode_logits(x, w_un, ctx, softcap=cfg.logit_softcap,
+                                logit_scale=cfg.logit_scale,
+                                vocab=cfg.softmax_vocab)

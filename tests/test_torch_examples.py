@@ -26,13 +26,14 @@ from repro.runtime.steps import make_train_step as jmake_train_step
 from repro.runtime.train_loop import train as jtrain
 from repro_torch.apps import quickstart, serve_lm, train_100m
 from repro_torch.core import tree as T
+from test_torch_models import as_reference
 
 
 def test_quickstart_losses_equal_the_reference_train():
     cfg = quickstart.config()
     jcfg = jconfigs.get_config("qwen3-0.6b").reduced(
         n_layers=2, d_model=128, n_heads=4, vocab=512)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert as_reference(cfg) == dataclasses.asdict(jcfg)
     topo = JTopology({"data": 1, "model": 1}, slow_axes=())
     jb = jmake_train_step(jcfg, topo, jmesh(topo), mode="hier", lr=3e-3,
                           compute_dtype=jnp.float32)

@@ -1112,3 +1112,173 @@ def test_spans_time_on_the_card_and_stay_off_its_timeline(cuda):
     # the event pair spans the four products' device time
     assert got["ms"] * 1e3 >= 0.9 * host.device_time_total
     spans.reset()
+
+
+# the grouped entry: uneven segments, an empty one first and one in the
+# middle, one of more than 4k rows; (segment rows, K, N) aligned and ragged
+GROUPED_CASES = [((0, 4100, 1, 130, 0, 77), 256, 384),
+                 ((3, 0, 129, 4097, 5), 130, 70)]
+
+
+def _grouped_operands(g, dev, layout, counts, K, N):
+    """The grouped entry's operands in ``layout`` for segments of
+    ``counts`` rows, and their offsets."""
+    R, G = sum(counts), len(counts)
+    off = torch.tensor([0] + list(counts), device=dev).cumsum(0).int()
+    if layout == "tn":         # dW: a (R, M = K), b (R, N)
+        a = torch.randn((R, K), generator=g, device=dev)
+        b = torch.randn((R, N), generator=g, device=dev)
+    else:
+        a = torch.randn((R, K), generator=g, device=dev)
+        b = torch.randn((G,) + ((N, K) if layout == "nt" else (K, N)),
+                        generator=g, device=dev)
+    return a, b, off
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=str)
+@pytest.mark.parametrize("layout", kmatmul.LAYOUTS)
+def test_grouped_kernel_against_float64_and_torch_matmul(cuda, case, layout):
+    """Each segment's product against the float64 product: the kernel's
+    largest error over the largest |C| at most twice ``torch.matmul``'s f32
+    one on the same segment, or 2e-6 grown as sqrt(depth / 1024) past a
+    depth of 1024 (a shallow TN segment, 3 rows deep, is off by 3xTF32's
+    representation error, ~2.4e-7, where cuBLAS's 3-term sums are exact);
+    an empty segment gives no rows (NN / NT) or a zero dW (TN); one launch,
+    counted by layout; the plain version agrees."""
+    counts, K, N = case
+    g = torch.Generator(device=cuda).manual_seed(21)
+    a, b, off = _grouped_operands(g, cuda, layout, counts, K, N)
+    before = kmatmul.grouped_launches_by_layout[layout]
+    got = kmatmul.grouped_matmul_cuda(a, b, off, layout)
+    torch.cuda.synchronize()
+    assert kmatmul.grouped_launches_by_layout[layout] == before + 1
+    o = off.tolist()
+    for s in range(len(counts)):
+        rows = slice(o[s], o[s + 1])
+        if layout == "tn":
+            x, y, kern = a[rows].T, b[rows], got[s]
+        else:
+            x, y = a[rows], (b[s].T if layout == "nt" else b[s])
+            kern = got[rows]
+        want = x.double() @ y.double()
+        if want.numel() == 0 or counts[s] == 0:
+            assert not kern.any()
+            continue
+        top = want.abs().max()
+        err = ((kern.double() - want).abs().max() / top).item()
+        lib_err = (((x @ y).double() - want).abs().max() / top).item()
+        depth = x.shape[1]
+        assert err <= max(2 * lib_err, 2e-6 * max(1, depth / 1024) ** 0.5), \
+            (s, err, lib_err)
+    torch.testing.assert_close(
+        got, kmatmul.grouped_matmul_plain(a, b, off, layout),
+        **_tol(torch.float32, max(counts) if layout == "tn" else K))
+
+
+def test_grouped_matmul_gradients_on_the_card_equal_autograd(cuda):
+    """``ops.grouped_matmul`` with grad: the forward on NN, dX on NT and
+    dW on TN, one launch each, equal to the autograd of the segments' f32
+    products within 2e-4 relative; an empty segment's dW is zero."""
+    counts = (0, 300, 4100, 1, 0, 95)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x, w, off = _grouped_operands(g, cuda, "nn", counts, 192, 320)
+    dy = torch.randn((sum(counts), 320), generator=g, device=cuda)
+    xk, wk = (t.clone().requires_grad_(True) for t in (x, w))
+    before = dict(kmatmul.grouped_launches_by_layout)
+    (ops.grouped_matmul(xk, wk, off) * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: kmatmul.grouped_launches_by_layout[k] - before[k]
+            for k in kmatmul.LAYOUTS} == {"nn": 1, "nt": 1, "tn": 1}
+    xp, wp = (t.clone().requires_grad_(True) for t in (x, w))
+    o = off.tolist()
+    ref = torch.cat([xp[o[s]:o[s + 1]] @ wp[s] for s in range(len(counts))])
+    (ref * dy).sum().backward()
+    for got, want in ((xk.grad, xp.grad), (wk.grad, wp.grad)):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 2e-4
+    assert not wk.grad[0].any() and not wk.grad[4].any()
+
+
+@pytest.mark.parametrize("layout", ["bthd", "bhtd"])
+def test_flash_kernels_take_a_given_scale(cuda, layout):
+    """Granite's softmax scale (1 / 64 at hd 64, not 1 / 8) through the
+    forward and backward kernels, against ``scaled_dot_product_attention``
+    at that scale (f32, 2e-4 of the largest value); without a scale both
+    launches are bit-identical to the ones given 1 / sqrt(hd)."""
+    import math
+    import torch.nn.functional as F
+    B, H, KV, T, hd = 2, 24, 8, 200, 64
+    g = torch.Generator(device=cuda).manual_seed(23)
+    shp = (lambda n: (B, T, n, hd)) if layout == "bthd" else \
+        (lambda n: (B, n, T, hd))
+    q, do = (torch.randn(shp(H), generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn(shp(KV), generator=g, device=cuda) for _ in range(2))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, layout=layout, scale=1 / 64)
+    got = (out,) + torch.autograd.grad(out, (q, k, v), do)
+
+    def bhtd(t):
+        return t.transpose(1, 2) if layout == "bthd" else t
+
+    qs, ks, vs = (bhtd(t.detach()).requires_grad_(True) for t in (q, k, v))
+    ref = F.scaled_dot_product_attention(
+        qs, ks.repeat_interleave(H // KV, 1), vs.repeat_interleave(H // KV, 1),
+        is_causal=True, scale=1 / 64)
+    want = (ref,) + torch.autograd.grad(ref, (qs, ks, vs), bhtd(do))
+    for a, b in zip(got, want):
+        b = bhtd(b)
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 2e-4
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    with torch.no_grad():
+        kw = dict(layout=layout)
+        o1, l1 = kflash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        o2, l2 = kflash.flash_attention_cuda(q, k, v, return_lse=True,
+                                             scale=1 / math.sqrt(hd), **kw)
+        assert torch.equal(o1, o2) and torch.equal(l1, l2)
+        g1 = kbwd.flash_attention_bwd_cuda(q, k, v, o1, do, l1, **kw)
+        g2 = kbwd.flash_attention_bwd_cuda(q, k, v, o1, do, l1,
+                                           scale=1 / math.sqrt(hd), **kw)
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_dropless_moe_block_on_the_card_matches_the_cpu(cuda):
+    """granite's full-width MoE block, dropless (every token reaches its 8
+    experts through the grouped kernel), on 2 x 256 tokens with its
+    residual multiplier: two forward + backward runs on the card are
+    bit-identical, and output and gradients match the CPU within 1e-4
+    relative where the routing agrees (as the capacity block's test)."""
+    from repro_torch.configs.base import MoESpec
+    from repro_torch.models import meta, moe
+    base = get_config("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(base, residual_scale=0.22, moe=MoESpec(
+        num_experts=40, top_k=8, d_ff_expert=512, capacity_factor=None))
+    defs = meta.moe_defs(cfg, 1, False)
+    g = torch.Generator().manual_seed(3)
+    p = {k: torch.randn(m.shape, generator=g) * (0.02 if k != "ln" else 0)
+         for k, m in defs.items()}
+    x = torch.randn((2, 256, cfg.d_model), generator=g)
+    ctx = ParallelCtx.single()
+
+    def run(dev):
+        xd = x.to(dev).requires_grad_(True)
+        pd = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        before = dict(kmatmul.grouped_launches_by_layout)
+        y = moe.moe_block(xd, pd, defs, ctx, cfg)
+        gx, gw = torch.autograd.grad((y * y).sum(), (xd, pd["w_in"]))
+        launched = {k: kmatmul.grouped_launches_by_layout[k] - before[k]
+                    for k in kmatmul.LAYOUTS}
+        h = moe.rms_norm(x.to(dev), p["ln"].to(dev), cfg.norm_eps)
+        idx, _ = moe.route(h.reshape(-1, cfg.d_model), p["router"].to(dev),
+                           cfg.moe.top_k)
+        return [t.detach().cpu() for t in (y, gx, gw, idx)], launched
+
+    (a, n_a), (b, _), (c, n_c) = run(cuda), run(cuda), run(
+        torch.device("cpu"))
+    assert n_a == {"nn": 2, "nt": 2, "tn": 2}
+    assert n_c == {"nn": 0, "nt": 0, "tn": 0}
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    same = (a[3] == c[3]).all(-1).reshape(2, 256)
+    assert same.float().mean() > 0.95
+    for u, v in zip(a[:2], c[:2]):
+        assert (u[same] - v[same]).abs().max() <= 1e-4 * v.abs().max()
+    if bool(same.all()):
+        assert (a[2] - c[2]).abs().max() <= 1e-4 * c[2].abs().max()
