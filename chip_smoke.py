@@ -221,10 +221,13 @@ orientation, ``torch.cumsum`` of the flipped cotangent.
    ``PERF.md`` §2's rule; (c) naive against hier on 2x4 at 4 layers:
    weight bytes per node C1 = 4.0 exactly; (d) ``make_cluster_train_step``
    hier, 8 x 2048, 3 steps on 2x4 (ep 1) and ``2x(2x2)`` (ep 2) at 8
-   layers (the deepest depth whose state fits is printed), one profiled
-   step each (tp collectives with the MoE reduce-scatter, the MoE block's
-   parts), then the training C1 at 2 layers (4.0 on 2x4 with hier vs
-   naive under §2's rule, 2.0 on ``2x(2x2)``).
+   layers (the deepest depth whose state fits is printed), the
+   ``moe_gather`` entries launched 32 / 32 / 16 / 16 times a step
+   (batched capacity tables: b 4 on 2x4, 2 tp ranks x 2 members on
+   2x(2x2)), one profiled step each (tp collectives with the MoE
+   reduce-scatter, the MoE block's parts), then the training C1 at 2
+   layers (4.0 on 2x4 with hier vs naive under §2's rule, 2.0 on
+   ``2x(2x2)``).
 
 16. the xLSTM family (after phase 15): ``xlstm-1.3b`` at full width (d
    2048, 4 heads of 1024, d_inner 4096, 6 units of 7 mLSTM + 1 sLSTM,
@@ -301,6 +304,14 @@ orientation, ``torch.cumsum`` of the flipped cotangent.
    w_in K 1536 N 1024, w_out K 512 N 1536; NN, NT and TN) within 1e-5 of
    its plain version's largest |C| (a TF32 product, shown, misses that),
    against float64 too, timed beside the plain version with its bound.
+   The steps launch the ``moe_gather`` entries (``csrc/moe_gather.cu``)
+   32 / 32 / 16 / 16 times a step (dispatch, combine, combine_bwd,
+   dispatch_bwd); each entry at layer 0's routing (M 8192, k 8, d 1536)
+   equals its plain version bit for bit (the gates' gradient within 1e-6
+   of float64) and run to run, timed beside the plain version and its
+   byte bound at 3.35 TB/s; and the same checks on phase 15 (d)'s
+   capacity tables (layer 0's routing of each training run: a leading b,
+   dropped slots, other groups' experts and empty cells).
 
 Phase 11 (a) also prints the dry run of its own step
 (``launch.dryrun.trace_cell`` on meta tensors: the same config, cluster,
@@ -320,10 +331,11 @@ backward's ``head_splits``.
 Kernel launch counts are zeroed just before each main path (phases 3-7,
 phase 10, then phase 8's and phase 9's serving runs, phase 11 (a), phase
 12 (a), each of phase 13's runs, phase 14's prefills, phase 15's
-prefills and training runs, phase 16's runs, which launch none,
-phase 17's training runs and prefills, phase 18's training run, and
-phase 19's steps 2-3 for the grouped entry) and read just after; the
-JSON's flash, scan and grouped rows sum the main paths that launch them.
+prefills and training runs (for the moe_gather entries too), phase
+16's runs, which launch none, phase 17's training runs and prefills, phase 18's training run, and
+phase 19's steps 2-3 for the grouped and moe_gather entries) and read
+just after; the JSON's flash, scan, grouped and moe_gather rows sum the
+main paths that launch them.
 The recompute counters (the non-finite rule's, and the flash backward's)
 are zeroed before phase 3 and must read 0 after phase 19.
 The line
@@ -1091,12 +1103,14 @@ MOE_NAME = "granite-moe-3b-a800m"
 MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 16, 8
 
 
-def moe_phase(dev) -> dict:
+def moe_phase(dev) -> tuple:
     """Phase 15: the MoE family at ``granite-moe-3b-a800m``'s full width
     (d 1536, 24 q / 8 kv heads x 64, 40 experts top 8, d_ff_expert 512,
     f32, seeded weights, ``capacity_factor`` 1.25).  Returns the flash
     forward / backward launches of its main-path runs (each zeroed just
-    before and read just after)."""
+    before and read just after), and (d)'s ``moe_gather`` launches with
+    each training run's first routing (label, idx, e0, n_local, capacity),
+    which phase 19 checks the entries on."""
     import math
     import numpy as np
     import torch
@@ -1109,6 +1123,7 @@ def moe_phase(dev) -> dict:
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import moe_gather as kmoe
     from repro_torch.models import ParallelCtx, build, moe
     from repro_torch.models.domains import NodeCache
     from repro_torch.models.meta import store_dim
@@ -1464,13 +1479,22 @@ def moe_phase(dev) -> dict:
                                      global_batch=8, seed=7))
     batches = [batches.next_batch() for _ in range(3)]
     train_rows = {}
+    # each step: dispatch and combine in each layer's forward and its
+    # recompute, combine_bwd and dispatch_bwd in its backward, 2 node runs
+    rows_per_step = {"dispatch": 4 * L, "combine": 4 * L,
+                     "combine_bwd": 2 * L, "dispatch_bwd": 2 * L}
+    gathers = {"launches": 0, "routings": []}
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
     for label in ("2x4", "2x(2x2)"):
         vc = VirtualCluster.from_label(label, device=dev)
         bundle = make_cluster_train_step(cfgL, vc, mode="hier",
                                          global_batch=8)
         state = bundle.init_layout_state(18)
         nb_ = {g_: nbytes(state[g_]) for g_ in ("params", "m", "v")}
+        ctx = bundle.model.ctx
+        tp = ctx.tp
         kflash.launches = kbwd.launches = 0
+        kmoe.launches.update(dict.fromkeys(kmoe.ENTRIES, 0))
         ms, losses, drop = [], [], None
         for i, b_ in enumerate(batches):
             laid = bundle.layout_batch(b_)
@@ -1485,6 +1509,16 @@ def moe_phase(dev) -> dict:
             if i == 0:
                 assigned, kept = moe.drops(dr)
                 drop = 1 - kept / assigned
+                # layer 0's routing in the first node run, and its tables'
+                # parameters as moe_block derives them
+                r_idx = dr["idx"][0]
+                ep, tp_ff = cfg.moe.ep_tp(tp)
+                e0 = ((torch.arange(tp, device=dev) // tp_ff
+                       * (E // ep)).reshape(-1, 1) if ctx.tp_axis else 0)
+                gathers["routings"].append((
+                    label, r_idx, e0, E // ep,
+                    int(r_idx.shape[-2] * k / E * cfg.moe.capacity_factor)
+                    + 1))
             if not (np.isfinite(loss) and np.isfinite(gnorm)):
                 raise AssertionError(f"moe train {label}: loss {loss}")
             losses.append(loss)
@@ -1497,8 +1531,13 @@ def moe_phase(dev) -> dict:
             launches[k_] += v_
             if v_ <= 0:
                 raise AssertionError(f"moe train {label} never launched {k_}")
+        got_rows = dict(kmoe.launches)
+        want_rows = {k_: 3 * v_ for k_, v_ in rows_per_step.items()}
+        if got_rows != want_rows:
+            raise AssertionError(f"moe train {label}: moe_gather launches "
+                                 f"{got_rows}, want {want_rows}")
+        gathers["launches"] += sum(got_rows.values())
         nb_["grads"] = bundle.stats["grad_bytes"]
-        tp = bundle.model.ctx.tp
         print(f"[moe] train {label} (tp {tp}, ep x tp_ff "
               f"{cfg.moe.ep_tp(tp)}): steps 2-3 "
               f"{sum(ms[1:]) / 2:.1f} ms, "
@@ -1508,7 +1547,7 @@ def moe_phase(dev) -> dict:
               + f"; peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.1f}"
               f" GB; launches flash_attention (forward) "
               f"{fl['flash_attention']}, flash_attention_bwd "
-              f"{fl['flash_attention_bwd']}")
+              f"{fl['flash_attention_bwd']}, moe_gather {got_rows}")
         r = profile_run(lambda: bundle.step(state, laid),
                         ranges=TP_RANGES + MOE_RANGES)
         tp_ms = sum(v_ for k_, v_ in r["ranges"].items()
@@ -1604,7 +1643,7 @@ def moe_phase(dev) -> dict:
         raise AssertionError(f"moe training C1 {c1} / {c1_tp}")
     free()
     print(f"[phase] moe (d) {time.perf_counter() - t_d:.1f} s")
-    return launches
+    return launches, gathers
 
 
 XLSTM_NAME = "xlstm-1.3b"
@@ -2908,7 +2947,7 @@ DROPLESS_LAYERS, DROPLESS_STEPS = 8, 3
 GROUPED_REL = 1e-5
 
 
-def dropless_moe_phase(dev) -> dict:
+def dropless_moe_phase(dev, capacity=None) -> tuple:
     """Phase 19: ``granite-moe-3b-a800m`` as the benchmark's granite cell
     runs it (``DROPLESS_LAYERS`` layers, the four published multipliers,
     the tied embedding at 12, the softmax over the published vocabulary,
@@ -2923,13 +2962,20 @@ def dropless_moe_phase(dev) -> dict:
     rows), and the same with two experts' rows moved to their neighbours
     (two empty segments); NN, NT and TN for w_in (K 1536, N 1024) and
     w_out (K 512, N 1536), timed beside the plain version with the bound.
-    Returns the grouped entry's kernels record, its launches the run's."""
+    Each later step also launches the ``moe_gather`` entries 32 / 32 / 16 /
+    16 times (dispatch and combine in the forward and its recompute,
+    combine_bwd and dispatch_bwd in the backward), and they run at that
+    routing too (``moe_gather_rows``), and on ``capacity``'s routings
+    (phase 15's: its ``moe_gather`` launches and each training run's first
+    routing; None: none).  Returns the grouped entry's kernels record and
+    moe_gather's, their launches the runs'."""
     import math
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MoESpec
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.kernels import matmul as kmatmul
+    from repro_torch.kernels import moe_gather as kmoe
     from repro_torch.models import moe
     from repro_torch.runtime.steps import make_cluster_train_step
     from repro_torch.substrate import VirtualCluster
@@ -2951,11 +2997,14 @@ def dropless_moe_phase(dev) -> dict:
     batches = [bundle.layout_batch(stream.next_batch())
                for _ in range(DROPLESS_STEPS)]
     per_step = {"nn": 64, "nt": 32, "tn": 32}
+    rows_per_step = {"dispatch": 32, "combine": 32, "combine_bwd": 16,
+                     "dispatch_bwd": 16}
     ms, losses = [], []
     for i, batch in enumerate(batches):
         if i == 1:
             kmatmul.grouped_launches_by_layout.update(
                 dict.fromkeys(kmatmul.LAYOUTS, 0))
+            kmoe.launches.update(dict.fromkeys(kmoe.ENTRIES, 0))
         with (moe.routes() if i == 0 else contextlib.nullcontext()) as rec:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -2975,15 +3024,21 @@ def dropless_moe_phase(dev) -> dict:
     n_later = DROPLESS_STEPS - 1
     got = dict(kmatmul.grouped_launches_by_layout)
     want = {k_: v_ * n_later for k_, v_ in per_step.items()}
+    got_rows = dict(kmoe.launches)
+    want_rows = {k_: v_ * n_later for k_, v_ in rows_per_step.items()}
     step_ms = sum(ms[1:]) / n_later
     print(f"[train] {cfg.name} as published, {cfg.n_layers} layers hier 2x4 "
           f"8x2048, dropless: steps 2-{DROPLESS_STEPS} {step_ms:.1f} ms a "
           f"step, {8 * 2048 / step_ms * 1e3:.1f} tokens/s; losses {losses}; "
           f"step 1 kept {kept} of {assigned} assignments; grouped launches "
-          f"in steps 2-{DROPLESS_STEPS} {got} (want {want}); peak allocated "
+          f"in steps 2-{DROPLESS_STEPS} {got} (want {want}); moe_gather "
+          f"launches {got_rows} (want {want_rows}); peak allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
     if got != want:
         raise AssertionError(f"grouped launches {got}, want {want}")
+    if got_rows != want_rows:
+        raise AssertionError(f"moe_gather launches {got_rows}, want "
+                             f"{want_rows}")
     launches = sum(got.values())
     del bundle, state, batches
     gc.collect()
@@ -3072,10 +3127,177 @@ def dropless_moe_phase(dev) -> dict:
     del a, b, f32, tf32
     gc.collect()
     torch.cuda.empty_cache()
+    capacity = capacity or {"launches": 0, "routings": ()}
+    rows = moe_gather_rows(dev, idx, E, g,
+                           sum(got_rows.values()) + capacity["launches"],
+                           capacity["routings"])
     return {"name": "grouped_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/matmul.cu",
             "replaces": "src/repro/models/moe.py:72", "launches": launches,
-            **record, "library_ms": None}
+            **record, "library_ms": None}, rows
+
+
+#: the gates' gradient (a dot product of d terms in the kernel's fixed
+#: order) against a float64 one, of its largest |entry|
+MOE_GATHER_DG_REL = 1e-6
+
+
+def moe_gather_operands(dev, g, idx, E: int, tables=None, d: int = 1536
+                        ) -> dict:
+    """The four ``moe_gather`` entries' operands on the routing ``idx``
+    (..., N, k), d wide, f32: the dropless tables (``segment_tables``, b 1,
+    every cell one slot) or, with ``tables`` = (e0, n_local, capacity), the
+    capacity path's as ``moe_block`` builds them (``dispatch_tables``, b the
+    leading dims: dropped slots and other groups' experts a sentinel in inv,
+    cells no slot reaches one in table and back); seeded rows and gates.
+    Returns entry -> its arguments."""
+    import torch
+    from repro_torch.models import moe
+    k = idx.shape[-1]
+    if tables is None:
+        N = idx.numel() // k
+        slot = moe.segment_tables(idx, E)[0].reshape(1, 1, N * k)
+        table = slot // k
+    else:
+        e0, n_local, capacity = tables
+        N = idx.shape[-2]
+        table, slot = moe.dispatch_tables(idx, e0=e0, n_local=n_local,
+                                          capacity=capacity)
+    inv, perm, back = moe.combine_tables(slot, N, k)
+    b, S = inv.numel() // (N * k), table.shape[-2] * table.shape[-1]
+    # contiguous, as ``ops.MoeDispatch`` / ``MoeCombine`` hand them over
+    table, back = (t.reshape(b, S).contiguous() for t in (table, back))
+    inv, perm = (t.reshape(b, N, k).contiguous() for t in (inv, perm))
+    x, dy = (torch.randn((b, N, d), generator=g, device=dev)
+             for _ in range(2))
+    src, d_buf = (torch.randn((b, S, d), generator=g, device=dev)
+                  for _ in range(2))
+    gate = torch.softmax(torch.randn((b, N, k), generator=g, device=dev), -1)
+    gs = torch.gather(gate, -1, perm)
+    return {"dispatch": (x, table, inv), "combine": (src, gs, inv),
+            "combine_bwd": (dy, gs, inv, src, back),
+            "dispatch_bwd": (d_buf, inv)}
+
+
+def moe_gather_check(entry: str, args: tuple) -> tuple:
+    """One ``moe_gather`` entry's kernel on ``args`` against its plain
+    version, bit for bit, and against a second run of itself; combine_bwd's
+    d_g against a float64 dot product instead, within
+    ``MOE_GATHER_DG_REL`` of its largest |entry|.  Returns the largest
+    |kernel - reference| over the entry's outputs and d_g's error relative
+    to that largest entry (None for the other entries)."""
+    import torch
+    from repro_torch.kernels import moe_gather as kmoe
+    kern = getattr(kmoe, f"{entry}_cuda")
+    got, again, want = (r if isinstance(r, tuple) else (r,) for r in (
+        kern(*args), kern(*args), getattr(kmoe, f"{entry}_plain")(*args)))
+    rel = None
+    if entry == "combine_bwd":
+        dy, _, inv, src, _ = args
+        want = (want[0], (dy.double()[:, :, None, :]
+                          * kmoe.gather_rows(src.double(), inv)).sum(-1))
+        rel = ((got[1].double() - want[1]).abs().max()
+               / want[1].abs().max()).item()
+        if not rel <= MOE_GATHER_DG_REL:
+            raise AssertionError(f"moe_gather combine_bwd: d_g off by "
+                                 f"{rel:.3g} of float64's largest")
+    err = max((a.double() - w).abs().max().item() if a.numel() else 0.0
+              for a, w in zip(got, want))
+    bits = all(torch.equal(a, w) for a, w in zip(got, want)
+               if w.dtype == a.dtype)
+    if not (bits and all(torch.equal(a, b) for a, b in zip(got, again))):
+        raise AssertionError(f"moe_gather {entry}: the kernel is not the "
+                             f"plain version's bits, or not run to run")
+    return err, rel
+
+
+def moe_gather_rows(dev, idx, E: int, g, launches: int,
+                    capacity_routings=()) -> dict:
+    """Phase 19's row movements: the four ``moe_gather`` entries on the
+    tables of ``idx`` (a node run's dropless routing, M tokens x k), d 1536
+    f32, against their plain versions (the padded-gather and k-term
+    composition they replace; ``moe_gather_check``), each timed beside the
+    plain version and its bound (each input byte read once, each output
+    written once, at 3.35 TB/s); then checked alone on each of
+    ``capacity_routings`` (label, idx, e0, n_local, capacity: phase 15's
+    routings), batched and with sentinels.  Returns the kernels record (ms:
+    the four summed; max_abs_err the largest of every check's; dg_rel d_g's
+    largest relative error)."""
+    import torch
+    from repro_torch.analysis.roofline import HBM_BW
+    from repro_torch.kernels import moe_gather as kmoe
+    k, d = idx.shape[-1], 1536
+    M = idx.numel() // k
+    rows, words = 4.0 * M * d, 8.0 * M * k     # a (M, d) f32; an index table
+    moved = {
+        "dispatch": rows + 2 * words + k * rows,
+        "combine": k * rows + words + 4 * M * k + rows,
+        "combine_bwd": rows + 4 * M * k + 2 * words + 2 * k * rows
+        + 4 * M * k,
+        "dispatch_bwd": k * rows + words + rows,
+    }
+    record = {"max_abs_err": 0.0, "dg_rel": 0.0, "ms": 0.0, "plain_ms": 0.0,
+              "bound_ms": 0.0}
+
+    def checked(entry, args):
+        err, rel = moe_gather_check(entry, args)
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        if rel is not None:
+            record["dg_rel"] = max(record["dg_rel"], rel)
+        return ("bit-identical, run to run" if rel is None else
+                f"d_src bit-identical, run to run, d_g against float64 "
+                f"{rel:.3g} of its largest")
+
+    cases = moe_gather_operands(dev, g, idx, E, d=d)
+    for entry, args in cases.items():
+        note = checked(entry, args)
+        kern = getattr(kmoe, f"{entry}_cuda")
+        plain = getattr(kmoe, f"{entry}_plain")
+        k_ms = cuda_ms(lambda: kern(*args), 10)
+        p_ms = cuda_ms(lambda: plain(*args), 3)
+        bnd = moved[entry] / HBM_BW * 1e3
+        print(f"[kernel] moe_gather {entry} f32 M {M} k {k} d {d} (layer 0's "
+              f"routing): {note}  kernel {k_ms:.3f} ms "
+              f"({moved[entry] / k_ms / 1e6:.0f} GB/s)  plain {p_ms:.3f} ms "
+              f" bound {bnd:.3f} ms (bytes {moved[entry] / 1e9:.3f} GB at "
+              f"3.35 TB/s; {100 * bnd / k_ms:.1f}% of it)")
+        record["ms"] += k_ms
+        record["plain_ms"] += p_ms
+        record["bound_ms"] += bnd
+    print(f"[kernel] moe_gather the four entries: kernel {record['ms']:.3f} "
+          f"ms, plain {record['plain_ms']:.3f} ms, bound "
+          f"{record['bound_ms']:.3f} ms")
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    sentinel = empty = False
+    for label, r_idx, e0, n_local, capacity in capacity_routings:
+        cases = moe_gather_operands(dev, g, r_idx, E,
+                                    (e0, n_local, capacity), d)
+        _, table, inv = cases["dispatch"]
+        b, S = table.shape
+        N = inv.shape[1]
+        drop, hole = int((inv == S).sum()), int((table == N).sum())
+        sentinel, empty = sentinel or drop > 0, empty or hole > 0
+        notes = {entry: checked(entry, args) for entry, args in cases.items()}
+        print(f"[kernel] moe_gather on phase 15's {label} capacity routing "
+              f"(b {b}, N {N}, k {k}, {n_local} local experts x capacity "
+              f"{capacity}, d {d} f32): {drop} sentinel slots, {hole} empty "
+              f"cells; {notes}")
+        del cases, table, inv
+        gc.collect()
+        torch.cuda.empty_cache()
+    if capacity_routings and not (sentinel and empty):
+        raise AssertionError(f"phase 15's capacity routings left moe_gather "
+                             f"no sentinel slot ({sentinel}) or no empty "
+                             f"cell ({empty}) to check")
+    print(f"[kernel] moe_gather record: max |kernel - reference| "
+          f"{record['max_abs_err']:.3g} (d_g against float64), d_g "
+          f"{record['dg_rel']:.3g} of its largest")
+    return {"name": "moe_gather", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_gather.cu",
+            "replaces": "src/repro/models/moe.py:112", "launches": launches,
+            **record, "bound_by": "bytes", "library_ms": None}
 
 
 def collectives_bench(dev, g, *, sweep_elems, elems: int, big: int,
@@ -5165,7 +5387,7 @@ def main() -> int:
 
     # -- 15. the MoE family: granite-moe-3b-a800m ---------------------------
     t_phase = time.perf_counter()
-    moe_launches = moe_phase(dev)
+    moe_launches, moe_gathers = moe_phase(dev)
     print(f"[moe] flash launches in phase 15: {moe_launches}")
     for k_, v_ in moe_launches.items():
         launches[k_] += v_
@@ -5206,8 +5428,9 @@ def main() -> int:
 
     # -- 19. dropless MoE training: the grouped entry on the main path -----
     t_phase = time.perf_counter()
-    grouped = dropless_moe_phase(dev)
+    grouped, rows = dropless_moe_phase(dev, moe_gathers)
     launches["grouped_matmul"] = grouped["launches"]
+    launches["moe_gather"] = rows["launches"]
     print(f"[phase] dropless moe {time.perf_counter() - t_phase:.1f} s")
 
     for name, n in list(launches.items()) + list(flash_launches.items()):
@@ -5258,7 +5481,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/lru_scan.py:38",
         "launches": launches["lru_scan_bwd"], "max_abs_err": lrub_top["err"],
         "ms": lrub_top["ms"], "plain_ms": lrub_top["plain_ms"],
-        **least(lrub_top), "library_ms": None}, grouped]}))
+        **least(lrub_top), "library_ms": None}, grouped, rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

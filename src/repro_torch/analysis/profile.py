@@ -93,7 +93,7 @@ TP_RANGES = ("tp::", "_AllGatherFnBackward", "_PsumScatterFnBackward",
              "_PsumFnBackward")
 #: The MoE block's parts (``models.moe``): its ``moe::*`` ranges and the
 #: dispatch / combine gathers' backward nodes.
-MOE_RANGES = ("moe::", "_DispatchBackward", "_RowGatherBackward",
+MOE_RANGES = ("moe::", "MoeDispatchBackward", "MoeCombineBackward",
               "GroupedMatmulBackward")
 #: The xLSTM blocks' parts (``models.xlstm``): the mLSTM's intra-chunk
 #: products and chunk summaries, its cross-chunk prefix loop, its decode

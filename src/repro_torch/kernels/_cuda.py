@@ -31,7 +31,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("matmul.cu", "q4_matmul.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "lru_scan.cu", "lru_scan_bwd.cu")
+           "flash_attention_bwd.cu", "lru_scan.cu", "lru_scan_bwd.cu",
+           "moe_gather.cu")
 
 
 @dataclasses.dataclass(frozen=True)

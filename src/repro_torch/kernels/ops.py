@@ -25,7 +25,13 @@ gradients from the same kernel in its other layouts (NT and TN), each only
 where it is needed, so no transposed operand is copied; ``grouped_matmul``
 (the dropless MoE block's experts: rows sorted into segments, segment g
 times ``w[g]``) runs through ``GroupedMatmul`` the same way, on the
-kernel's grouped entry.  There is no fallback: a backward kernel that fails to build or launch raises.
+kernel's grouped entry.  The MoE block's row movements run through
+``MoeDispatch`` (tokens to expert order; backward: each token's k rows
+summed in order) and ``MoeCombine`` (each token's k expert rows times its
+gates, summed in order; backward: the gate times the gradient into each
+buffer row and the gates' dot products), on the entries of
+``kernels.moe_gather`` for CUDA tensors and their plain versions
+otherwise (CPU and meta).  There is no fallback: a backward kernel that fails to build or launch raises.
 ``q4_matmul`` has no backward kernel: on CUDA it refuses such a call instead
 of returning a tensor without a gradient (the ROADMAP item named in the
 error).  On the CPU the plain versions' own autograd serves every op (the
@@ -52,6 +58,7 @@ from typing import Iterator, Optional
 
 import torch
 
+from repro_torch.kernels import moe_gather
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain,
                                                  kernel_ready)
@@ -249,6 +256,54 @@ class GroupedMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = _grouped(x, dy, offsets, "tn")
         return dx, dw, None
+
+
+def _moe_gather(entry: str, *tensors: torch.Tensor):
+    """The ``moe_gather`` entry on its kernel for CUDA tensors, its plain
+    version otherwise."""
+    if any(t.device.type == "cuda" for t in tensors):
+        return getattr(moe_gather, f"{entry}_cuda")(
+            *(t.contiguous() for t in tensors))
+    return getattr(moe_gather, f"{entry}_plain")(*tensors)
+
+
+class MoeDispatch(torch.autograd.Function):
+    """Tokens x (b, N, d) into expert order through ``table`` (b, R) (``N``:
+    a zero row) -> (b, R, d), by ``dispatch``; ``inv`` (b, N, k), each
+    token's cells in ascending order (``R``: none), carries the gradient
+    back by ``dispatch_bwd``, each token's k rows summed in that order (no
+    scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, x, table, inv):
+        ctx.save_for_backward(inv)
+        return _moe_gather("dispatch", x, table, inv)
+
+    @staticmethod
+    def backward(ctx, d_buf):
+        (inv,) = ctx.saved_tensors
+        return _moe_gather("dispatch_bwd", d_buf, inv), None, None
+
+
+class MoeCombine(torch.autograd.Function):
+    """The expert rows src (b, S, d) back to tokens (b, N, d) by
+    ``combine``: row ``inv[t, j]`` (``S``: a zero row) times ``g[t, j]``,
+    added in ascending j.  ``back`` (b, S), each cell's slot ``t * k + j``
+    (``N * k``: empty), carries the gradients back by ``combine_bwd`` in
+    one pass: the gate times dy into each cell a slot reaches (zeros in the
+    empty ones) and each gate's dot product of dy with its row."""
+
+    @staticmethod
+    def forward(ctx, src, g, inv, back):
+        ctx.save_for_backward(src, g, inv, back)
+        return _moe_gather("combine", src, g, inv)
+
+    @staticmethod
+    def backward(ctx, dy):
+        src, g, inv, back = ctx.saved_tensors
+        d_src, d_g = _moe_gather("combine_bwd", dy, g, inv, src, back)
+        return (d_src if ctx.needs_input_grad[0] else None,
+                d_g if ctx.needs_input_grad[1] else None, None, None)
 
 
 def q4_matmul(a: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,

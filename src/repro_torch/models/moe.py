@@ -18,10 +18,12 @@ and the members whose rows a domain run folds into one batch
 capacity, as the reference's per-rank block is).
 
 Dispatch and combine are two gathers, transposes of each other, through
-the slot table and its inverse (``_Dispatch``, ``_RowGather``): no
-scatter-add, so no atomics, and each token's k contributions add in
-ascending expert order — the order the reference's scatter adds them in.
-The card's results are fixed run to run.  The expert products are batched
+the slot table and its inverse (``ops.MoeDispatch``, ``ops.MoeCombine``:
+on the card the hand-written row passes of ``kernels.moe_gather``, forward
+and backward; elsewhere their plain versions): no scatter-add, so no
+atomics, and each token's k contributions add in ascending expert order —
+the order the reference's scatter adds them in.  The card's results are
+fixed run to run.  The expert products are batched
 einsums, as in the reference (which computes them outside any Pallas
 kernel).
 
@@ -214,75 +216,17 @@ def combine_tables(slot: torch.Tensor, N: int, k: int):
     return inv, perm, back[..., :E * C].reshape(lead + (E, C))
 
 
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (b, M, d), idx (b, ...) in [0, M] -> (b, ..., d): row ``idx`` of
-    each batch entry's x, a zero row for ``M``."""
-    b, M, d = x.shape
-    pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1).reshape(-1, d)
-    off = torch.arange(b, device=x.device).reshape(
-        (b,) + (1,) * (idx.dim() - 1)) * (M + 1)
-    return pad.index_select(0, (idx + off).reshape(-1)).reshape(
-        tuple(idx.shape) + (d,))
-
-
-def _ordered_sum(r: torch.Tensor, w=None) -> torch.Tensor:
-    """Sum over the k axis (-2) of r (..., N, k, d), term by term in k
-    order (each term times ``w[..., j]`` with a weight (..., N, k))."""
-    k = r.shape[-2]
-    y = r[..., 0, :] if w is None else r[..., 0, :] * w[..., 0, None]
-    for j in range(1, k):
-        y = y + (r[..., j, :] if w is None else r[..., j, :] * w[..., j, None])
-    return y
-
-
-class _Dispatch(torch.autograd.Function):
-    """buf = tokens gathered through ``table`` (b, E, C, d); its gradient
-    is the gather back through ``inv``, each token's k slots summed in
-    ascending expert order (no scatter-add)."""
-
-    @staticmethod
-    def forward(ctx_, x, table, inv):
-        ctx_.save_for_backward(inv)
-        ctx_.shape = tuple(table.shape) + (x.shape[-1],)
-        return _rows(x, table)
-
-    @staticmethod
-    def backward(ctx_, g):
-        (inv,) = ctx_.saved_tensors
-        b, E, C, d = ctx_.shape
-        return _ordered_sum(_rows(g.reshape(b, E * C, d), inv)), None, None
-
-
-class _RowGather(torch.autograd.Function):
-    """Each token's k buffer rows (b, N, k, d), gathered through ``inv``;
-    its gradient is the gather back through ``back`` (every buffer cell
-    feeds at most one token slot)."""
-
-    @staticmethod
-    def forward(ctx_, buf, inv, back):
-        ctx_.save_for_backward(back)
-        b, E, C, d = buf.shape
-        ctx_.shape = (b, E, C, d)
-        return _rows(buf.reshape(b, E * C, d), inv)
-
-    @staticmethod
-    def backward(ctx_, g):
-        (back,) = ctx_.saved_tensors
-        b, E, C, d = ctx_.shape
-        N, k = g.shape[1], g.shape[2]
-        return _rows(g.reshape(b, N * k, d), back), None, None
-
-
 def dispatch(tokens: torch.Tensor, table: torch.Tensor, inv: torch.Tensor
              ) -> torch.Tensor:
     """tokens (..., N, d) -> the expert buffers (..., E, C, d) through
     ``table`` (``N`` gives a zero row); deterministic gradient."""
     lead = tuple(table.shape[:-2])
     b = math.prod(lead)
-    out = _Dispatch.apply(tokens.reshape((b,) + tuple(tokens.shape[-2:])),
-                          table.reshape((b,) + tuple(table.shape[-2:])),
-                          inv.reshape((b,) + tuple(inv.shape[-2:])))
-    return out.reshape(lead + tuple(out.shape[1:]))
+    E, C = table.shape[-2:]
+    out = ops.MoeDispatch.apply(
+        tokens.reshape((b,) + tuple(tokens.shape[-2:])),
+        table.reshape(b, E * C), inv.reshape((b,) + tuple(inv.shape[-2:])))
+    return out.reshape(lead + (E, C, out.shape[-1]))
 
 
 def combine(out_buf: torch.Tensor, gate: torch.Tensor, inv: torch.Tensor,
@@ -292,12 +236,12 @@ def combine(out_buf: torch.Tensor, gate: torch.Tensor, inv: torch.Tensor,
     tables of ``combine_tables``)."""
     lead = tuple(inv.shape[:-2])
     b = math.prod(lead)
-    rows = _RowGather.apply(
-        out_buf.reshape((b,) + tuple(out_buf.shape[-3:])),
-        inv.reshape((b,) + tuple(inv.shape[-2:])),
-        back.reshape((b,) + tuple(back.shape[-2:])))
+    E, C, d = out_buf.shape[-3:]
     g = torch.gather(gate, -1, perm).to(out_buf.dtype)
-    y = _ordered_sum(rows, g.reshape(rows.shape[:-1]))
+    y = ops.MoeCombine.apply(out_buf.reshape(b, E * C, d),
+                             g.reshape((b,) + tuple(g.shape[-2:])),
+                             inv.reshape((b,) + tuple(inv.shape[-2:])),
+                             back.reshape(b, E * C))
     return y.reshape(lead + tuple(y.shape[1:]))
 
 

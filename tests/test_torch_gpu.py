@@ -41,7 +41,10 @@ and two decode steps on the card against the CPU within 1e-4 relative, and
 xLSTM family (no hand-written kernel): ``xlstm-1.3b``'s full-width mLSTM
 and sLSTM blocks (forward, gradients, decode) and the reduced model's
 hier train step and cluster serving on 2x4 and ``2x(2x2)``, card against
-CPU.  The port's spans (``core.spans``) stay off the device timeline and
+CPU.  The MoE row movements (``csrc/moe_gather.cu``) equal their plain
+versions bit for bit at granite's width and on the capacity path's
+batched tables (the gates' gradient within 1e-6 of float64), run to run,
+and launch 32 / 32 / 16 / 16 times in a granite step.  The port's spans (``core.spans``) stay off the device timeline and
 time their work with CUDA event pairs.
 """
 
@@ -57,6 +60,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import lru_scan as klru
 from repro_torch.kernels import matmul as kmatmul
+from repro_torch.kernels import moe_gather as kmoe
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as kquant
 from repro_torch.models import ParallelCtx, build
@@ -1245,7 +1249,8 @@ def test_dropless_moe_block_on_the_card_matches_the_cpu(cuda):
     experts through the grouped kernel), on 2 x 256 tokens with its
     residual multiplier: two forward + backward runs on the card are
     bit-identical, and output and gradients match the CPU within 1e-4
-    relative where the routing agrees (as the capacity block's test)."""
+    relative where the routing agrees (as the capacity block's test); the
+    card runs one launch of each ``moe_gather`` entry, the CPU none."""
     from repro_torch.configs.base import MoESpec
     from repro_torch.models import meta, moe
     base = get_config("granite-moe-3b-a800m")
@@ -1262,10 +1267,13 @@ def test_dropless_moe_block_on_the_card_matches_the_cpu(cuda):
         xd = x.to(dev).requires_grad_(True)
         pd = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
         before = dict(kmatmul.grouped_launches_by_layout)
+        rows_before = dict(kmoe.launches)
         y = moe.moe_block(xd, pd, defs, ctx, cfg)
         gx, gw = torch.autograd.grad((y * y).sum(), (xd, pd["w_in"]))
         launched = {k: kmatmul.grouped_launches_by_layout[k] - before[k]
                     for k in kmatmul.LAYOUTS}
+        launched.update({k: kmoe.launches[k] - rows_before[k]
+                         for k in kmoe.ENTRIES})
         h = moe.rms_norm(x.to(dev), p["ln"].to(dev), cfg.norm_eps)
         idx, _ = moe.route(h.reshape(-1, cfg.d_model), p["router"].to(dev),
                            cfg.moe.top_k)
@@ -1273,8 +1281,9 @@ def test_dropless_moe_block_on_the_card_matches_the_cpu(cuda):
 
     (a, n_a), (b, _), (c, n_c) = run(cuda), run(cuda), run(
         torch.device("cpu"))
-    assert n_a == {"nn": 2, "nt": 2, "tn": 2}
-    assert n_c == {"nn": 0, "nt": 0, "tn": 0}
+    assert n_a == {"nn": 2, "nt": 2, "tn": 2, "dispatch": 1, "combine": 1,
+                   "combine_bwd": 1, "dispatch_bwd": 1}
+    assert not any(n_c.values())
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     same = (a[3] == c[3]).all(-1).reshape(2, 256)
     assert same.float().mean() > 0.95
@@ -1282,3 +1291,134 @@ def test_dropless_moe_block_on_the_card_matches_the_cpu(cuda):
         assert (u[same] - v[same]).abs().max() <= 1e-4 * v.abs().max()
     if bool(same.all()):
         assert (a[2] - c[2]).abs().max() <= 1e-4 * c[2].abs().max()
+
+
+def _moe_gather_all(x, table, src, g, inv, back, dy, d_buf, kernel):
+    """The four ``moe_gather`` entries on one set of operands: their kernels
+    or their plain versions (the composition they replace)."""
+    tail = "cuda" if kernel else "plain"
+    if kernel:
+        x, table, src, g, inv, back, dy, d_buf = (
+            t.contiguous() for t in (x, table, src, g, inv, back, dy, d_buf))
+    return (getattr(kmoe, f"dispatch_{tail}")(x, table, inv),
+            getattr(kmoe, f"combine_{tail}")(src, g, inv),
+            *getattr(kmoe, f"combine_bwd_{tail}")(dy, g, inv, src, back),
+            getattr(kmoe, f"dispatch_bwd_{tail}")(d_buf, inv))
+
+
+def _moe_gather_check(ops_, d_g_tol):
+    """Kernels against plain versions: buf, y, d_src and dx bit for bit,
+    d_g within ``d_g_tol`` of a float64 dot product's largest entry; a
+    second run of the kernels bit-identical; one launch of each entry."""
+    before = dict(kmoe.launches)
+    got = _moe_gather_all(*ops_, kernel=True)
+    again = _moe_gather_all(*ops_, kernel=True)
+    torch.cuda.synchronize()
+    assert {e: kmoe.launches[e] - before[e] for e in kmoe.ENTRIES} == \
+        dict.fromkeys(kmoe.ENTRIES, 2)
+    want = _moe_gather_all(*ops_, kernel=False)
+    for name, a, b, c in zip(("buf", "y", "d_src", "d_g", "dx"), got, again,
+                             want):
+        assert a.dtype == c.dtype and torch.equal(a, b), name
+        if name != "d_g":
+            assert torch.equal(a, c), name
+    _, _, src, _, inv, _, dy, _ = ops_
+    d_g64 = (dy.double()[:, :, None, :]
+             * kmoe.gather_rows(src.double(), inv)).sum(-1)
+    err = (got[3].double() - d_g64).abs().max() / d_g64.abs().max()
+    assert err.item() <= d_g_tol, err.item()
+    return got
+
+
+def test_moe_gather_kernels_at_granite_width(cuda):
+    """granite's dropless block as the benchmark's cell runs it: a node
+    run's M = 8192 tokens routed top 8 of 40 by a seeded router (real
+    skew), d 1536, f32; the tables of ``segment_tables`` /
+    ``combine_tables`` (no sentinel).  The kernels' buffers, combined rows,
+    buffers' gradient and tokens' gradient equal the plain composition bit
+    for bit, the gates' gradient is within 1e-6 of float64, two runs are
+    bit-identical."""
+    from repro_torch.models import moe
+    M, k, E, d = 8192, 8, 40, 1536
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn((1, M, d), generator=g, device=cuda) + torch.randn(
+        (d,), generator=g, device=cuda)          # a shared direction: skew
+    router = torch.randn((d, E), generator=g, device=cuda) * 0.05
+    idx, gate = moe.route(x[0], router, k)
+    order, counts, _ = moe.segment_tables(idx, E)
+    assert int(counts.max()) > 1.5 * M * k / E           # skewed segments
+    slot = order.reshape(1, 1, M * k)
+    inv, perm, back = moe.combine_tables(slot, M, k)
+    src = torch.randn((1, M * k, d), generator=g, device=cuda)
+    dy = torch.randn((1, M, d), generator=g, device=cuda)
+    d_buf = torch.randn((1, M * k, d), generator=g, device=cuda)
+    gs = torch.gather(gate[None], -1, perm)
+    _moe_gather_check((x, (slot // k).reshape(1, M * k), src, gs, inv,
+                       back.reshape(1, M * k), dy, d_buf), 1e-6)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 1536),
+                                     (torch.bfloat16, 1536),
+                                     (torch.float32, 98)], ids=str)
+def test_moe_gather_kernels_on_the_capacity_path(cuda, dtype, d):
+    """The capacity path's tables, batched as ``moe_block`` batches them:
+    b = 3 (tp ranks x members; expert groups e0 0 / 20 / 0 of 40 at ep 2),
+    512 tokens top 8 at capacity 1.25, so dropped slots (a sentinel in inv)
+    and empty cells (one in table and back); f32 and bf16 (every product
+    and sum rounded as the plain version's bf16 ops), and a row of 392
+    bytes (element-wise loads).  As at granite width; d_g within 1e-6 of
+    float64 (bf16: 1e-2)."""
+    from repro_torch.models import moe
+    b, N, k, E, n_local = 3, 512, 8, 40, 20
+    g = torch.Generator(device=cuda).manual_seed(32)
+    idx = torch.stack([torch.argsort(torch.rand((N, E), generator=g,
+                                                device=cuda), -1)[:, :k]
+                       for _ in range(b)])
+    e0 = torch.tensor([[0], [20], [0]], device=cuda)
+    C = int(N * k / E * 1.25) + 1
+    table, slot = moe.dispatch_tables(idx, e0=e0, n_local=n_local,
+                                      capacity=C)
+    inv, perm, back = moe.combine_tables(slot, N, k)
+    S = n_local * C
+    assert bool((inv == S).any()) and bool((table == N).any())
+    x = torch.randn((b, N, d), generator=g, device=cuda).to(dtype)
+    src = torch.randn((b, S, d), generator=g, device=cuda).to(dtype)
+    dy = torch.randn((b, N, d), generator=g, device=cuda).to(dtype)
+    d_buf = torch.randn((b, S, d), generator=g, device=cuda).to(dtype)
+    gate = torch.softmax(torch.randn((b, N, k), generator=g, device=cuda),
+                         -1)
+    gs = torch.gather(gate, -1, perm).to(dtype)
+    got = _moe_gather_check((x, table.reshape(b, S), src, gs, inv,
+                             back.reshape(b, S), dy, d_buf),
+                            1e-6 if dtype == torch.float32 else 1e-2)
+    empty = back.reshape(b, S) == N * k
+    assert not got[2][empty].any()
+    assert not got[3][inv == S].any()
+
+
+def test_moe_gather_launches_in_a_granite_step(cuda):
+    """One hier 2x4 step of granite as the benchmark's cell configures it
+    (8 of 32 layers, published widths and multipliers, dropless top 8 of
+    40; 8 x 256 tokens): each layer's block in each of the 2 node runs
+    launches dispatch and combine in its forward and again in the
+    recompute, combine_bwd and dispatch_bwd once: 32 / 32 / 16 / 16."""
+    import numpy as np
+    from repro_torch.configs.base import MoESpec
+    from repro_torch.runtime.steps import make_cluster_train_step
+    cfg = dataclasses.replace(
+        get_config("granite-moe-3b-a800m"), n_layers=8, tie_embeddings=True,
+        embed_scale=12.0, residual_scale=0.22, attn_scale=1 / 64,
+        logit_scale=6.0, mask_vocab_pad=True,
+        moe=MoESpec(num_experts=40, top_k=8, d_ff_expert=512,
+                    capacity_factor=None))
+    vc = VirtualCluster(pods=2, chips=4, device=cuda)
+    bundle = make_cluster_train_step(cfg, vc, mode="hier", global_batch=8)
+    state = bundle.init_layout_state(0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, size=(8, 256))
+    batch = bundle.layout_batch({"tokens": toks})
+    before = dict(kmoe.launches)
+    state, mt = bundle.step(state, batch)
+    torch.cuda.synchronize()
+    assert {e: kmoe.launches[e] - before[e] for e in kmoe.ENTRIES} == {
+        "dispatch": 32, "combine": 32, "combine_bwd": 16, "dispatch_bwd": 16}
+    assert torch.isfinite(mt["loss"]).all()

@@ -6,9 +6,11 @@ multiplier away from 1; dropless routing equal to the capacity path with
 room for every token (on 2x4 and 4x2), and refused with a tp axis; decode
 continuing prefill, dropless and with the softmax over the published
 vocabulary; the grouped product's plain version and its autograd
-Function; the flash plain path at a given scale equal to
-``scaled_dot_product_attention``; and the registered config left as the
-reference's."""
+Function; the MoE row movements (``kernels.moe_gather``'s plain versions,
+``ops.MoeDispatch`` / ``MoeCombine``) bit for bit the padded-gather and
+k-term composition they replaced, with ``gradcheck``; the flash plain path
+at a given scale equal to ``scaled_dot_product_attention``; and the
+registered config left as the reference's."""
 
 import dataclasses
 import json
@@ -24,6 +26,7 @@ from repro_torch.configs.base import MoESpec
 from repro_torch.core import tree as T
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import matmul as kmatmul
+from repro_torch.kernels import moe_gather as kmoe
 from repro_torch.kernels import ops
 from repro_torch.models import meta, moe
 from repro_torch.models.moe import drops
@@ -217,6 +220,184 @@ def test_grouped_plain_version_and_its_autograd_function():
     torch.testing.assert_close(wa.grad, wb.grad)
     with pytest.raises(ValueError, match="rise from 0"):
         kmatmul.grouped_matmul_plain(x, w, off.flip(0))
+
+
+# the MoE block's row movements as the port composed them before the
+# ``moe_gather`` entries (``kmoe.gather_rows``: a gather from a zero-padded
+# copy; ``kmoe.ordered_sum``: the k terms added one by one), with the
+# backward autograd built around them
+
+
+class _DispatchThen(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, x, table, inv):
+        ctx_.save_for_backward(inv)
+        return kmoe.gather_rows(x, table)
+
+    @staticmethod
+    def backward(ctx_, g):
+        (inv,) = ctx_.saved_tensors
+        return kmoe.ordered_sum(kmoe.gather_rows(g, inv)), None, None
+
+
+class _RowGatherThen(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, buf, inv, back):
+        ctx_.save_for_backward(back)
+        return kmoe.gather_rows(buf, inv)
+
+    @staticmethod
+    def backward(ctx_, g):
+        (back,) = ctx_.saved_tensors
+        b, N, k, d = g.shape
+        return kmoe.gather_rows(g.reshape(b, N * k, d), back), None, None
+
+
+def _row_by_row(x, table, src, g, inv, back, dy, d_buf):
+    """The four movements one row at a time, from their definitions: buf,
+    y, d_src, d_g and dx (a sentinel index reads nothing, an empty cell
+    gets zeros; the k terms added in ascending j)."""
+    b, N, k = inv.shape
+    S, d = src.shape[1:]
+    buf = torch.zeros((b, table.shape[1], d), dtype=x.dtype)
+    y, dx = (torch.zeros((b, N, d), dtype=x.dtype) for _ in range(2))
+    d_src = torch.zeros((b, S, d), dtype=x.dtype)
+    d_g = torch.zeros((b, N, k), dtype=x.dtype)
+    for e in range(b):
+        for r, t in enumerate(table[e].tolist()):
+            if t < N:
+                buf[e, r] = x[e, t]
+        for r, s in enumerate(back[e].tolist()):
+            if s < N * k:
+                d_src[e, r] = g[e, s // k, s % k] * dy[e, s // k]
+        for t in range(N):
+            rows = [src[e, r] if r < S else torch.zeros(d, dtype=x.dtype)
+                    for r in inv[e, t].tolist()]
+            grads = [d_buf[e, r] if r < S else torch.zeros(d, dtype=x.dtype)
+                     for r in inv[e, t].tolist()]
+            y[e, t], dx[e, t] = rows[0] * g[e, t, 0], grads[0]
+            for j in range(1, k):
+                y[e, t] = y[e, t] + rows[j] * g[e, t, j]
+                dx[e, t] = dx[e, t] + grads[j]
+            d_g[e, t] = torch.stack([(dy[e, t] * r_).sum() for r_ in rows])
+    return buf, y, d_src, d_g, dx
+
+
+def _gather_case(b, k, sentinels, seed, dtype=torch.float32):
+    """b batch entries of N tokens routed top k over E experts: the
+    capacity tables (C small, one expert of no token: dropped slots and
+    empty cells) or the dropless ones (every cell one slot), with x, the
+    gates and a gradient of the output, in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    N, E, d = 6, 4, 5
+    idx = torch.stack([torch.stack([torch.randperm(E, generator=g)[:k]
+                                    if k <= E else
+                                    torch.randint(E, (k,), generator=g)
+                                    for _ in range(N)]) for _ in range(b)])
+    if sentinels:
+        table, slot = moe.dispatch_tables(idx, e0=0, n_local=E + 1,
+                                          capacity=max(1, N * k // (2 * E)))
+    else:
+        slot = torch.stack([moe.segment_tables(i, E)[0] for i in idx])
+        slot = slot.reshape(b, 1, N * k)
+        table = slot // k
+    inv, perm, back = moe.combine_tables(slot, N, k)
+    S = slot.shape[-2] * slot.shape[-1]
+    assert bool((inv == S).any() and (back == N * k).any()) == sentinels
+    x = torch.randn((b, N, d), generator=g, dtype=dtype)
+    out = torch.randn(tuple(table.shape) + (d,), generator=g, dtype=dtype)
+    gate = torch.softmax(torch.randn((b, N, k), generator=g, dtype=dtype),
+                         -1)
+    dy = torch.randn((b, N, d), generator=g, dtype=dtype)
+    return dict(table=table, inv=inv, perm=perm, back=back, x=x, out=out,
+                gate=gate, dy=dy, S=S, N=N, d=d)
+
+
+@pytest.mark.parametrize("sentinels", [False, True],
+                         ids=["dropless", "capacity"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_moe_gather_equals_the_composition_it_replaces(k, b, sentinels):
+    """``moe.dispatch`` / ``moe.combine`` (through ``ops.MoeDispatch`` /
+    ``ops.MoeCombine``, whose backward is written by hand) against the
+    padded-gather and k-term composition they replace with autograd's
+    backward, f32 bit for bit: the buffers, the combined rows, the tokens'
+    gradient, the buffers' gradient and the gates' gradient; the four
+    ``moe_gather`` plain versions against the movements done row by row
+    (bit for bit; the gates' gradient, a sum in another order, within
+    1e-6); a batch of b tables, with sentinels (dropped slots, empty cells)
+    or none; then ``gradcheck`` of both Functions in float64."""
+    c = _gather_case(b, k, sentinels, seed=10 * k + b)
+    table, inv, perm, back = c["table"], c["inv"], c["perm"], c["back"]
+    S, N, d = c["S"], c["N"], c["d"]
+
+    def run(new):
+        x = c["x"].clone().requires_grad_(True)
+        out = c["out"].clone().requires_grad_(True)
+        gate = c["gate"].clone().requires_grad_(True)
+        if new:
+            buf = moe.dispatch(x, table, inv)
+            y = moe.combine(out, gate, inv, perm, back)
+        else:
+            buf = _DispatchThen.apply(x, table.reshape(b, S), inv)
+            rows = _RowGatherThen.apply(out.reshape(b, S, d), inv,
+                                        back.reshape(b, S))
+            y = kmoe.ordered_sum(rows, torch.gather(gate, -1, perm))
+        grads = torch.autograd.grad(
+            (buf.reshape(b, S, d), y), (x, out, gate),
+            (c["out"].reshape(b, S, d), c["dy"]))
+        return (buf.reshape(b, S, d), y) + grads
+
+    got, want = run(True), run(False)
+    for name, a, w in zip(("buf", "y", "dx", "d_out", "d_gate"), got, want):
+        assert a.shape == w.shape and torch.equal(a, w), name
+
+    g = torch.gather(c["gate"], -1, perm)
+    src, tab = c["out"].reshape(b, S, d), table.reshape(b, S)
+    back_ = back.reshape(b, S)
+    d_src, d_g = kmoe.combine_bwd_plain(c["dy"], g, inv, src, back_)
+    assert torch.equal(d_src, want[3].reshape(b, S, d))
+    assert torch.equal(d_g.new_zeros(c["gate"].shape).scatter_(-1, perm, d_g),
+                       want[4])
+    plain = (kmoe.dispatch_plain(c["x"], tab, inv),
+             kmoe.combine_plain(src, g, inv), d_src, d_g,
+             kmoe.dispatch_bwd_plain(src, inv))
+    slow = _row_by_row(c["x"], tab, src, g, inv, back_, c["dy"], src)
+    for name, a, w in zip(("buf", "y", "d_src", "d_g", "dx"), plain, slow):
+        if name == "d_g":
+            torch.testing.assert_close(a, w, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(a, w), name
+
+    c64 = _gather_case(b, k, sentinels, seed=10 * k + b,
+                       dtype=torch.float64)
+    x, src = (t.requires_grad_(True) for t in
+              (c64["x"], c64["out"].reshape(b, S, d)))
+    g = torch.gather(c64["gate"], -1, perm).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda x_: ops.MoeDispatch.apply(x_, tab, inv), (x,))
+    assert torch.autograd.gradcheck(
+        lambda s_, g_: ops.MoeCombine.apply(s_, g_, inv, back_), (src, g))
+
+
+def test_moe_gather_plain_versions_check_their_operands():
+    """The contract the kernels share: int64 indices, one float dtype, the
+    shapes of one batch."""
+    x = torch.zeros((2, 4, 3))
+    inv = torch.zeros((2, 4, 2), dtype=torch.long)
+    with pytest.raises(TypeError, match="int64"):
+        kmoe.dispatch_plain(x, torch.zeros((2, 5), dtype=torch.int32), inv)
+    with pytest.raises(ValueError, match="want"):
+        kmoe.dispatch_plain(x, torch.zeros((3, 5), dtype=torch.long), inv)
+    with pytest.raises(ValueError, match="want"):
+        kmoe.dispatch_bwd_plain(x, inv[:, :, 0])
+    with pytest.raises(TypeError, match="float32"):
+        kmoe.combine_plain(x, torch.zeros((2, 4, 2), dtype=torch.float64),
+                           inv)
+    with pytest.raises(TypeError, match="rows"):
+        kmoe.combine_plain(x.long(), torch.zeros((2, 4, 2)), inv)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmoe.combine_cuda(x, torch.zeros((2, 4, 2)), inv)
 
 
 @pytest.mark.parametrize("layout", ["bhtd", "bthd"])

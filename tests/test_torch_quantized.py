@@ -527,8 +527,9 @@ def test_every_kernel_builds_through_one_builder(monkeypatch):
     builder returns for its own source."""
     from repro_torch.kernels import flash_attention_bwd as kflash_bwd
     from repro_torch.kernels import lru_scan_bwd as klru_bwd
+    from repro_torch.kernels import moe_gather as kmoe
     asked = []
-    mods = (kmatmul, kquant, kflash, kflash_bwd, klru, klru_bwd)
+    mods = (kmatmul, kquant, kflash, kflash_bwd, klru, klru_bwd, kmoe)
 
     def fake(source):
         asked.append(source)
@@ -547,7 +548,7 @@ def test_every_kernel_builds_through_one_builder(monkeypatch):
             mod.library.cache_clear()
     assert asked == ["matmul.cu", "q4_matmul.cu", "flash_attention.cu",
                      "flash_attention_bwd.cu", "lru_scan.cu",
-                     "lru_scan_bwd.cu"]
+                     "lru_scan_bwd.cu", "moe_gather.cu"]
     assert set(asked) == set(_cuda.SOURCES)
     for lib, mod in zip(libs, mods):
         for name in mod._ENTRY.values():
